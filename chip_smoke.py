@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AI-DEAL serving path on one NVIDIA card.
+"""Drive the PyTorch port's AI-DEAL training and serving paths on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -10,28 +11,52 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
 2. build    compiles every kernel of `ideal_gan_tpu_torch/csrc/` with nvcc
             (one process per source, in parallel) and prints the seconds
             and the ptxas register / spill report.
-3. kernels  each kernel at the main path's shapes against its plain PyTorch
+3. kernels  each kernel at the main paths' shapes against its plain PyTorch
             version on the same inputs (TF32 off), with CUDA-event times of
             both and the card's lower bound for the same work:
             - map fit: the serving call (MEBCRN, nb=8) and planar buffers
               at nb=8 and nb=128 in f32, bf16 echoes, and bf16 echoes with
               bf16 rho; accuracy guard against the synthetic ground truth
               (max err < 5e-2) and the bf16 PDFF gate (< 3e-3);
-            - ConvLSTM forward: Cin=2 and Cin=1, F=36, ne=6, nb=8.
-4. e2e      `ideal_gan_tpu_torch.cli.infer.main` on 16 synthetic 384²
+            - ConvLSTM forward: Cin=2 and Cin=1, F=36, ne=6, nb=8;
+            - IDEAL cycle: the training call (MEBCRN, nb=8, 384², ne=6) with
+              the per-row TE test and with the forced uniform recurrence;
+            - ConvLSTM backward: Cin=2 and Cin=1, F=36, ne=6, nb=8, dx, dk
+              and db against `convlstm_backward_reference` in float64 and
+              float32, on inputs that keep clear of leaky_relu's kink on
+              either side of it and on random ones (see
+              `convlstm_bwd_entry`).
+4. train    `ideal_gan_tpu_torch.cli.train_unsup.main` with --out_vars PM
+            on 16 synthetic 384² slices at batch 8 for 2 epochs (AI-DEAL,
+            F=36, seeded random weights), with every launch counter set to 0
+            just before and read just after; fails unless the cycle, the
+            ConvLSTM backward and forward kernels ran (at least 8, 8 and 96
+            launches), every loss is finite and every ConvLSTM parameter of
+            both nets has a non-zero gradient. Then one FM step and one R2
+            step on the card (TF32 off) and on the CPU from the same weights
+            and batch (F=36, 192², batch 2, the synthetic cohort with
+            1e-3 noise; see `step_parity`): loss and every gradient leaf
+            compared. A witness repeats the FM step on the noise-free
+            cohort on the card with the kernels and with the plain
+            ConvLSTM, and on the CPU: its loss and module outputs are held,
+            and it reports where the card's gradients leave the CPU's.
+5. e2e      `ideal_gan_tpu_torch.cli.infer.main` on 16 synthetic 384²
             slices at batch 8 (AI-DEAL, F=36, seeded random weights), with
             every launch counter set to 0 just before and read just after;
-            fails unless both kernels ran (at least 2 fit and 24 ConvLSTM
-            launches) and every map is finite. Then the first chunk again on
-            the card (TF32 off) and on the CPU with the same weights, maps
-            and PDFF compared.
+            fails unless the fit and ConvLSTM forward kernels ran (at least
+            2 fit and 24 ConvLSTM launches) and every map is finite. Then the
+            first chunk again on the card (TF32 off) and on the CPU with the
+            same weights, maps and PDFF compared.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
-`{"kernels": [...]}` summary and `{"ok": true, "device": {...}}`.
+`{"kernels": [...]}` summary (launches from the path that runs each kernel:
+the train phase for the cycle and the ConvLSTM backward, e2e for the fit and
+the ConvLSTM forward) and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -46,6 +71,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 SIZE, NE, F_MAIN, NB_SERVE = 384, 6, 36, 8
+# g-gate bias of the ConvLSTM backward's inputs kept clear of leaky_relu's
+# kink: every g-gate pre-activation and cell positive, or every one negative
+KINK_FREE = {"smooth": 1.5, "negative": -1.5}
 
 
 def emit(phase: str, **fields) -> None:
@@ -282,6 +310,412 @@ def convlstm_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
         tolerance="|d| <= 1e-4 * max(|plain|max, 1)", cases=cases)
 
 
+def cycle_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
+    """The cycle kernel against `physics.cycle_full` on the same inputs."""
+    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch.ops import ideal
+    from ideal_gan_tpu_torch.physics import constants as pc
+    acqs, maps, te = bench_inputs(nb, size, dev)
+    pm = (maps[:, 2:3] + 0.02).contiguous()  # off the truth: Â ≠ A
+    plain = lambda: physics.cycle_full(acqs, pm, te)  # noqa: E731
+    ref_rho, ref_recon = plain()
+    plain_ms = time_ms(plain, dev)
+    nv = nb * size * size
+    # read echoes 8·ne + (φ, R2*) 8, write ρ 16 + Â 8·ne bytes a voxel
+    n_bytes = nv * (NE * 8 + 8 + 16 + NE * 8)
+    b_ms, b_by = bound(n_bytes, nv * NE * 48)
+    pre = ops.precompute_cycle_matrices(te)
+    cases = []
+    for flag, rel, ab in ((None, 1e-4, 1e-5), (True, 2e-4, 2e-5)):
+        # the trainer's call (with its per-call M, M⁺ build), and the
+        # kernel alone with M, M⁺ precomputed (the call itself on the CPU,
+        # where there is no kernel)
+        call = lambda: ops.cycle_full_fused(  # noqa: E731
+            acqs, pm, te, uniform_te=flag)
+        kernel_only = call if dev.type == "cpu" else (
+            lambda: ideal._cycle_kernel(
+                acqs, pm, te, 1.5, pc.R2_SC, pc.FM_SC, pc.RHO_SC,
+                pc.WATER_FAT_7PEAK, flag, pre))
+        rho, recon = kernel_only()
+        errs = [float((a - r).abs().max())
+                for a, r in ((rho, ref_rho), (recon, ref_recon))]
+        ok = all(bool(((a - r).abs() <= ab + rel * r.abs()).all())
+                 for a, r in ((rho, ref_rho), (recon, ref_recon)))
+        cases.append(dict(uniform_te=flag, nb=nb, ne=NE, size=size,
+                          rho_max_abs_err=errs[0],
+                          recon_max_abs_err=errs[1], within_tol=ok,
+                          tolerance=f"|d| <= {ab} + {rel}*|plain|",
+                          ms=time_ms(kernel_only, dev),
+                          call_ms=time_ms(call, dev), plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+    bad = [c for c in cases if not c["within_tol"]]
+    if bad:
+        raise AssertionError(f"cycle kernel disagrees with cycle_full: {bad}")
+    main = cases[1]  # the trainer passes uniform_te=True
+    return dict(
+        name=ops.CYCLE_KERNEL.name, route="cuda",
+        source=ops.CYCLE_KERNEL.source,
+        replaces="ideal_gan_tpu/ops/pallas_ideal.py:168", launches=None,
+        max_abs_err=max(max(c["rho_max_abs_err"], c["recon_max_abs_err"])
+                        for c in cases),
+        ms=main["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        tolerance="|d| <= 1e-5 + 1e-4*|plain| (per-row TE test), "
+                  "2e-5 + 2e-4*|plain| (forced uniform recurrence)",
+        cases=cases)
+
+
+def lstm_bwd_flops(nb, size, cin, f, ne=NE, dx=False):
+    """(necessary, done) FLOP of one ConvLSTM backward: necessary = one
+    forward over all echoes + dinp (dh_{e-1} for e ≥ 1, dx_e if asked) + dk;
+    done adds the kernel's recomputes (states of echoes < ne-1, and the
+    gates of every echo in the reverse sweep, where the necessary forward
+    is counted once)."""
+    per = 2 * 9 * 4 * f * nb * size * size  # per input (output) channel
+    fwd = per * (cin + (ne - 1) * (cin + f))
+    dinp = per * ((ne - 1) * f + (ne * cin if dx else 0))
+    dk = fwd
+    states = per * (cin + (ne - 2) * (cin + f)) if ne > 1 else 0
+    return fwd + dinp + dk, fwd + dinp + dk + states
+
+
+def convlstm_bwd_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
+                       f: int = F_MAIN) -> dict:
+    """The ConvLSTM backward kernels against `convlstm_backward_reference`
+    (dx, dk, db) at Cin=2 and Cin=1, each on three inputs:
+
+    - "smooth": weights 0.1× He-normal and g-gate bias +1.5, so that every
+      g-gate pre-activation and every cell stays positive and no pixel is
+      near leaky_relu's kink; the kernel is held to 1e-4 of max |plain| of
+      the plain version run in float64 on the same inputs;
+    - "negative": as "smooth" with g-gate bias −1.5, so that every g-gate
+      pre-activation and every cell stays negative (leaky_relu's 0.2
+      branch), held the same way;
+    - "random": He-normal weights and random biases, where among the 255 M
+      gate values of a batch some lie within float32 rounding of the kink,
+      and any two float32 computations take the other branch of its
+      derivative (1 or 0.2) at different pixels; the kernel must be no
+      further from the float64 plain version than twice the float32 plain
+      version is, plus 1e-5 of max |plain|.
+
+    Timed on the random inputs as the trainer calls it (no dx)."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import ops
+    cases = []
+    for cin in (2, 1):
+        for kind in ("smooth", "negative", "random"):
+            rng = np.random.default_rng(10 + cin)
+            x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
+                                  * 0.5).astype(np.float32)).to(dev)
+            k = torch.from_numpy((rng.normal(size=(3, 3, cin + f, 4 * f))
+                                  * (2.0 / (9 * (cin + f))) ** 0.5
+                                  ).astype(np.float32)).to(dev)
+            b = torch.from_numpy((rng.normal(size=(4 * f,)) * 0.1)
+                                 .astype(np.float32)).to(dev)
+            if kind in KINK_FREE:
+                k *= 0.1
+                b[2 * f:3 * f] = KINK_FREE[kind]
+            g = torch.from_numpy(rng.normal(size=(nb, size, size, f))
+                                 .astype(np.float32)).to(dev)
+            got = ops.convlstm_backward(x, k, b, g)
+            ref = ops.convlstm_backward_reference(x, k, b, g)
+            ref64 = ops.convlstm_backward_reference(
+                *(t.double() for t in (x, k, b, g)))
+            case = dict(cin=cin, F=f, ne=NE, nb=nb, inputs=kind)
+            ok = True
+            for name, a, r, t in zip(("dx", "dk", "db"), got, ref, ref64):
+                scale = float(t.abs().max())
+                vs64 = float((a.double() - t).abs().max())
+                plain64 = float((r.double() - t).abs().max())
+                case[name] = dict(max_abs_err=float((a - r).abs().max()),
+                                  max_abs_err_vs_f64=vs64,
+                                  plain_f32_vs_f64=plain64, scale=scale)
+                ok &= vs64 <= (1e-4 * scale if kind in KINK_FREE
+                               else 2 * plain64 + 1e-5 * scale)
+            del got, ref, ref64
+            if kind == "random":
+                kernel_ms = time_ms(lambda: ops.convlstm_backward(  # noqa
+                    x, k, b, g, need_dx=False), dev, iters=3, warmup=1)
+                plain_ms = time_ms(lambda: ops.convlstm_backward_reference(
+                    x, k, b, g, need_dx=False), dev, iters=3, warmup=1)
+                # partial yardstick: one echo's weight-gradient convolution
+                inp = torch.zeros((nb, cin + f, size, size), device=dev)
+                dg = torch.zeros((nb, 4 * f, size, size), device=dev)
+                wgrad_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                    inp, (4 * f, cin + f, 3, 3), dg, padding=1), dev,
+                    iters=5)
+                need, done = lstm_bwd_flops(nb, size, cin, f)
+                n_bytes = 4 * (x.numel() + 2 * k.numel() + 2 * b.numel()
+                               + g.numel())
+                b_ms, b_by = bound(n_bytes, need)
+                case.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, gflop_necessary=need / 1e9,
+                            gflop_done=done / 1e9,
+                            cudnn_one_echo_wgrad_ms_partial=wgrad_ms)
+                del inp, dg
+            case["within_tol"] = ok
+            cases.append(case)
+            if not ok:
+                raise AssertionError(f"convlstm backward disagrees with the "
+                                     f"reference: {case}")
+            del x, g
+            torch.cuda.empty_cache()
+    main = cases[2]  # Cin=2, random inputs
+    return dict(
+        name=ops.CONVLSTM_BWD_KERNEL.name, route="cuda",
+        source=ops.CONVLSTM_BWD_KERNEL.source,
+        replaces="ideal_gan_tpu/ops/pallas_convlstm.py:517", launches=None,
+        max_abs_err=max(c[n]["max_abs_err_vs_f64"] for c in cases
+                        if c["inputs"] in KINK_FREE
+                        for n in ("dx", "dk", "db")),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        tolerance="smooth and negative inputs: |d| <= 1e-4 * max|plain f64| "
+                  "for each of dx, dk, db (max_abs_err: the largest, vs the "
+                  "plain version in float64); random inputs: |d vs f64| <= "
+                  "2 * |plain f32 vs f64| + 1e-5 * max|plain|",
+        cases=cases)
+
+
+def _grads(net):
+    return {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+            if p.grad is not None}
+
+
+@contextlib.contextmanager
+def plain_convlstm():
+    """The ConvLSTM Function on its plain versions (`convlstm_reference`,
+    `convlstm_backward_reference`) on every device: the kernels taken out,
+    for the witness runs of `step_parity` only."""
+    from ideal_gan_tpu_torch.ops import convlstm as mod
+    saved = mod.convlstm_forward, mod.convlstm_backward
+    mod.convlstm_forward = mod.convlstm_reference
+    mod.convlstm_backward = mod.convlstm_backward_reference
+    try:
+        yield
+    finally:
+        mod.convlstm_forward, mod.convlstm_backward = saved
+
+
+def _trace(net):
+    """Forward hooks on every module of `net` that keep its output and the
+    gradient reaching that output and its first input. Returns (outs,
+    grads, order, handles); `order` lists the gradients' keys as the
+    backward reaches them ("name" an output, "name<in" an input)."""
+    import torch
+    outs, grads, order = {}, {}, []
+
+    def keep(key):
+        def fn(g):
+            order.append(key)
+            grads[key] = g.detach().cpu()
+        return fn
+
+    def hook(name):
+        def fn(mod, inputs, out):
+            outs[name] = out.detach().cpu()
+            if out.requires_grad:
+                out.register_hook(keep(name))
+            if inputs and isinstance(inputs[0], torch.Tensor) \
+                    and inputs[0].requires_grad:
+                inputs[0].register_hook(keep(name + "<in"))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n or "unet"))
+               for n, m in net.named_modules()]
+    return outs, grads, order, handles
+
+
+def _steps(cfg, nets, acqs, te, where, steps, plain=False, trace=False):
+    """The FM and/or R2 step's loss and the trained net's gradient leaves on
+    `where`; with `trace`, also g_fm's module outputs and gradients."""
+    import torch
+    from ideal_gan_tpu_torch.train import unsup
+    A = torch.from_numpy(acqs).to(where)
+    t = torch.from_numpy(te).to(where)
+    off = torch.zeros((), device=where)
+    makes = {"fm": (unsup.make_loss_fn, 0), "r2": (unsup.make_r2_loss_fn, 1)}
+    res = {}
+    for step in steps:
+        make, i = makes[step]
+        for n in nets:
+            n.zero_grad()
+        traced = _trace(nets[0]) if trace else None
+        with plain_convlstm() if plain else contextlib.nullcontext():
+            loss, _ = make(cfg, *nets)(off, A, t)
+            loss.backward()
+        res[step] = dict(loss=float(loss.detach()), grads=_grads(nets[i]))
+        if traced:
+            for h in traced[3]:
+                h.remove()
+            res[step]["trace"] = traced[:3]
+    return res
+
+
+def _rel(a, b) -> float:
+    """max |a − b| over max |b| (over 1 where b is all zero)."""
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def _compare(run, ref) -> dict:
+    """Loss and gradient leaves of one step's run against a reference run."""
+    if set(run["grads"]) != set(ref["grads"]):
+        raise AssertionError("gradient leaves differ")
+    g, g_ref = run["grads"], ref["grads"]
+    scale = max(float(v.abs().max()) for v in g_ref.values())
+    worst = max(g_ref, key=lambda n: float((g[n] - g_ref[n]).abs().max()))
+    return dict(
+        loss=run["loss"], loss_ref=ref["loss"],
+        loss_rel_diff=abs(run["loss"] - ref["loss"]) / max(abs(ref["loss"]),
+                                                           1.0),
+        grad_max_rel=float((g[worst] - g_ref[worst]).abs().max())
+        / max(scale, 1e-12),
+        grad_worst_leaf=worst, grad_scale=scale, leaves=len(g_ref))
+
+
+def _pool_routes(x, x_ref) -> dict:
+    """2×2 max-pool windows of one max-pool input on two devices: the share
+    with an exact tie on each, and the share where the two route the
+    gradient to another pixel."""
+    import torch.nn.functional as F
+    nb, c, h, w = x.shape
+
+    def ties(t):
+        win = t.reshape(nb, c, h // 2, 2, w // 2, 2)
+        top = win.amax(dim=(3, 5), keepdim=True)
+        return float(((win == top).sum(dim=(3, 5)) > 1).float().mean())
+
+    idx = F.max_pool2d(x, 2, return_indices=True)[1]
+    idx_ref = F.max_pool2d(x_ref, 2, return_indices=True)[1]
+    return dict(ties=ties(x), ties_ref=ties(x_ref),
+                routed_elsewhere=float((idx != idx_ref).float().mean()))
+
+
+def _signs(z, z_ref) -> dict:
+    """One tensor on two devices: the share of exact zeros on each, the
+    largest |z| where z_ref is exactly zero, and the share of elements where
+    z > 0 differs (where a ReLU on it passes its gradient)."""
+    ref_zero = z_ref == 0
+    return dict(zeros=float((z == 0).float().mean()),
+                zeros_ref=float(ref_zero.float().mean()),
+                max_abs_where_ref_zero=float(z[ref_zero].abs().max())
+                if bool(ref_zero.any()) else 0.0,
+                mask_differs=float(((z > 0) != (z_ref > 0)).float().mean()))
+
+
+def step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """One FM step's and one R2 step's loss and gradients on `dev` and on
+    the CPU from the same weights and batch (TF32 off on the card).
+
+    The gated batch is the synthetic cohort plus N(0, 1e-3) noise, as real
+    acquisitions carry. The cohort itself is exactly zero outside its mask;
+    on it the card's gradients differ from the CPU's by more than the
+    tolerance (PERF.md §7). A witness measures that case: the FM step on
+    the noise-free batch on the card with the kernels, on the card with the
+    plain ConvLSTM in their place (`plain_convlstm`), and on the CPU, each
+    card run compared with the CPU and the two card runs with each other;
+    how far the card's forward values and gradients are from the CPU's at
+    every module of g_fm; how the max-pools route, and where the ReLUs
+    (and the ConvLSTM output before the first) are exactly zero and pass on
+    each device. `main` holds its loss and forward values, not its
+    gradients. The noisy batch's steps also run with the plain ConvLSTM on
+    the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import unsup
+
+    cpu = torch.device("cpu")
+    cfg = dict(unsup.DEFAULTS, n_G_filters=f, out_vars="PM")
+    clean, _, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    noisy = clean + 1e-3 * np.random.default_rng(2).normal(
+        size=clean.shape).astype(np.float32)
+    g_fm, g_r2 = unsup.build_models(cfg)
+    gen = torch.Generator().manual_seed(3)
+    g_fm.init_params(gen)
+    g_r2.init_params(gen)
+
+    def run(acqs, where, steps, **kw):
+        nets = [copy.deepcopy(n).to(where) for n in (g_fm, g_r2)]
+        return _steps(cfg, nets, acqs, te, where, steps, **kw)
+
+    out = {}
+    card = run(noisy, dev, ("fm", "r2"))
+    card_plain = run(noisy, dev, ("fm", "r2"), plain=True)
+    ref = run(noisy, cpu, ("fm", "r2"))
+    for step in ("fm", "r2"):
+        out[step] = _compare(card[step], ref[step])
+        out[step]["plain_convlstm_on_card_vs_cpu"] = _compare(
+            card_plain[step], ref[step])["grad_max_rel"]
+
+    card = run(clean, dev, ("fm",), trace=True)["fm"]
+    card_plain = run(clean, dev, ("fm",), plain=True)["fm"]
+    ref = run(clean, cpu, ("fm",), trace=True)["fm"]
+    outs, grads, _ = card["trace"]
+    outs_ref, grads_ref, order_ref = ref["trace"]
+    fwd = [[n, _rel(outs[n], t)] for n, t in outs_ref.items()]
+    bwd = [[k, _rel(grads[k], grads_ref[k])] for k in order_ref]
+    out["zero_background_fm"] = dict(
+        card_vs_cpu=_compare(card, ref),
+        plain_convlstm_on_card_vs_cpu=_compare(card_plain, ref),
+        card_vs_plain_convlstm_on_card=_compare(card, card_plain),
+        first_forward_over_1e_3=next((n for n, r in fwd if r > 1e-3), None),
+        first_gradient_over_1e_2=next((k for k, r in bwd if r > 1e-2), None),
+        maxpool={n: _pool_routes(outs[n], outs_ref[n])
+                 for n in outs_ref if n.count(".") == 1
+                 and n.startswith("down.")},
+        lstm_out=_signs(outs["lstm"], outs_ref["lstm"]),
+        relu={n: _signs(outs[n], outs_ref[n]) for n in outs_ref
+              if n.endswith((".conv1", ".conv2"))},
+        forward_rel=fwd, gradient_rel=bwd)
+    return out
+
+
+def train_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+                batch: int = NB_SERVE, f: int = F_MAIN,
+                parity_size: int = 192, parity_batch: int = 2) -> dict:
+    """The training CLI on the card with the launch counters read around
+    it, then the card-vs-CPU step parity."""
+    import math
+
+    from ideal_gan_tpu_torch import ops
+    from ideal_gan_tpu_torch.cli import train_unsup
+
+    argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+            str(batch), "--epochs", "2", "--out_vars", "PM", "--n_G_filters",
+            str(f), "--seed", "0", "--device", str(dev), "--output_base",
+            str(out_dir)]
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result = train_unsup.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    losses = [v for ep in result["epochs"] for k, v in ep.items()
+              if k.endswith("loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train losses not finite: {result['epochs']}")
+    state = result["state"]
+    no_grad = [f"{net}.{n}" for net in ("g_fm", "g_r2")
+               for n, p in getattr(state, net).lstm.named_parameters()
+               if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    if no_grad:
+        raise AssertionError(f"ConvLSTM parameters without a gradient: "
+                             f"{no_grad}")
+    last = result["epochs"][-1]
+    step_ms = last["seconds"] / last["steps"] * 1e3
+    set_tf32(False)
+    parity = step_parity(dev, parity_size, parity_batch, f)
+    return dict(launches=launches, wall_s=wall, epochs=result["epochs"],
+                ms_per_step_pair=step_ms,
+                slices_per_s=batch * 1e3 / step_ms, parity=parity,
+                parity_shape=dict(size=parity_size, batch=parity_batch, F=f))
+
+
 def e2e_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
               batch: int = NB_SERVE) -> dict:
     """The serving CLI on the card with the launch counters read around it,
@@ -357,14 +791,39 @@ def main() -> int:
     t_start = time.perf_counter()
     build_phase()
     set_tf32(False)
-    kernels = [fit_entry(dev), convlstm_entry(dev)]
+    kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
+               convlstm_bwd_entry(dev)]
     emit("kernels", card=smi, kernels=kernels)
-    set_tf32(True)  # the serving run at PyTorch's defaults
+    set_tf32(True)  # the runs at PyTorch's defaults
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        train = train_phase(dev, Path(tmp))
+    emit("train", card=smi, **train)
+    need = {"ideal_cycle": 8, "convlstm_bwd": 8, "convlstm_fwd": 96}
+    short = {k: v for k, v in train["launches"].items()
+             if v < need.get(k, 0)}
+    if short:
+        raise AssertionError(f"training path skipped kernels: {short}")
+    # MODEL_PARITY.json's tolerances: f32 on both sides (TF32 off), sums in
+    # other orders through ~20 conv layers, the recurrence and the cycle
+    bad = {k: v for k, v in train["parity"].items() if k in ("fm", "r2")
+           and (v["loss_rel_diff"] > 2e-5 or v["grad_max_rel"] > 2e-2)}
+    if bad:
+        raise AssertionError(f"card and CPU train steps disagree: {bad}")
+    # on the noise-free cohort the gradients are not held (PERF.md §7), but
+    # the loss and every module's forward values are
+    witness = train["parity"]["zero_background_fm"]
+    worst_fwd = max(r for _, r in witness["forward_rel"])
+    if witness["card_vs_cpu"]["loss_rel_diff"] > 2e-5 or worst_fwd > 1e-3:
+        raise AssertionError(f"card and CPU FM forwards disagree on the "
+                             f"noise-free cohort: loss "
+                             f"{witness['card_vs_cpu']}, module outputs "
+                             f"{worst_fwd}")
+    set_tf32(True)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         e2e = e2e_phase(dev, Path(tmp))
     emit("e2e", card=smi, **e2e)
     need = {"ideal_fit": 2, "convlstm_fwd": 24}
-    short = {k: v for k, v in e2e["launches"].items() if v < need[k]}
+    short = {k: v for k, v in e2e["launches"].items() if v < need.get(k, 0)}
     if short:
         raise AssertionError(f"main path skipped kernels: {short}")
     # float32 everywhere (TF32 off on the card); cuDNN's and the CPU's
@@ -374,8 +833,10 @@ def main() -> int:
     if e2e["maps_max_abs_err_vs_cpu"] > 5e-3 \
             or e2e["pdff_max_abs_err_vs_cpu"] > 5e-3:
         raise AssertionError(f"card and CPU maps disagree: {e2e}")
+    path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
+               "convlstm_bwd": train}
     for k in kernels:
-        k["launches"] = e2e["launches"][k["name"]]
+        k["launches"] = path_of[k["name"]]["launches"][k["name"]]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,9 +35,11 @@ CATEGORIES = (
 )
 
 
-def category(name: str) -> str:
+def category(name: str, categories=CATEGORIES) -> str:
+    """The first of `categories` ((category, name fragments), ...) whose
+    fragment occurs in a kernel's name, else "other kernels"."""
     low = name.lower()
-    for cat, keys in CATEGORIES:
+    for cat, keys in categories:
         if any(k in low for k in keys):
             return cat
     return "other kernels"

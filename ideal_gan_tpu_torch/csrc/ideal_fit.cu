@@ -32,17 +32,19 @@
 // same kernel reads planar (nb, ne, H, W) buffers and the interleaved
 // (nb, ne, H, W, 2) layout without a copy.
 //
-// CUDA rather than Triton: the same nvcc/ctypes build then serves both of
-// the port's kernels.
+// CUDA rather than Triton: the same nvcc/ctypes build serves all of the
+// port's kernels, and the phasor code is shared with ideal_cycle.cu
+// (ideal_phasor.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ideal_phasor.cuh"
+
 namespace {
 
-constexpr int kNs = 2;
-constexpr int kThreads = 256;
-constexpr float kTwoPi = 6.283185307179586f;
+using ideal::kNs;
+using ideal::kThreads;
 
 struct FitArgs {
   const void* s_re;
@@ -79,14 +81,8 @@ __global__ void __launch_bounds__(kThreads) fit_kernel(FitArgs a) {
     sm_mp[i] = a.mp[b * 2 * kNs * NE + i];
   for (int i = threadIdx.x; i < NE; i += blockDim.x)
     sm_te[i] = a.te[b * NE + i];
-  if (MODE == 2 && threadIdx.x == 0) {
-    const float* t = a.te + b * NE;
-    const double d0 = (double)t[1] - (double)t[0];
-    bool uni = true;
-    for (int e = 2; e < NE; ++e)
-      uni = uni && fabs(((double)t[e] - (double)t[e - 1]) - d0) <= 1e-9;
-    sm_uniform = uni;
-  }
+  if (MODE == 2 && threadIdx.x == 0)
+    sm_uniform = ideal::te_is_uniform<NE>(a.te + b * NE);
   __syncthreads();
   const bool uniform = MODE == 1 || (MODE == 2 && sm_uniform);
 
@@ -99,17 +95,8 @@ __global__ void __launch_bounds__(kThreads) fit_kernel(FitArgs a) {
 
   float c = 0.f, s = 0.f, dc = 0.f, ds = 0.f;
   if (uniform) {
-    const float te1 = sm_te[0];
-    const float dte = sm_te[1] - sm_te[0];
-    float sn, cs;
-    sincosf(-kTwoPi * te1 * phi, &sn, &cs);
-    const float g1 = expf(te1 * r2);
-    c = cs * g1;
-    s = sn * g1;
-    sincosf(-kTwoPi * dte * phi, &sn, &cs);
-    const float gd = expf(dte * r2);
-    dc = cs * gd;
-    ds = sn * gd;
+    ideal::phasor(-1.f, sm_te[0], phi, r2, c, s);
+    ideal::phasor(-1.f, sm_te[1] - sm_te[0], phi, r2, dc, ds);
   }
 
   float acc[kNs][2];
@@ -118,14 +105,7 @@ __global__ void __launch_bounds__(kThreads) fit_kernel(FitArgs a) {
 
 #pragma unroll
   for (int e = 0; e < NE; ++e) {
-    if (!uniform) {
-      const float te_e = sm_te[e];
-      float sn, cs;
-      sincosf(-kTwoPi * te_e * phi, &sn, &cs);
-      const float g = expf(te_e * r2);
-      c = cs * g;
-      s = sn * g;
-    }
+    if (!uniform) ideal::phasor(-1.f, sm_te[e], phi, r2, c, s);
     const float sre = load(pre + e * a.s_e);
     const float sim = load(pim + e * a.s_e);
     const float yre = c * sre - s * sim;
@@ -137,11 +117,7 @@ __global__ void __launch_bounds__(kThreads) fit_kernel(FitArgs a) {
       acc[sp][0] += mre * yre - mim * yim;
       acc[sp][1] += mre * yim + mim * yre;
     }
-    if (uniform && e < NE - 1) {
-      const float nc = c * dc - s * ds;
-      s = c * ds + s * dc;
-      c = nc;
-    }
+    if (uniform && e < NE - 1) ideal::rotate(c, s, dc, ds);
   }
 
   TOut* ore = static_cast<TOut*>(a.r_re) + b * a.r_b + v * a.r_v;

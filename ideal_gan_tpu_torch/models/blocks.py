@@ -19,8 +19,10 @@ def get_activation(name):
     return {
         "relu": F.relu,
         # the reference reaches leaky_relu through tf.nn.leaky_relu, whose
-        # default slope is 0.2
-        "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.2),
+        # default slope is 0.2; written as Flax's where(x >= 0, ...) so that
+        # the derivative at 0 is 1 as in the JAX package (F.leaky_relu's is
+        # the slope)
+        "leaky_relu": lambda x: torch.where(x >= 0, x, 0.2 * x),
         "tanh": torch.tanh,
         "sigmoid": torch.sigmoid,
         "gelu": lambda x: F.gelu(x, approximate="tanh"),

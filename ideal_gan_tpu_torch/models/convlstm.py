@@ -7,8 +7,10 @@ convolution with bias and a recurrent convolution without, and are merged
 along the input-channel axis at call time into one (3, 3, Cin+F, 4F) kernel,
 so that each echo is a single convolution over concat(x_e, h). Gate order is
 keras i, f, g, o; the cell activation is leaky_relu and the recurrent
-activation sigmoid. The recurrence runs in `ops.convlstm.convlstm_forward`:
-the hand-written kernel for CUDA tensors, the plain version for CPU tensors.
+activation sigmoid. The recurrence runs in `ops.convlstm.convlstm_fused`:
+the hand-written forward and backward kernels for CUDA tensors, the plain
+versions for CPU tensors. Gradients reach `input_conv.weight`,
+`input_conv.bias` and `recurrent_conv.weight` through `merged_kernel()`.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class ConvLSTM(nn.Module):
         return k.permute(2, 3, 1, 0).contiguous()
 
     def forward(self, x):
-        hidden = lstm_ops.convlstm_forward(
+        hidden = lstm_ops.convlstm_fused(
             x.float().contiguous(), self.merged_kernel(),
             self.input_conv.bias.contiguous(), self.activation,
             self.recurrent_activation)

@@ -2,14 +2,19 @@
 tensors the entry points launch the kernels; for CPU tensors they call the
 kernels' plain PyTorch versions."""
 
-from .convlstm import CONVLSTM_KERNEL, convlstm_forward, convlstm_reference
-from .ideal import (FIT_KERNEL, fit_rho_fused, fit_rho_planar,
+from .convlstm import (CONVLSTM_BWD_KERNEL, CONVLSTM_KERNEL,
+                       convlstm_backward, convlstm_backward_reference,
+                       convlstm_forward, convlstm_fused, convlstm_reference)
+from .ideal import (CYCLE_KERNEL, FIT_KERNEL, cycle_full_fused, cycle_fused,
+                    fit_rho_fused, fit_rho_planar, precompute_cycle_matrices,
                     precompute_fit_matrices)
 
-KERNELS = (FIT_KERNEL, CONVLSTM_KERNEL)
+KERNELS = (FIT_KERNEL, CONVLSTM_KERNEL, CYCLE_KERNEL, CONVLSTM_BWD_KERNEL)
 
 __all__ = [
-    "CONVLSTM_KERNEL", "FIT_KERNEL", "KERNELS", "convlstm_forward",
-    "convlstm_reference", "fit_rho_fused", "fit_rho_planar",
-    "precompute_fit_matrices",
+    "CONVLSTM_BWD_KERNEL", "CONVLSTM_KERNEL", "CYCLE_KERNEL", "FIT_KERNEL",
+    "KERNELS", "convlstm_backward", "convlstm_backward_reference",
+    "convlstm_forward", "convlstm_fused", "convlstm_reference",
+    "cycle_full_fused", "cycle_fused", "fit_rho_fused", "fit_rho_planar",
+    "precompute_cycle_matrices", "precompute_fit_matrices",
 ]

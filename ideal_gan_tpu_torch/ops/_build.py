@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 with `nvcc` for Hopper (`sm_90a`) into `ideal_gan_tpu_torch/_build/`, then
 loaded with `ctypes`. The library file name carries a hash of the source
 and flags, so an edited source is rebuilt and a stale build is never
-loaded. `build_all()` starts one `nvcc` per source, all at once.
+loaded. Sources may include the shared headers `csrc/*.cuh`, which the
+hash covers too. `build_all()` starts one `nvcc` per source, all at once.
 """
 
 from __future__ import annotations
@@ -39,10 +40,19 @@ def _nvcc() -> str:
     return found
 
 
+def sources() -> tuple[str, ...]:
+    """The name of every kernel source, `csrc/<name>.cu`."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}.{digest[:12]}.so"
+    """The library path: a hash of the source, every shared header of
+    `csrc/` (a header edit rebuilds every source) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -73,9 +83,11 @@ def _finish(name: str, out: Path, proc) -> None:
     os.replace(proc.tmp, out)
 
 
-def build_all(names=("ideal_fit", "convlstm_fwd")) -> dict[str, str]:
-    """Compile every named kernel source in parallel (no-op for sources
-    already built). Returns {name: ptxas report}."""
+def build_all(names=None) -> dict[str, str]:
+    """Compile the named kernel sources (default: every `csrc/*.cu`) in
+    parallel; a no-op for sources already built. Returns {name: ptxas
+    report}."""
+    names = sources() if names is None else names
     with _lock:
         started = [(n, *_start(n)) for n in names]
         for name, out, proc in started:

@@ -1,17 +1,23 @@
-"""The multi-echo ConvLSTM forward on the card (counterpart of
-`ideal_gan_tpu/ops/pallas_convlstm.py`'s forward).
+"""The multi-echo ConvLSTM on the card (counterpart of
+`ideal_gan_tpu/ops/pallas_convlstm.py`).
 
-`convlstm_forward` launches the hand-written kernel `csrc/convlstm_fwd.cu`
-once per echo for CUDA tensors, and calls the plain version
-`convlstm_reference` for CPU tensors. A CUDA tensor the kernel cannot take
+`convlstm_fused` is the differentiable entry point, a
+`torch.autograd.Function` that saves only (x, k_merged, bias), as the JAX
+package's custom VJP does. Its forward is `convlstm_forward`, which launches
+the hand-written kernel `csrc/convlstm_fwd.cu` once per echo for CUDA
+tensors; its backward is `convlstm_backward`, which recomputes the per-echo
+states with that kernel and runs the reverse sweep of `csrc/convlstm_bwd.cu`.
+CPU tensors take the plain versions, `convlstm_reference` and
+`convlstm_backward_reference`; a CUDA tensor the kernels cannot take
 raises. Layouts follow the JAX package at this boundary: x (nb, ne, H, W,
-Cin), merged kernel (3, 3, Cin+F, 4F) HWIO, bias (4F,), result (nb, H, W, F).
-The result is a channels-last view of an NCHW buffer, so `.permute(0, 3, 1,
-2)` gives the contiguous (nb, F, H, W) tensor the rest of the UNet uses.
+Cin), merged kernel (3, 3, Cin+F, 4F) HWIO, bias (4F,), result (nb, H, W,
+F). The result is a channels-last view of an NCHW buffer, so `.permute(0,
+3, 1, 2)` gives the contiguous (nb, F, H, W) tensor the rest of the UNet
+uses.
 
-The TPU kernel's block search (9 MiB VMEM budget, halo efficiency floor),
-its routing switch and its viability gate have no counterpart: the per-echo
-kernel takes any H, W.
+The TPU kernels' block search (9 MiB VMEM budget, halo efficiency floor),
+taint fronts, dx overlap-add, routing switch and viability gate have no
+counterpart: the per-echo kernels take any H, W.
 """
 
 from __future__ import annotations
@@ -33,7 +39,42 @@ CONVLSTM_KERNEL = Kernel("convlstm_fwd", {
                                _I, _I, _I, _I, _P]),
     "convlstm_smem_bytes": (_L, [_I, _I]),
 })
+CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
+    "convlstm_echo_bwd": (_I, [_P, _L] + [_P] * 11 + [_L, _P, _P]
+                          + [_I] * 8 + [_P]),
+    "convlstm_bwd_reduce": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
+    "convlstm_bwd_smem_bytes": (_L, [_I, _I]),
+})
 _MAX_SMEM = 227 * 1024
+
+
+def _echo_step(x_e, h_prev, c_prev, weight, bias, act, rec_act):
+    """One echo of the recurrence, NCHW: (h_e, c_e) from x_e (nb, Cin, H,
+    W), the previous state (zeros at echo 0), weight (4F, Cin+F, 3, 3) and
+    bias; the arithmetic of `_jnp_reference`."""
+    inp = torch.cat([x_e, h_prev], dim=1)
+    gates = F.conv2d(inp, weight, padding=1) + bias[:, None, None]
+    i, fg, gg, o = torch.split(gates, weight.shape[0] // 4, dim=1)
+    cell = rec_act(fg) * c_prev + rec_act(i) * act(gg)
+    return rec_act(o) * act(cell), cell
+
+
+def _reference_states(x, k_merged, bias, activation, recurrent_activation):
+    """The per-echo states [(h_e, c_e)] of the plain recurrence, NCHW."""
+    act = get_activation(activation)
+    rec_act = get_activation(recurrent_activation)
+    weight = k_merged.permute(3, 2, 0, 1).to(x.dtype)  # (4F, Cin+F, 3, 3)
+    b = bias.to(x.dtype)
+    nb, _, h, w, _ = x.shape
+    f = k_merged.shape[-1] // 4
+    hidden = x.new_zeros((nb, f, h, w))
+    cell = x.new_zeros((nb, f, h, w))
+    states = []
+    for e in range(x.shape[1]):
+        hidden, cell = _echo_step(x[:, e].permute(0, 3, 1, 2), hidden, cell,
+                                  weight, b, act, rec_act)
+        states.append((hidden, cell))
+    return states
 
 
 def convlstm_reference(x, k_merged, bias, activation="leaky_relu",
@@ -41,21 +82,49 @@ def convlstm_reference(x, k_merged, bias, activation="leaky_relu",
     """The plain recurrence (mirrors `_jnp_reference`): per echo one SAME
     3×3 convolution over concat(x_e, h) with the merged kernel, keras gate
     order i, f, g, o. Returns the final hidden state (nb, H, W, F)."""
+    states = _reference_states(x, k_merged, bias, activation,
+                               recurrent_activation)
+    return states[-1][0].permute(0, 2, 3, 1)
+
+
+def convlstm_backward_reference(x, k_merged, bias, g,
+                                activation="leaky_relu",
+                                recurrent_activation="sigmoid",
+                                need_dx=True):
+    """The plain backward (mirrors the non-TPU branch of `_fused_bwd`):
+    rematerialise the per-echo states, then sweep the echoes in reverse,
+    applying autograd to one echo step at a time around the recomputed
+    state. g = dL/dh_final (nb, H, W, F). Returns (dx (nb, ne, H, W, Cin)
+    or None when not `need_dx`, dk (3, 3, Cin+F, 4F), db (4F,))."""
     act = get_activation(activation)
     rec_act = get_activation(recurrent_activation)
-    nb, ne, h, w, _ = x.shape
-    f = k_merged.shape[-1] // 4
-    weight = k_merged.permute(3, 2, 0, 1).to(x.dtype)  # (4F, Cin+F, 3, 3)
-    hidden = x.new_zeros((nb, f, h, w))
-    cell = x.new_zeros((nb, f, h, w))
-    for e in range(ne):
-        inp = torch.cat([x[:, e].permute(0, 3, 1, 2), hidden], dim=1)
-        gates = F.conv2d(inp, weight, padding=1) + bias.to(x.dtype)[:, None,
-                                                                    None]
-        i, fg, gg, o = torch.split(gates, f, dim=1)
-        cell = rec_act(fg) * cell + rec_act(i) * act(gg)
-        hidden = rec_act(o) * act(cell)
-    return hidden.permute(0, 2, 3, 1)
+    with torch.no_grad():
+        states = _reference_states(x, k_merged, bias, activation,
+                                   recurrent_activation)
+    ne = x.shape[1]
+    zeros = torch.zeros_like(states[0][0])  # the state before echo 0
+    dh, dc = g.permute(0, 3, 1, 2), zeros
+    dx = [None] * ne
+    dk = torch.zeros_like(k_merged)
+    db = torch.zeros_like(bias)
+    for e in range(ne - 1, -1, -1):
+        with torch.enable_grad():
+            x_e = x[:, e].permute(0, 3, 1, 2).detach().requires_grad_(need_dx)
+            k = k_merged.detach().requires_grad_()
+            b = bias.detach().requires_grad_()
+            prev = [zeros, zeros] if e == 0 else \
+                [t.detach().requires_grad_() for t in states[e - 1]]
+            h, c = _echo_step(x_e, *prev, k.permute(3, 2, 0, 1), b, act,
+                              rec_act)
+            wrt = [t for t in [x_e] + prev if t.requires_grad] + [k, b]
+            got = list(torch.autograd.grad((h, c), wrt, (dh, dc)))
+        dk += got[-2]
+        db += got[-1]
+        if need_dx:
+            dx[e] = got.pop(0).permute(0, 2, 3, 1)
+        if e > 0:
+            dh, dc = got[0], got[1]
+    return torch.stack(dx, dim=1) if need_dx else None, dk, db
 
 
 def _check(x, k_merged, bias, activation, recurrent_activation):
@@ -126,3 +195,120 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
         CONVLSTM_KERNEL.launches += 1
         check_launch(CONVLSTM_KERNEL, rc)
     return h_buf[ne % 2].permute(0, 2, 3, 1)
+
+
+def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
+                      recurrent_activation="sigmoid", need_dx=True):
+    """ConvLSTM backward over the echo axis.
+
+    x (nb, ne, H, W, Cin); k_merged (3, 3, Cin+F, 4F); bias (4F,); g =
+    dL/dh_final (nb, H, W, F) → (dx (nb, ne, H, W, Cin), or None when not
+    `need_dx`; dk (3, 3, Cin+F, 4F); db (4F,)), float32.
+
+    On the card: the forward kernel recomputes h_e, c_e for e < ne-1 into
+    an (ne-1, nb, F, H, W) stack (about 1 GB each at nb=8, 384², F=36), then
+    `convlstm_echo_bwd` runs echo e = ne-1 .. 0 of the reverse sweep and
+    `convlstm_bwd_reduce` sums the deterministic dk/db slot partials.
+    """
+    if x.device.type == "cpu":
+        return convlstm_backward_reference(x, k_merged, bias, g, activation,
+                                           recurrent_activation, need_dx)
+    nb, ne, h, w, cin, f = _check(x, k_merged, bias, activation,
+                                  recurrent_activation)
+    if tuple(g.shape) != (nb, h, w, f) or g.device != x.device \
+            or g.dtype != torch.float32:
+        raise ValueError(f"convlstm backward: g must be float32 "
+                         f"{(nb, h, w, f)} on {x.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    smem = CONVLSTM_BWD_KERNEL.fn("convlstm_bwd_smem_bytes")(cin, f)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"convlstm backward: Cin+F={cin + f} needs {smem} B "
+                         f"of shared memory, more than a block has")
+    dev = x.device
+    c = cin + f
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    echo_stride = h * w * cin
+    x_b = ne * echo_stride
+
+    def x_at(e):
+        return x.data_ptr() + 4 * e * echo_stride
+
+    # the per-echo states the reverse sweep linearises around
+    hs = torch.empty((max(ne - 1, 1), nb, f, h, w), dtype=torch.float32,
+                     device=dev)
+    cs = torch.empty_like(hs)
+    fwd = CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
+    for e in range(ne - 1):
+        rc = fwd(x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
+                 hs[e - 1].data_ptr() if e else None,
+                 cs[e - 1].data_ptr() if e else None,
+                 hs[e].data_ptr(), cs[e].data_ptr(), nb, cin, f, h, w,
+                 int(e > 0), dev.index, stream)
+        CONVLSTM_KERNEL.launches += 1
+        check_launch(CONVLSTM_KERNEL, rc)
+
+    # k with taps flipped, (4F, 3, 3, C): dinp is a forward convolution
+    # of dgates with it
+    wt = k_merged.flip(0, 1).permute(3, 0, 1, 2).contiguous()
+    dgates = torch.empty((nb, 4 * f, h, w), dtype=torch.float32, device=dev)
+    dh_in = g.permute(0, 3, 1, 2).contiguous()
+    dh_bufs = [torch.empty_like(dh_in) for _ in range(2)]
+    dc_bufs = [torch.empty_like(dh_in) for _ in range(2)]
+    dc_in = None
+    n_slots = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    part = torch.zeros((n_slots, 9 * c * 4 * f), dtype=torch.float32,
+                       device=dev)
+    part_b = torch.zeros((n_slots, 4 * f), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    step = CONVLSTM_BWD_KERNEL.fn("convlstm_echo_bwd")
+    for e in range(ne - 1, -1, -1):
+        has_state = e > 0
+        dh_out, dc_out = dh_bufs[e % 2], dc_bufs[e % 2]
+        rc = step(
+            x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
+            wt.data_ptr(),
+            hs[e - 1].data_ptr() if has_state else None,
+            cs[e - 1].data_ptr() if has_state else None,
+            dh_in.data_ptr(), None if dc_in is None else dc_in.data_ptr(),
+            dgates.data_ptr(), dc_out.data_ptr() if has_state else None,
+            dh_out.data_ptr() if has_state else None,
+            dx.data_ptr() + 4 * e * echo_stride if need_dx else None, x_b,
+            part.data_ptr(), part_b.data_ptr(), n_slots, nb, cin, f, h, w,
+            int(has_state), dev.index, stream)
+        CONVLSTM_BWD_KERNEL.launches += 1
+        check_launch(CONVLSTM_BWD_KERNEL, rc)
+        dh_in, dc_in = dh_out, dc_out
+    dk = torch.empty_like(k_merged)
+    db = torch.empty_like(bias)
+    rc = CONVLSTM_BWD_KERNEL.fn("convlstm_bwd_reduce")(
+        part.data_ptr(), part_b.data_ptr(), dk.data_ptr(), db.data_ptr(),
+        n_slots, part.shape[1], 4 * f, dev.index, stream)
+    CONVLSTM_BWD_KERNEL.launches += 1
+    check_launch(CONVLSTM_BWD_KERNEL, rc)
+    return dx, dk, db
+
+
+class _ConvLSTMFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k_merged, bias, activation, recurrent_activation):
+        ctx.acts = (activation, recurrent_activation)
+        ctx.save_for_backward(x, k_merged, bias)
+        return convlstm_forward(x, k_merged, bias, activation,
+                                recurrent_activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k_merged, bias = ctx.saved_tensors
+        dx, dk, db = convlstm_backward(x, k_merged, bias, g, *ctx.acts,
+                                       need_dx=ctx.needs_input_grad[0])
+        return dx, dk, db, None, None
+
+
+def convlstm_fused(x, k_merged, bias, activation="leaky_relu",
+                   recurrent_activation="sigmoid"):
+    """The differentiable ConvLSTM: `convlstm_forward`, whose backward is
+    `convlstm_backward` from the saved (x, k_merged, bias) only. dx is
+    computed only when x needs a gradient (on the training path x is the
+    data). Layouts as `convlstm_forward`."""
+    return _ConvLSTMFused.apply(x, k_merged, bias, activation,
+                                recurrent_activation)

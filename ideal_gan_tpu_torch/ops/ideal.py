@@ -1,17 +1,22 @@
-"""The IDEAL map fit on the card (counterpart of
-`ideal_gan_tpu/ops/pallas_ideal.py`'s fit entry points).
+"""The IDEAL map fit and cycle on the card (counterpart of
+`ideal_gan_tpu/ops/pallas_ideal.py`'s fit and cycle entry points).
 
-For CUDA tensors every entry point launches the hand-written fit kernel
-(`csrc/ideal_fit.cu`); for CPU tensors it calls the kernel's plain version,
-`physics.ops.fit_rho`. A CUDA tensor the kernel cannot take raises: there is
-no fallback to the plain version on the card.
+For CUDA tensors every entry point launches a hand-written kernel
+(`csrc/ideal_fit.cu`, `csrc/ideal_cycle.cu`); for CPU tensors it calls the
+kernel's plain version, `physics.ops.fit_rho` or `physics.ops.cycle_full`.
+A CUDA tensor the kernel cannot take raises: there is no fallback to the
+plain version on the card.
 
-    ρ_s = (1/rho_sc) · Σ_e M⁺[s,e] · e^{−2πi·te_e·ξ} · S_e,
+    fit:    ρ_s = (1/rho_sc) · Σ_e M⁺[s,e] · e^{−2πi·te_e·ξ} · S_e
+    cycle:  the fit, then Â_e = e^{+2πi·te_e·ξ} · Σ_s M[e,s] · (rho_sc·ρ_s)
     ξ = φ·fm_sc + i·R2*·r2_sc/2π
 
-The TPU tiling constants of the JAX module (row tiles, the (16, 128) bf16
-block rule and its f32 fallbacks) have no counterpart here: the kernel
-indexes voxels directly and takes any H, W.
+`fit_rho_fused`, `cycle_full_fused` and `cycle_fused` are differentiable:
+as the JAX package's custom VJPs do, the backward is autograd through the
+plain version from the saved (acqs, param_maps, te), for the inputs that
+need a gradient. The TPU tiling constants of the JAX module (row tiles, the
+(16, 128) bf16 block rule and its f32 fallbacks) have no counterpart here:
+the kernels index voxels directly and take any H, W.
 """
 
 from __future__ import annotations
@@ -35,7 +40,13 @@ FIT_KERNEL = Kernel("ideal_fit", {
                        _L, _L, _L, _L, _L, _L, _L, _L,
                        _I, _I, _I, _F, _F, _F, _I, _P]),
 })
+CYCLE_KERNEL = Kernel("ideal_cycle", {
+    "ideal_cycle": (_I, [_P] * 11 + [_I, _I] + [_L] * 12
+                    + [_I, _F, _F, _F, _I, _P]),
+})
 MAX_ECHOES = 12
+# the profiler range around the physics Functions' reference backward
+BACKWARD_RANGE = "physics reference backward"
 
 
 def _phasor_mode(uniform_te: bool | None) -> int:
@@ -162,19 +173,9 @@ def fit_rho_planar(s_re, s_im, phi, r2s, te, field=1.5, r2_sc=R2_SC,
     return r_re, r_im
 
 
-def fit_rho_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
-                  rho_sc=RHO_SC, species: SpeciesModel = WATER_FAT_7PEAK,
-                  uniform_te: bool | None = None):
-    """Map fit on the MEBCRN layout, forward only.
-
-    acqs (nb, ne, H, W, 2); param_maps (nb, ≥1, H, W, 2) with row 0 =
-    (φ, R2*); te (nb, ne, 1). Returns (nb, ns, H, W, 2) float32. The kernel
-    reads the interleaved re/im planes in place (stride 2), no copy.
-    `uniform_te` as for `fit_rho_planar`.
-    """
-    if acqs.device.type == "cpu":
-        return pops.fit_rho(acqs, param_maps, te, field, r2_sc, fm_sc,
-                            rho_sc, species=species)
+def _fit_rho_kernel(acqs, param_maps, te, field, r2_sc, fm_sc, rho_sc,
+                   species, uniform_te):
+    """The fit kernel on MEBCRN views, forward only."""
     nb, ne, hgt, wdt, _ = acqs.shape
     ns = species.n_species
     mp, te_flat = precompute_fit_matrices(te, field, species)
@@ -184,3 +185,151 @@ def fit_rho_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
                 param_maps[:, 0:1, ..., 1], mp, te_flat, out[..., 0],
                 out[..., 1], uniform_te, fm_sc, r2_sc, rho_sc, ns)
     return out
+
+
+def _check_cycle_operands(acqs, param_maps, te):
+    nb, ne, hgt, wdt, two = acqs.shape
+    if two != 2 or acqs.dtype != torch.float32:
+        raise TypeError(f"cycle kernel: acqs must be float32 (nb, ne, H, W, "
+                        f"2), got {acqs.dtype} {tuple(acqs.shape)}")
+    if param_maps.dtype != torch.float32 \
+            or tuple(param_maps.shape[2:]) != (hgt, wdt, 2) \
+            or param_maps.shape[0] != nb:
+        raise ValueError(f"cycle kernel: param_maps must be float32 (nb, ≥1, "
+                         f"H, W, 2) over (φ, R2*), got {param_maps.dtype} "
+                         f"{tuple(param_maps.shape)}")
+    if not 2 <= ne <= MAX_ECHOES:
+        raise ValueError(f"cycle kernel: takes 2..{MAX_ECHOES} echoes, got "
+                         f"{ne}")
+    for name, t in (("param_maps", param_maps), ("te", te)):
+        if t.device != acqs.device:
+            raise ValueError(f"cycle kernel: {name} on {t.device}, acqs on "
+                             f"{acqs.device}")
+
+
+def precompute_cycle_matrices(te: torch.Tensor, field: float = 1.5,
+                              species: SpeciesModel = WATER_FAT_7PEAK):
+    """The cycle kernel's per-row operands for a TE train: (M as (nb,
+    2·ne·ns), M⁺ as (nb, 2·ns·ne), float32 re/im pairs; te as (nb, ne)
+    float32)."""
+    m = mx.model_matrix(te, field, species)
+    nb, ne = te.shape[0], te.shape[1]
+    return (_mat_scalars(m), _mat_scalars(mx.pinv_normal(m)),
+            te.reshape(nb, ne).float().contiguous())
+
+
+def _cycle_kernel(acqs, param_maps, te, field, r2_sc, fm_sc, rho_sc,
+                  species, uniform_te, precomputed=None):
+    """The cycle kernel on MEBCRN views: (ρ, Â), forward only."""
+    _check_cycle_operands(acqs, param_maps, te)
+    nb, ne, hgt, wdt, _ = acqs.shape
+    ns = species.n_species
+    if ns != 2:
+        raise ValueError(f"cycle kernel: takes 2 species, got {ns}")
+    m_s, mp_s, te_flat = precomputed or precompute_cycle_matrices(
+        te, field, species)
+    if m_s.shape != (nb, 2 * ne * ns) or mp_s.shape != m_s.shape \
+            or te_flat.shape != (nb, ne):
+        raise ValueError(f"cycle kernel: precomputed operands "
+                         f"{m_s.shape}, {mp_s.shape}, {te_flat.shape} do not "
+                         f"match {nb} rows of {ne} echoes")
+    rho = torch.empty((nb, ns, hgt, wdt, 2), dtype=torch.float32,
+                      device=acqs.device)
+    recon = torch.empty((nb, ne, hgt, wdt, 2), dtype=torch.float32,
+                        device=acqs.device)
+    s_re, s_im = acqs[..., 0], acqs[..., 1]
+    phi, r2s = param_maps[:, 0:1, ..., 0], param_maps[:, 0:1, ..., 1]
+    s_str = _flat_strides(s_re, "acqs")
+    p_str = _flat_strides(phi, "param_maps")
+    r_str = _flat_strides(rho[..., 0], "rho")
+    o_str = _flat_strides(recon[..., 0], "recon")
+    rc = CYCLE_KERNEL.fn("ideal_cycle")(
+        s_re.data_ptr(), s_im.data_ptr(), phi.data_ptr(), r2s.data_ptr(),
+        m_s.data_ptr(), mp_s.data_ptr(), te_flat.data_ptr(),
+        rho[..., 0].data_ptr(), rho[..., 1].data_ptr(),
+        recon[..., 0].data_ptr(), recon[..., 1].data_ptr(),
+        nb, ne, hgt * wdt, *s_str, p_str[0], p_str[2], *r_str, *o_str,
+        _phasor_mode(uniform_te), fm_sc, r2_sc, rho_sc, acqs.device.index,
+        torch.cuda.current_stream(acqs.device).cuda_stream)
+    CYCLE_KERNEL.launches += 1
+    check_launch(CYCLE_KERNEL, rc)
+    return rho, recon
+
+
+class _Physics(torch.autograd.Function):
+    """A physics kernel whose backward is autograd through its plain
+    version from the saved (acqs, param_maps, te), as the JAX package's
+    `_fit_bwd` / `_cycle_full_bwd` do. CPU tensors run the plain version
+    forward too; `kernel_opts` are the kernel's own trailing arguments.
+    `acqs` is data on the training path: its gradient is computed only
+    when it is asked for (`needs_input_grad`)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, acqs, param_maps, te, consts,
+                kernel_opts):
+        ctx.plain, ctx.consts = plain, consts
+        ctx.save_for_backward(acqs, param_maps, te)
+        if acqs.device.type == "cpu":
+            return plain(acqs, param_maps, te, *consts)
+        return kernel(acqs, param_maps, te, *consts, *kernel_opts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acqs, param_maps, te = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:4]
+        with torch.enable_grad(), \
+                torch.profiler.record_function(BACKWARD_RANGE):
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip((acqs, param_maps), need)]
+            outs = ctx.plain(*ins, te, *ctx.consts)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(outs, wrt, grads)) if wrt else None
+        da, dp = (next(got) if n else None for n in need)
+        return None, None, da, dp, None, None, None
+
+
+def fit_rho_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
+                  rho_sc=RHO_SC, species: SpeciesModel = WATER_FAT_7PEAK,
+                  uniform_te: bool | None = None):
+    """Map fit on the MEBCRN layout.
+
+    acqs (nb, ne, H, W, 2); param_maps (nb, ≥1, H, W, 2) with row 0 =
+    (φ, R2*); te (nb, ne, 1). Returns (nb, ns, H, W, 2) float32. The kernel
+    reads the interleaved re/im planes in place (stride 2), no copy.
+    `uniform_te` as for `fit_rho_planar`. Differentiable in acqs and
+    param_maps (autograd through `physics.fit_rho`).
+    """
+    def plain(a, p, t, *consts):
+        return pops.fit_rho(a, p, t, *consts[:4], species=consts[4])
+
+    return _Physics.apply(_fit_rho_kernel, plain, acqs, param_maps, te,
+                          (field, r2_sc, fm_sc, rho_sc, species),
+                          (uniform_te,))
+
+
+def cycle_full_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC,
+                     fm_sc=FM_SC, rho_sc=RHO_SC,
+                     species: SpeciesModel = WATER_FAT_7PEAK,
+                     uniform_te: bool | None = None):
+    """The fused IDEAL cycle: (ρ (nb, ns, H, W, 2), Â (nb, ne, H, W, 2)),
+    the LS water/fat maps and the reprojected acquisitions of the
+    unsupervised loss, in one pass of the cycle kernel.
+
+    acqs (nb, ne, H, W, 2) float32; param_maps (nb, ≥1, H, W, 2) with row 0
+    = (φ, R2*); te (nb, ne, 1). `uniform_te`: True forces the uniform-TE
+    phasor recurrence, False the per-echo form, None lets the kernel test
+    each row's te. Differentiable in acqs and param_maps (autograd through
+    `physics.cycle_full`).
+    """
+    return _Physics.apply(_cycle_kernel, pops.cycle_full, acqs, param_maps,
+                          te, (field, r2_sc, fm_sc, rho_sc, species),
+                          (uniform_te,))
+
+
+def cycle_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
+                species: SpeciesModel = WATER_FAT_7PEAK,
+                uniform_te: bool | None = None):
+    """The fused IDEAL cycle Â = W⁺MM⁺W⁻A (layouts as `cycle_full_fused`)."""
+    return cycle_full_fused(acqs, param_maps, te, field, r2_sc, fm_sc,
+                            RHO_SC, species, uniform_te)[1]

@@ -4,15 +4,15 @@
 Layouts follow the JAX package: acquisitions MEBCRN (nb, ne, H, W, 2[re,im])
 and parameter maps (nb, n_maps, H, W, 2). The per-voxel linear algebra is
 batched complex64 matmuls (nb, ns, ne) × (nb, ne, nv). These functions are
-the plain PyTorch versions: `fit_rho` is what the fit kernel of
-`ops/ideal.py` is held against.
+the plain PyTorch versions, differentiable by autograd: `fit_rho` is what
+the fit kernel of `ops/ideal.py` is held against, `cycle_full` the cycle
+kernel, and both give the kernels' backwards.
 
 Normalization: field maps are stored as φ/fm_sc, R2* as r2s/r2_sc,
 water/fat as ρ/rho_sc.
 
 Not ported yet: the bipolar readout phase, the shared-phase constraint and
-the demodulated-echo output of `fit_rho`, and the cycle / magnitude
-operators.
+the demodulated-echo output of `fit_rho`, and the magnitude operators.
 """
 
 from __future__ import annotations
@@ -98,3 +98,52 @@ def fit_rho(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
     wm = _phasor(te, _xi(phi, r2s), -1.0)
     mwms = m_pinv @ (wm * smtx)  # (nb, ns, nv)
     return _from_complex(mwms.reshape(nb, ns, hgt, wdt) / rho_sc)
+
+
+def _field_maps(param_maps: torch.Tensor, fm_sc: float, r2_sc: float):
+    """(φ, R2*) in physical units from row 0 of `param_maps`; a 1-channel
+    row holds R2* only (φ = 0)."""
+    if param_maps.shape[-1] > 1:
+        return (param_maps[:, 0, ..., 0] * fm_sc,
+                param_maps[:, 0, ..., 1] * r2_sc)
+    r2s = param_maps[:, 0, ..., 0] * r2_sc
+    return torch.zeros_like(r2s), r2s
+
+
+def cycle_full(acqs: torch.Tensor, param_maps: torch.Tensor,
+               te: torch.Tensor, field: float = 1.5, r2_sc: float = R2_SC,
+               fm_sc: float = FM_SC, rho_sc: float = RHO_SC,
+               species: SpeciesModel = WATER_FAT_7PEAK):
+    """IDEAL cycle returning the LS water/fat maps and the reprojected
+    acquisitions, the (A2B_WF, A2B2A) pair of the unsupervised loss:
+    ρ = M⁺W⁻A / rho_sc and Â = W⁺MM⁺W⁻A.
+
+    acqs (nb, ne, H, W, 2); param_maps (nb, 1, H, W, 2) with channels
+    (φ, R2*), or (nb, 1, H, W, 1) holding R2* only; te (nb, ne, 1).
+    Returns (ρ (nb, ns, H, W, 2), Â (nb, ne, H, W, 2)) float32. The plain
+    version of the cycle kernel (`ops.ideal.cycle_full_fused`).
+    """
+    nb, ne, hgt, wdt, _ = acqs.shape
+    ns = species.n_species
+    m = mx.model_matrix(te, field, species)
+    m_pinv = mx.pinv_normal(m)
+    smtx = _to_complex(acqs).reshape(nb, ne, -1)
+    phi, r2s = _field_maps(param_maps, fm_sc, r2_sc)
+    xi = _xi(phi, r2s)
+    wm = _phasor(te, xi, -1.0)
+    wp = _phasor(te, xi, +1.0)
+    mwms = m_pinv @ (wm * smtx)  # (nb, ns, nv) LS coefficients
+    smtx_hat = wp * (m @ mwms)
+    rho = _from_complex(mwms.reshape(nb, ns, hgt, wdt) / rho_sc)
+    recon = _from_complex(smtx_hat.reshape(nb, ne, hgt, wdt))
+    return rho, recon
+
+
+def cycle(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
+          field: float = 1.5, r2_sc: float = R2_SC, fm_sc: float = FM_SC,
+          species: SpeciesModel = WATER_FAT_7PEAK) -> torch.Tensor:
+    """IDEAL cycle Â = W⁺MM⁺W⁻A: demodulate by the candidate (φ, R2*)
+    phasor, project onto span(M), remodulate. ‖A − Â‖² is the unsupervised
+    physics loss. Layouts as `cycle_full`; returns Â."""
+    return cycle_full(acqs, param_maps, te, field, r2_sc, fm_sc, RHO_SC,
+                      species)[1]

@@ -6,11 +6,16 @@ This file imports no JAX, so it also runs where there is a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tests marked `cuda` skip without a card (decided inside the fixture). On the
-card TF32 is switched off for the plain versions. Tolerances: the fit to
-|d| ≤ 1e-5 + 1e-4·|plain| (the JAX package's kernel tolerance), 5e-4 / 5e-5
-over 12 echoes; bf16 ρ stores to 2^-8 relative; the ConvLSTM to 1e-4 of the
-output scale (f32 sums over K = 9·(Cin+F) in another order than cuDNN's,
-carried through the recurrence).
+card TF32 is switched off for the plain versions. Tolerances: the fit and
+the cycle to |d| ≤ 1e-5 + 1e-4·|plain| (the JAX package's kernel
+tolerance), 2e-5 + 2e-4·|plain| for the cycle's uniform-TE recurrence,
+5e-4 / 5e-5 over 12 echoes; bf16 ρ stores to 2^-8 relative; the ConvLSTM
+forward to 1e-4 of the output scale (f32 sums over K = 9·(Cin+F) in another
+order than cuDNN's, carried through the recurrence) and its backward's dx,
+dk and db each to 1e-4 of the plain version's max |·| (sums over all pixels
+of the batch, in another order); the gradients of the physics Functions to
+rtol 1e-3 / atol 1e-5 (the JAX package's gradient tolerance, since the
+forward that autograd linearises around is the same plain version).
 """
 
 from pathlib import Path
@@ -167,11 +172,181 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path, monkeypatch):
     cpu = torch.device("cpu")
     fit = chip_smoke.fit_entry(cpu, size=32, nbs=(2, 3))
     lstm = chip_smoke.convlstm_entry(cpu, size=16, nb=1, f=6)
-    for entry, n_cases in ((fit, 7), (lstm, 2)):
+    cycle = chip_smoke.cycle_entry(cpu, size=16, nb=2)
+    bwd = chip_smoke.convlstm_bwd_entry(cpu, size=12, nb=1, f=6)
+    for entry, n_cases in ((fit, 7), (lstm, 2), (cycle, 2), (bwd, 6)):
         assert KERNEL_KEYS <= set(entry)
         assert len(entry["cases"]) == n_cases
-        assert entry["max_abs_err"] == 0.0  # plain vs plain here
         assert Path(ROOT, entry["source"]).is_file()
-    e2e = chip_smoke.e2e_phase(cpu, tmp_path, size=32, n=3, batch=2)
-    assert e2e["launches"] == {"ideal_fit": 0, "convlstm_fwd": 0}
+    for entry in (fit, lstm, cycle):
+        assert entry["max_abs_err"] == 0.0  # plain vs plain here
+    # the backward is held to the plain version in float64 too
+    assert bwd["max_abs_err"] < 1e-5
+    assert all(c[n]["max_abs_err"] == 0.0 for c in bwd["cases"]
+               for n in ("dx", "dk", "db"))
+    no_launches = {k.name: 0 for k in ops.KERNELS}
+    train = chip_smoke.train_phase(cpu, tmp_path / "t", size=32, n=4,
+                                   batch=2, f=4, parity_size=32,
+                                   parity_batch=1)
+    assert train["launches"] == no_launches
+    assert [ep["epoch"] for ep in train["epochs"]] == [1, 2]
+    for step in ("fm", "r2"):
+        assert train["parity"][step]["loss_rel_diff"] == 0.0
+        assert train["parity"][step]["grad_max_rel"] == 0.0
+        assert train["parity"][step]["plain_convlstm_on_card_vs_cpu"] == 0.0
+    witness = train["parity"]["zero_background_fm"]
+    for pair in ("card_vs_cpu", "plain_convlstm_on_card_vs_cpu",
+                 "card_vs_plain_convlstm_on_card"):
+        assert witness[pair]["grad_max_rel"] == 0.0
+    assert witness["first_forward_over_1e_3"] is None
+    assert witness["first_gradient_over_1e_2"] is None
+    assert sorted(witness["maxpool"]) == [f"down.{i}" for i in range(4)]
+    assert all(p["routed_elsewhere"] == 0.0 and p["ties"] > 0.0
+               for p in witness["maxpool"].values())
+    assert len(witness["relu"]) == 18  # 9 conv blocks of g_fm, 2 ReLUs each
+    for r in [witness["lstm_out"], *witness["relu"].values()]:
+        assert r["mask_differs"] == r["max_abs_where_ref_zero"] == 0.0
+        assert r["zeros"] == r["zeros_ref"]
+    # the ConvLSTM output and the gradient reaching it are both traced
+    assert "lstm" in dict(witness["forward_rel"])
+    assert "lstm" in dict(witness["gradient_rel"])
+    e2e = chip_smoke.e2e_phase(cpu, tmp_path / "e", size=32, n=3, batch=2)
+    assert e2e["launches"] == no_launches
     assert e2e["maps_max_abs_err_vs_cpu"] == 0.0
+
+
+def _cycle_case(ne=6, uniform=True, h=24, w=40, seed=0, device="cpu"):
+    acqs, pm, te = _fit_case(ne=ne, uniform=uniform, h=h, w=w, seed=seed,
+                             device=device)
+    return acqs, (pm + 0.03).contiguous(), te
+
+
+def test_cpu_cycle_and_backward_take_the_plain_versions():
+    before = {k.name: k.launches for k in ops.KERNELS}
+    acqs, pm, te = _cycle_case()
+    rho, recon = ops.cycle_full_fused(acqs, pm, te)
+    ref_rho, ref_recon = physics.cycle_full(acqs, pm, te)
+    assert torch.equal(rho, ref_rho) and torch.equal(recon, ref_recon)
+    x, k, b = _lstm_case(f=6)
+    g = torch.ones((2, 20, 36, 6))
+    got = ops.convlstm_backward(x, k, b, g)
+    ref = ops.convlstm_backward_reference(x, k, b, g)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    assert {k.name: k.launches for k in ops.KERNELS} == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ne,uniform,flag,h,w", [
+    (6, True, None, 24, 40), (6, False, None, 24, 40), (6, True, True, 13, 21),
+    (3, True, True, 24, 40), (12, True, True, 9, 33), (6, True, False, 7, 5)])
+def test_cycle_kernel_matches_plain(cuda, ne, uniform, flag, h, w):
+    acqs, pm, te = _cycle_case(ne=ne, uniform=uniform, h=h, w=w,
+                               device=cuda)
+    n0 = ops.CYCLE_KERNEL.launches
+    rho, recon = ops.cycle_full_fused(acqs, pm, te, uniform_te=flag)
+    assert ops.CYCLE_KERNEL.launches == n0 + 1
+    ref_rho, ref_recon = physics.cycle_full(acqs, pm, te)
+    torch.cuda.synchronize()
+    rtol, atol = (5e-4, 5e-5) if ne == 12 else \
+        (2e-4, 2e-5) if flag or uniform else (1e-4, 1e-5)
+    torch.testing.assert_close(rho, ref_rho, rtol=rtol, atol=atol)
+    torch.testing.assert_close(recon, ref_recon, rtol=rtol, atol=atol)
+    torch.testing.assert_close(ops.cycle_fused(acqs, pm, te, uniform_te=flag),
+                               ref_recon, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_physics_functions_backward_on_card(cuda):
+    """The cycle's and the fit's gradients on the card are there (fault: a
+    ctypes launch into torch.empty has no grad_fn) and equal autograd
+    through the plain versions."""
+    acqs, pm, te = _cycle_case(device=cuda)
+    for fused, plain in ((ops.cycle_full_fused, physics.cycle_full),
+                         (ops.fit_rho_fused, physics.fit_rho)):
+        grads = []
+        for fn in (fused, plain):
+            p = pm.detach().clone().requires_grad_()
+            out = fn(acqs, p, te)
+            out = out if isinstance(out, tuple) else (out,)
+            sum(o.square().mean() for o in out).backward()
+            grads.append(p.grad)
+        assert grads[0] is not None
+        torch.testing.assert_close(grads[0], grads[1], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cycle_kernel_rejects_what_it_cannot_take(cuda):
+    acqs, pm, te = _cycle_case(device=cuda)
+    with pytest.raises(ValueError):
+        ops.cycle_full_fused(acqs, pm[..., 1:], te)  # R2*-only row
+    with pytest.raises(TypeError):
+        ops.cycle_full_fused(acqs.double(), pm, te)
+    with pytest.raises(ValueError):
+        ops.cycle_full_fused(acqs, pm.cpu(), te)
+
+
+def _bwd_grad(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                            ).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,f,ne,h,w,zero_region", [
+    (1, 6, 3, 13, 21, False), (2, 8, 6, 20, 36, False),
+    (2, 36, 6, 24, 40, True), (1, 36, 2, 9, 17, False),
+    (2, 12, 1, 16, 16, False)])
+def test_convlstm_bwd_kernel_matches_plain(cuda, cin, f, ne, h, w,
+                                           zero_region):
+    x, k, b = _lstm_case(nb=2, ne=ne, h=h, w=w, cin=cin, f=f, seed=cin + f,
+                         device=cuda)
+    if zero_region:  # a zero background and a zero bias (fault 2's case)
+        x[:, :, : h // 2] = 0.0
+        b.zero_()
+    g = _bwd_grad((2, h, w, f), f, cuda)
+    n0 = ops.CONVLSTM_BWD_KERNEL.launches
+    got = ops.convlstm_backward(x, k, b, g)
+    assert ops.CONVLSTM_BWD_KERNEL.launches == n0 + ne + 1
+    ref = ops.convlstm_backward_reference(x, k, b, g)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "dk", "db"), got, ref):
+        scale = float(r.abs().max())
+        err = float((a - r).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-6), (name, err, scale)
+    dx, dk, db = ops.convlstm_backward(x, k, b, g, need_dx=False)
+    assert dx is None
+    assert torch.equal(dk, got[1]) and torch.equal(db, got[2])
+
+
+@pytest.mark.cuda
+def test_convlstm_bwd_kernel_is_deterministic(cuda):
+    x, k, b = _lstm_case(nb=2, ne=4, h=40, w=52, cin=2, f=36, device=cuda)
+    g = _bwd_grad((2, 40, 52, 36), 5, cuda)
+    first = ops.convlstm_backward(x, k, b, g)
+    second = ops.convlstm_backward(x, k, b, g)
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_convlstm_module_gets_gradients_on_card(cuda):
+    """Fault: on the card the ConvLSTM weights got no gradient. Through
+    `convlstm_fused` they get the plain version's."""
+    from ideal_gan_tpu_torch.models import ConvLSTM
+    x, _, _ = _lstm_case(nb=2, ne=4, h=16, w=24, cin=2, f=8)
+    net = ConvLSTM(2, 8)
+    net.init_params(torch.Generator().manual_seed(0))
+    grads = {}
+    for dev in ("cpu", cuda):
+        net.zero_grad()
+        net.to(dev)
+        net(x.to(dev)).square().mean().backward()
+        grads[str(dev)] = {n: p.grad.cpu() for n, p in net.named_parameters()
+                           if p.grad is not None}
+    cpu, card = grads["cpu"], grads[str(cuda)]
+    assert set(card) == set(cpu) == {"input_conv.weight", "input_conv.bias",
+                                     "recurrent_conv.weight"}
+    for n in cpu:
+        scale = float(cpu[n].abs().max())
+        assert float((card[n] - cpu[n]).abs().max()) <= 1e-4 * scale, n
