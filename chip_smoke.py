@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AI-DEAL training and serving paths on one NVIDIA
-card.
+"""Drive the PyTorch port's AI-DEAL training, TE-augmentation training and
+serving paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -13,19 +13,27 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             and the ptxas register / spill report.
 3. kernels  each kernel at the main paths' shapes against its plain PyTorch
             version on the same inputs (TF32 off), with CUDA-event times of
-            both and the card's lower bound for the same work:
-            - map fit: the serving call (MEBCRN, nb=8) and planar buffers
-              at nb=8 and nb=128 in f32, bf16 echoes, and bf16 echoes with
-              bf16 rho; accuracy guard against the synthetic ground truth
-              (max err < 5e-2) and the bf16 PDFF gate (< 3e-3);
-            - ConvLSTM forward: Cin=2 and Cin=1, F=36, ne=6, nb=8;
+            both (and, for the per-voxel physics kernels, whose ~0.05 ms
+            is below the host's launch gap, the kernel's device time from
+            torch.profiler) and the card's lower bound for the same work:
+            - map fit: the serving call (MEBCRN, nb=8), the teaug WF_loss
+              call (MEBCRN, nb=8, a jittered TE, per-echo form) and planar
+              buffers at nb=8 and nb=128 in f32, bf16 echoes, and bf16
+              echoes with bf16 rho; accuracy guard against the synthetic
+              ground truth (max err < 5e-2) and the bf16 PDFF gate (< 3e-3);
+            - ConvLSTM forward: Cin=2 and Cin=1, F=36, and VET-Net's width
+              Cin=2, F=72, each at ne=6, nb=8;
             - IDEAL cycle: the training call (MEBCRN, nb=8, 384², ne=6) with
               the per-row TE test and with the forced uniform recurrence;
-            - ConvLSTM backward: Cin=2 and Cin=1, F=36, ne=6, nb=8, dx, dk
-              and db against `convlstm_backward_reference` in float64 and
-              float32, on inputs that keep clear of leaky_relu's kink on
-              either side of it and on random ones (see
-              `convlstm_bwd_entry`).
+            - ConvLSTM backward: Cin=2 and Cin=1, F=36, and Cin=2, F=72,
+              each at ne=6, nb=8, dx, dk and db against
+              `convlstm_backward_reference` in float64 and float32, on
+              inputs that keep clear of leaky_relu's kink on either side of
+              it and on random ones (see `convlstm_bwd_entry`);
+            - forward synthesis: the TE-augmentation call (MEBCRN maps with
+              some R2* < 0, nb=8, 384², ne=6) at a jittered TE train
+              (per-echo form, and the per-row test) and at a uniform one
+              (forced recurrence, and the per-row test).
 4. train    `ideal_gan_tpu_torch.cli.train_unsup.main` with --out_vars PM
             on 16 synthetic 384² slices at batch 8 for 2 epochs (AI-DEAL,
             F=36, seeded random weights), with every launch counter set to 0
@@ -40,7 +48,21 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             cohort on the card with the kernels and with the plain
             ConvLSTM, and on the CPU: its loss and module outputs are held,
             and it reports where the card's gradients leave the CPU's.
-5. e2e      `ideal_gan_tpu_torch.cli.infer.main` on 16 synthetic 384²
+5. teaug    `ideal_gan_tpu_torch.cli.train_teaug.main` on 16 synthetic
+            384² slices at batch 8 for 2 epochs (VET-Net, F=72, seeded
+            random weights), with every launch counter set to 0 just before
+            and read just after; fails unless the synthesis kernel ran once
+            a step and the ConvLSTM forward and backward and the fit kernel
+            (the WF_loss diagnostic) at least once a step, every loss is
+            finite and every ConvLSTM and TEEncoder parameter has a non-zero
+            gradient. Then one generator step on the card (TF32 off) and on
+            the CPU from the same weights, maps, TE train and noise (F=72,
+            96², batch 2; see `teaug_step_parity`): loss and every gradient
+            leaf compared, and every metric (WF_loss, the fit kernel's
+            diagnostic, included); witnesses: the card step with the plain
+            ConvLSTM, both steps against a float64 CPU step, and a trace of
+            both (see `teaug_step_parity`).
+6. e2e      `ideal_gan_tpu_torch.cli.infer.main` on 16 synthetic 384²
             slices at batch 8 (AI-DEAL, F=36, seeded random weights), with
             every launch counter set to 0 just before and read just after;
             fails unless the fit and ConvLSTM forward kernels ran (at least
@@ -50,8 +72,9 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` summary (launches from the path that runs each kernel:
-the train phase for the cycle and the ConvLSTM backward, e2e for the fit and
-the ConvLSTM forward) and `{"ok": true, "device": {...}}`.
+the train phase for the cycle and the ConvLSTM backward, teaug for the
+synthesis, e2e for the fit and the ConvLSTM forward) and `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 SIZE, NE, F_MAIN, NB_SERVE = 384, 6, 36, 8
+F_TEAUG = 72  # VET-Net's width (teaug DEFAULTS)
 # g-gate bias of the ConvLSTM backward's inputs kept clear of leaky_relu's
 # kink: every g-gate pre-activation and cell positive, or every one negative
 KINK_FREE = {"smooth": 1.5, "negative": -1.5}
@@ -107,6 +131,27 @@ def time_ms(fn, dev, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, dev, fragment: str, iters: int = 20):
+    """Mean device time per call of `fn` of the kernels whose name holds
+    `fragment`, from torch.profiler (None on the CPU). `time_ms` over
+    back-to-back launches of a ~0.05 ms kernel measures the host's launch
+    rate; this reads the kernel's own duration."""
+    import torch
+    from torch.autograd import DeviceType
+    if dev.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(dev)
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and fragment in ev.name)
+    return us / 1e3 / iters
 
 
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -192,8 +237,10 @@ def fit_entry(dev, size: int = SIZE, nbs=(NB_SERVE, 128)) -> dict:
                 call="fit_rho_fused MEBCRN", nb=nb, echoes="f32",
                 rho="f32", max_abs_err=err, within_tol=tol_ok,
                 gt_max_err=gt_err, ms=time_ms(kernel_only, dev),
+                device_ms=device_ms(kernel_only, dev, "fit_kernel"),
                 call_ms=time_ms(fused, dev), plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by))
+            cases.append(_fit_teaug_case(maps, pm, nb, dev, b_ms, b_by))
         s_re = acqs[..., 0].contiguous()
         s_im = acqs[..., 1].contiguous()
         phi = maps[:, 2, ..., 0].contiguous()
@@ -250,21 +297,58 @@ def fit_entry(dev, size: int = SIZE, nbs=(NB_SERVE, 128)) -> dict:
         name=ops.FIT_KERNEL.name, route="cuda", source=ops.FIT_KERNEL.source,
         replaces="ideal_gan_tpu/ops/pallas_ideal.py:141",
         launches=None, max_abs_err=main["max_abs_err"], ms=main["ms"],
+        device_ms=main["device_ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=None,
         tolerance="|d| <= 1e-5 + 1e-4*|plain| (f32 rho), 2^-8*1.5 (bf16 "
                   "rho)", cases=cases)
 
 
-def convlstm_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
-                   f: int = F_MAIN) -> dict:
-    """The ConvLSTM forward kernel against `convlstm_reference`."""
+def _fit_teaug_case(maps, pm, nb: int, dev, bound_ms: float,
+                    bound_by: str) -> dict:
+    """The fit at the TE-augmentation trainer's WF_loss call: echoes
+    synthesized from `maps` at a jittered TE train from
+    `sample_te_train` plus the trainer's 0.1·N(0, 1) noise, fitted with the
+    per-echo phasors (uniform_te=False), MEBCRN in place."""
+    import torch
+    from ideal_gan_tpu_torch import ops, physics
+    gen = torch.Generator().manual_seed(5)
+    te = physics.sample_te_train(gen, NE, nb, device=dev)
+    clean = physics.synthesize(maps, te)
+    noise = torch.randn(clean.shape, generator=gen).to(dev)
+    acqs = clean + 0.1 * noise
+    plain = lambda: physics.fit_rho(acqs, pm, te)  # noqa: E731
+    fused = lambda: ops.fit_rho_fused(  # noqa: E731
+        acqs, pm, te, uniform_te=False)
+    pre = ops.precompute_fit_matrices(te)
+    kernel_only = lambda: ops.fit_rho_planar(  # noqa: E731
+        acqs[..., 0], acqs[..., 1], pm[:, 0, ..., 0], pm[:, 0, ..., 1], te,
+        uniform_te=False, precomputed=pre)
+    ref, out = plain(), fused()
+    return dict(
+        call="fit_rho_fused MEBCRN, jittered TE, per-echo (teaug WF_loss)",
+        nb=nb, echoes="f32", rho="f32", uniform_te=False,
+        max_abs_err=float((out - ref).abs().max()),
+        within_tol=bool(((out - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all()),
+        ms=time_ms(kernel_only, dev),
+        device_ms=device_ms(kernel_only, dev, "fit_kernel"),
+        call_ms=time_ms(fused, dev), plain_ms=time_ms(plain, dev),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+LSTM_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
+               (2, F_TEAUG, NB_SERVE))
+
+
+def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
+    """The ConvLSTM forward kernel against `convlstm_reference` at each
+    (Cin, F, nb) of `shapes`."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from ideal_gan_tpu_torch import ops
     cases = []
-    for cin in (2, 1):
+    for cin, f, nb in shapes:
         rng = np.random.default_rng(cin)
         x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
                               * 0.5).astype(np.float32)).to(dev)
@@ -307,7 +391,15 @@ def convlstm_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
         launches=None, max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=None,
-        tolerance="|d| <= 1e-4 * max(|plain|max, 1)", cases=cases)
+        tolerance="|d| <= 1e-4 * max(|plain|max, 1)", cases=cases,
+        wide=_widest(cases))
+
+
+def _widest(cases) -> dict:
+    """The timed case of the largest F (VET-Net's width)."""
+    c = max((c for c in cases if "ms" in c), key=lambda c: c["F"])
+    return {k: c[k] for k in ("cin", "F", "nb", "ms", "plain_ms", "bound_ms",
+                              "bound_by")}
 
 
 def cycle_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
@@ -346,6 +438,8 @@ def cycle_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
                           recon_max_abs_err=errs[1], within_tol=ok,
                           tolerance=f"|d| <= {ab} + {rel}*|plain|",
                           ms=time_ms(kernel_only, dev),
+                          device_ms=device_ms(kernel_only, dev,
+                                              "cycle_kernel"),
                           call_ms=time_ms(call, dev), plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by))
     bad = [c for c in cases if not c["within_tol"]]
@@ -358,8 +452,8 @@ def cycle_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
         replaces="ideal_gan_tpu/ops/pallas_ideal.py:168", launches=None,
         max_abs_err=max(max(c["rho_max_abs_err"], c["recon_max_abs_err"])
                         for c in cases),
-        ms=main["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
+        ms=main["ms"], device_ms=main["device_ms"], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="|d| <= 1e-5 + 1e-4*|plain| (per-row TE test), "
                   "2e-5 + 2e-4*|plain| (forced uniform recurrence)",
         cases=cases)
@@ -379,10 +473,9 @@ def lstm_bwd_flops(nb, size, cin, f, ne=NE, dx=False):
     return fwd + dinp + dk, fwd + dinp + dk + states
 
 
-def convlstm_bwd_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
-                       f: int = F_MAIN) -> dict:
+def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
     """The ConvLSTM backward kernels against `convlstm_backward_reference`
-    (dx, dk, db) at Cin=2 and Cin=1, each on three inputs:
+    (dx, dk, db) at each (Cin, F, nb) of `shapes`, each on three inputs:
 
     - "smooth": weights 0.1× He-normal and g-gate bias +1.5, so that every
       g-gate pre-activation and every cell stays positive and no pixel is
@@ -392,18 +485,41 @@ def convlstm_bwd_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
       pre-activation and every cell stays negative (leaky_relu's 0.2
       branch), held the same way;
     - "random": He-normal weights and random biases, where among the 255 M
-      gate values of a batch some lie within float32 rounding of the kink,
-      and any two float32 computations take the other branch of its
-      derivative (1 or 0.2) at different pixels; the kernel must be no
-      further from the float64 plain version than twice the float32 plain
-      version is, plus 1e-5 of max |plain|.
+      gate values of a batch (1 G at F=72) some lie within float32 rounding
+      of the kink, and any two float32 computations take the other branch
+      of its derivative (1 or 0.2) at different pixels, each such pixel
+      moving dx, dk and db by up to a few % of their scale. Two gates,
+      neither of which such a pixel can trip: the launch must equal the
+      launches on each pair of samples (dx joined, dk and db summed) to
+      1e-4 of max |plain|, which holds the whole batch (the kernels' grid z,
+      and the state stack's size) to the same arithmetic and branches; and
+      on the first pair the kernel must be no further from the float64
+      plain version than twice the float32 plain version is, plus 1e-5 of
+      max |plain|. The whole launch's distances from float64 are reported
+      beside them.
 
     Timed on the random inputs as the trainer calls it (no dx)."""
     import numpy as np
     import torch
     from ideal_gan_tpu_torch import ops
+
+    def vs_plain(got, x, k, b, g):
+        """{dx, dk, db: errors vs the plain version in f32 and f64}."""
+        ref = ops.convlstm_backward_reference(x, k, b, g)
+        ref64 = ops.convlstm_backward_reference(
+            *(t.double() for t in (x, k, b, g)))
+        out = {}
+        for name, a, r, t in zip(("dx", "dk", "db"), got, ref, ref64):
+            out[name] = dict(max_abs_err=float((a - r).abs().max()),
+                             max_abs_err_vs_f64=float(
+                                 (a.double() - t).abs().max()),
+                             plain_f32_vs_f64=float(
+                                 (r.double() - t).abs().max()),
+                             scale=float(t.abs().max()))
+        return out
+
     cases = []
-    for cin in (2, 1):
+    for cin, f, nb in shapes:
         for kind in ("smooth", "negative", "random"):
             rng = np.random.default_rng(10 + cin)
             x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
@@ -419,21 +535,32 @@ def convlstm_bwd_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
             g = torch.from_numpy(rng.normal(size=(nb, size, size, f))
                                  .astype(np.float32)).to(dev)
             got = ops.convlstm_backward(x, k, b, g)
-            ref = ops.convlstm_backward_reference(x, k, b, g)
-            ref64 = ops.convlstm_backward_reference(
-                *(t.double() for t in (x, k, b, g)))
-            case = dict(cin=cin, F=f, ne=NE, nb=nb, inputs=kind)
-            ok = True
-            for name, a, r, t in zip(("dx", "dk", "db"), got, ref, ref64):
-                scale = float(t.abs().max())
-                vs64 = float((a.double() - t).abs().max())
-                plain64 = float((r.double() - t).abs().max())
-                case[name] = dict(max_abs_err=float((a - r).abs().max()),
-                                  max_abs_err_vs_f64=vs64,
-                                  plain_f32_vs_f64=plain64, scale=scale)
-                ok &= vs64 <= (1e-4 * scale if kind in KINK_FREE
-                               else 2 * plain64 + 1e-5 * scale)
-            del got, ref, ref64
+            case = dict(cin=cin, F=f, ne=NE, nb=nb, inputs=kind,
+                        **vs_plain(got, x, k, b, g))
+            if kind in KINK_FREE:
+                ok = all(c["max_abs_err_vs_f64"] <= 1e-4 * c["scale"]
+                         for c in (case["dx"], case["dk"], case["db"]))
+            else:
+                pairs = [ops.convlstm_backward(x[i:i + 2].contiguous(), k, b,
+                                               g[i:i + 2].contiguous())
+                         for i in range(0, nb, 2)]
+                joined = (torch.cat([p[0] for p in pairs]),
+                          sum(p[1] for p in pairs), sum(p[2] for p in pairs))
+                first = vs_plain(pairs[0], x[:2].contiguous(), k, b,
+                                 g[:2].contiguous())
+                ok = True
+                for name, a, j in zip(("dx", "dk", "db"), got, joined):
+                    d = float((a - j).abs().max())
+                    fp = first[name]
+                    case[name].update(
+                        vs_pairs=d,
+                        first_pair_vs_f64=fp["max_abs_err_vs_f64"],
+                        first_pair_plain_f32_vs_f64=fp["plain_f32_vs_f64"])
+                    ok &= d <= 1e-4 * float(j.abs().max())
+                    ok &= fp["max_abs_err_vs_f64"] <= \
+                        2 * fp["plain_f32_vs_f64"] + 1e-5 * fp["scale"]
+                del pairs, joined
+            del got
             if kind == "random":
                 kernel_ms = time_ms(lambda: ops.convlstm_backward(  # noqa
                     x, k, b, g, need_dx=False), dev, iters=3, warmup=1)
@@ -473,8 +600,80 @@ def convlstm_bwd_entry(dev, size: int = SIZE, nb: int = NB_SERVE,
         bound_by=main["bound_by"], library_ms=None,
         tolerance="smooth and negative inputs: |d| <= 1e-4 * max|plain f64| "
                   "for each of dx, dk, db (max_abs_err: the largest, vs the "
-                  "plain version in float64); random inputs: |d vs f64| <= "
-                  "2 * |plain f32 vs f64| + 1e-5 * max|plain|",
+                  "plain version in float64); random inputs: the launch vs "
+                  "the launches on each pair of samples <= 1e-4 * max|d|, "
+                  "and on the first pair |d vs f64| <= 2 * |plain f32 vs "
+                  "f64| + 1e-5 * max|plain|",
+        cases=cases, wide=_widest(cases))
+
+
+def forward_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
+    """The synthesis kernel against `physics.synthesize` on the same inputs:
+    MEBCRN maps with R2* in [-0.1, 0.5] (the clamp at 0 is hit), at a
+    jittered TE train from `sample_te_train` (the trainer's per-echo call,
+    and the per-row test) and at a uniform one (the forced recurrence, and
+    the per-row test)."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch.ops import ideal
+    from ideal_gan_tpu_torch.physics import constants as pc
+    rng = np.random.default_rng(4)
+    shape = (nb, size, size)
+    maps = np.zeros((nb, 3, size, size, 2), np.float32)
+    maps[:, :2] = rng.uniform(-0.5, 0.7, (nb, 2, size, size, 2))
+    maps[:, 2, ..., 0] = rng.uniform(-0.3, 0.3, shape)
+    maps[:, 2, ..., 1] = rng.uniform(-0.1, 0.5, shape)
+    maps = torch.from_numpy(maps).to(dev)
+    tes = {"jittered": physics.sample_te_train(
+        torch.Generator().manual_seed(0), NE, nb, device=dev),
+        "uniform": physics.te_train(NE, bs=nb, device=dev)}
+    nv = nb * size * size
+    # read ρ 16 + (φ, R2*) 8, write 8·ne bytes a voxel
+    b_ms, b_by = bound(nv * (16 + 8 + NE * 8), nv * NE * 24)
+    cases = []
+    for te_kind, flag, rel, ab in (("jittered", False, 1e-4, 1e-5),
+                                   ("jittered", None, 1e-4, 1e-5),
+                                   ("uniform", True, 2e-4, 2e-5),
+                                   ("uniform", None, 1e-4, 1e-5)):
+        te = tes[te_kind]
+        plain = lambda: physics.synthesize(maps, te)  # noqa: E731
+        ref = plain()
+        pre = ops.precompute_synth_matrices(te)
+        call = lambda: ops.synthesize_fused(  # noqa: E731
+            maps, te, uniform_te=flag)
+        kernel_only = call if dev.type == "cpu" else (
+            lambda: ideal._synth_kernel(
+                maps, te, 1.5, pc.R2_SC, pc.FM_SC, pc.RHO_SC,
+                pc.WATER_FAT_7PEAK, flag, pre))
+        out = kernel_only()
+        ok = bool(((out - ref).abs() <= ab + rel * ref.abs()).all())
+        cases.append(dict(te=te_kind, uniform_te=flag, nb=nb, ne=NE,
+                          size=size,
+                          max_abs_err=float((out - ref).abs().max()),
+                          ref_max_abs=float(ref.abs().max()), within_tol=ok,
+                          tolerance=f"|d| <= {ab} + {rel}*|plain|",
+                          ms=time_ms(kernel_only, dev),
+                          device_ms=device_ms(kernel_only, dev,
+                                              "synth_kernel"),
+                          call_ms=time_ms(call, dev),
+                          plain_ms=time_ms(plain, dev), bound_ms=b_ms,
+                          bound_by=b_by))
+    bad = [c for c in cases if not c["within_tol"]]
+    if bad:
+        raise AssertionError(f"synthesis kernel disagrees with synthesize: "
+                             f"{bad}")
+    main = cases[0]  # the trainer passes a jittered TE and uniform_te=False
+    return dict(
+        name=ops.FORWARD_KERNEL.name, route="cuda",
+        source=ops.FORWARD_KERNEL.source,
+        replaces="ideal_gan_tpu/ops/pallas_ideal.py:200", launches=None,
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=main["ms"],
+        device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tolerance="|d| <= 1e-5 + 1e-4*|plain| (per-echo form and per-row TE "
+                  "test), 2e-5 + 2e-4*|plain| (forced uniform recurrence)",
+        clamped_share=float((maps[:, 2, ..., 1] < 0).float().mean()),
         cases=cases)
 
 
@@ -514,6 +713,8 @@ def _trace(net):
 
     def hook(name):
         def fn(mod, inputs, out):
+            if not isinstance(out, torch.Tensor):  # nn.LSTM's (y, (h, c))
+                return
             outs[name] = out.detach().cpu()
             if out.requires_grad:
                 out.register_hook(keep(name))
@@ -559,6 +760,11 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max()) / (scale if scale > 0 else 1.0)
 
 
+def _rel_diff(x: float, ref: float) -> float:
+    """|x − ref| over |ref| (the absolute difference where ref is 0)."""
+    return abs(x - ref) / (abs(ref) if ref else 1.0)
+
+
 def _compare(run, ref) -> dict:
     """Loss and gradient leaves of one step's run against a reference run."""
     if set(run["grads"]) != set(ref["grads"]):
@@ -568,8 +774,7 @@ def _compare(run, ref) -> dict:
     worst = max(g_ref, key=lambda n: float((g[n] - g_ref[n]).abs().max()))
     return dict(
         loss=run["loss"], loss_ref=ref["loss"],
-        loss_rel_diff=abs(run["loss"] - ref["loss"]) / max(abs(ref["loss"]),
-                                                           1.0),
+        loss_rel_diff=_rel_diff(run["loss"], ref["loss"]),
         grad_max_rel=float((g[worst] - g_ref[worst]).abs().max())
         / max(scale, 1e-12),
         grad_worst_leaf=worst, grad_scale=scale, leaves=len(g_ref))
@@ -716,6 +921,118 @@ def train_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
                 parity_shape=dict(size=parity_size, batch=parity_batch, F=f))
 
 
+def teaug_step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """One generator step's loss, metrics and gradients on `dev` and on the
+    CPU from the same weights, maps, TE train and noise (TF32 off on the
+    card). The synthesized acquisitions carry N(0, 0.1²) noise everywhere,
+    so the exactly zero background of the AI-DEAL step parity (PERF.md §7)
+    does not arise.
+
+    Witnesses of where the gradient residue comes from: the card step with
+    the plain ConvLSTM in place of its kernels; both steps against the CPU
+    step with the net in float64 (the physics stays float32, the same on
+    all three); and both f32 steps traced as the AI-DEAL witness is: how
+    far the card's gradient is from the CPU's at every module, and, at each
+    ReLU'd convolution, how many outputs lie on the other side of 0 on the
+    card (where the ReLU passes the gradient on one device only)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import physics
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import teaug
+
+    cpu = torch.device("cpu")
+    cfg = dict(teaug.DEFAULTS, n_G_filters=f)
+    _, maps, _ = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    B = torch.from_numpy(maps)
+    te = physics.sample_te_train(torch.Generator().manual_seed(2), NE, batch)
+    noise = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(batch, NE, size, size, 2)).astype(np.float32))
+    model = teaug.build_model(cfg)
+    model.init_params(torch.Generator().manual_seed(4))
+
+    def run(where, plain=False, dtype=torch.float32, trace=False):
+        net = copy.deepcopy(model).to(device=where, dtype=dtype)
+        traced = _trace(net) if trace else None
+        with plain_convlstm() if plain else contextlib.nullcontext():
+            loss, metrics = teaug.make_loss_fn(cfg, net)(
+                B.to(where), te.to(where), noise.to(where))
+            loss.backward()
+        if traced:
+            for h in traced[3]:
+                h.remove()
+        return dict(loss=float(loss.detach()), grads=_grads(net),
+                    metrics={k: float(v.detach())
+                             for k, v in metrics.items()},
+                    trace=traced[:3] if traced else None)
+
+    card, ref = run(dev, trace=True), run(cpu, trace=True)
+    ref64 = run(cpu, dtype=torch.float64)
+    out = _compare(card, ref)
+    out["metrics"], out["metrics_ref"] = card["metrics"], ref["metrics"]
+    out["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
+                               for k, v in card["metrics"].items()}
+    out["plain_convlstm_on_card_vs_cpu"] = _compare(
+        run(dev, plain=True), ref)["grad_max_rel"]
+    out["vs_cpu_float64"] = {
+        "card": _compare(card, ref64)["grad_max_rel"],
+        "cpu": _compare(ref, ref64)["grad_max_rel"]}
+    outs, grads, _ = card["trace"]
+    outs_ref, grads_ref, order_ref = ref["trace"]
+    bwd = [[k, _rel(grads[k], grads_ref[k])] for k in order_ref]
+    out["first_gradient_over_1e_2"] = next(
+        (k for k, r in bwd if r > 1e-2), None)
+    convs = [n for n in outs_ref if n.endswith((".conv1", ".conv2"))]
+    flips = {n: int(((outs[n] > 0) != (outs_ref[n] > 0)).sum())
+             for n in convs}
+    out["relu_flips"] = {n: c for n, c in flips.items() if c}
+    out["relu_outputs"] = sum(outs_ref[n].numel() for n in convs)
+    out["gradient_rel"] = bwd
+    return out
+
+
+def teaug_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+                batch: int = NB_SERVE, f: int = F_TEAUG,
+                parity_size: int = 96, parity_batch: int = 2) -> dict:
+    """The TE-augmentation training CLI on the card with the launch
+    counters read around it, then the card-vs-CPU generator step."""
+    import math
+
+    from ideal_gan_tpu_torch import ops
+    from ideal_gan_tpu_torch.cli import train_teaug
+
+    argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+            str(batch), "--epochs", "2", "--n_G_filters", str(f), "--seed",
+            "0", "--device", str(dev), "--output_base", str(out_dir)]
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result = train_teaug.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    losses = [v for ep in result["epochs"] for k, v in ep.items()
+              if k.endswith("loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"teaug losses not finite: {result['epochs']}")
+    model = result["state"].model
+    no_grad = [n for n, p in model.named_parameters()
+               if p.requires_grad and n.startswith(("lstm.", "encoder.te."))
+               and (p.grad is None or not bool(p.grad.abs().max() > 0))]
+    if no_grad:
+        raise AssertionError(f"ConvLSTM / TEEncoder parameters without a "
+                             f"gradient: {no_grad}")
+    last = result["epochs"][-1]
+    step_ms = last["seconds"] / last["steps"] * 1e3
+    set_tf32(False)
+    parity = teaug_step_parity(dev, parity_size, parity_batch, f)
+    return dict(launches=launches, steps=result["state"].step, wall_s=wall,
+                epochs=result["epochs"], ms_per_step=step_ms,
+                slices_per_s=batch * 1e3 / step_ms, parity=parity,
+                parity_shape=dict(size=parity_size, batch=parity_batch, F=f))
+
+
 def e2e_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
               batch: int = NB_SERVE) -> dict:
     """The serving CLI on the card with the launch counters read around it,
@@ -792,7 +1109,7 @@ def main() -> int:
     build_phase()
     set_tf32(False)
     kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
-               convlstm_bwd_entry(dev)]
+               convlstm_bwd_entry(dev), forward_entry(dev)]
     emit("kernels", card=smi, kernels=kernels)
     set_tf32(True)  # the runs at PyTorch's defaults
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
@@ -820,6 +1137,23 @@ def main() -> int:
                              f"{worst_fwd}")
     set_tf32(True)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        teaug = teaug_phase(dev, Path(tmp))
+    emit("teaug", card=smi, **teaug)
+    steps = teaug["steps"]
+    if teaug["launches"]["ideal_forward"] != steps or any(
+            teaug["launches"][k] < steps
+            for k in ("convlstm_fwd", "convlstm_bwd", "ideal_fit")):
+        raise AssertionError(f"teaug path skipped kernels in {steps} steps: "
+                             f"{teaug['launches']}")
+    par = teaug["parity"]
+    if par["loss_rel_diff"] > 2e-5 or par["grad_max_rel"] > 2e-2 \
+            or max(par["metrics_rel_diff"].values()) > 2e-5:
+        raise AssertionError(
+            f"card and CPU generator steps disagree: loss "
+            f"{par['loss_rel_diff']}, gradients {par['grad_max_rel']}, "
+            f"metrics {par['metrics_rel_diff']}")
+    set_tf32(True)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         e2e = e2e_phase(dev, Path(tmp))
     emit("e2e", card=smi, **e2e)
     need = {"ideal_fit": 2, "convlstm_fwd": 24}
@@ -834,7 +1168,7 @@ def main() -> int:
             or e2e["pdff_max_abs_err_vs_cpu"] > 5e-3:
         raise AssertionError(f"card and CPU maps disagree: {e2e}")
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
-               "convlstm_bwd": train}
+               "convlstm_bwd": train, "ideal_forward": teaug}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))

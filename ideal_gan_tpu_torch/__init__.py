@@ -7,10 +7,12 @@ It imports neither JAX nor `ideal_gan_tpu`. Entry points take a `device`
 argument that defaults to "cuda" and raise when no card is present; CPU
 tensors run the kernels' plain PyTorch versions.
 
-Ported so far: the AI-DEAL serving slice — physics (species tables, TE
-trains, model matrices, synthesis and the map fit), the map-fit and
-ConvLSTM-forward kernels, the UNet model stack, the Flax weight converter
-and the `cli.infer` entry point. See ROADMAP.md for what is queued.
+Ported so far: AI-DEAL serving (`cli.infer`), AI-DEAL unsupervised
+training (`cli.train_unsup`) and VET-Net TE-augmentation training
+(`cli.train_teaug`) — physics (species tables, TE trains, model matrices,
+synthesis, the map fit and the IDEAL cycle), the fit, cycle, synthesis and
+ConvLSTM forward/backward kernels, the UNet and VET-Net model stacks, the
+Flax weight converter. See ROADMAP.md for what is queued.
 """
 
 __version__ = "0.1.0"

@@ -1,20 +1,28 @@
-"""Device-time breakdown of the AI-DEAL training step pair on the card.
+"""Device-time breakdown of a training step on the card.
 
-    python -m ideal_gan_tpu_torch.cli.profile_train [--data_size 384]
-        [--batch_size 8] [--steps 3] [--n_G_filters 36] [--seed 0]
+    python -m ideal_gan_tpu_torch.cli.profile_train [--trainer unsup]
+        [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 36]
+        [--seed 0]
+    python -m ideal_gan_tpu_torch.cli.profile_train --trainer teaug
+        [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 72]
 
-Runs `--steps` PM-mode step pairs (the FM step, then the R2 step with g_fm
-frozen, as `cli.train_unsup` runs them) on one synthetic batch under
-`torch.profiler`, after one warm-up pair, and prints one JSON line: the
-card's name and power limit, the wall time per step pair, the device time
-per step pair in each kernel category (the four hand-written kernels, cuDNN
-convolutions, matmuls, copies, the rest), the device time inside the
-physics Functions' reference backward and the optimizer steps (profiler
-ranges), and the share of the window the card was idle.
+`--trainer unsup` (the default) runs `--steps` AI-DEAL PM-mode step pairs
+(the FM step, then the R2 step with g_fm frozen, as `cli.train_unsup` runs
+them); `--trainer teaug` runs `--steps` VET-Net generator steps (as
+`cli.train_teaug` runs them, at one sampled TE train). Both run on one
+synthetic batch under `torch.profiler`, after one warm-up step, and print
+one JSON line: the card's name and power limit, the wall time per step, the
+device time per step in each kernel category (the hand-written kernels,
+cuDNN convolutions, cuDNN's RNN kernels, matmuls, copies, the rest), the
+device time inside the physics Functions' reference backward and the
+optimizer steps (profiler ranges), the device time of every kernel the
+TEEncoders' LSTM operators launch (forward and backward), the share of the
+window the card was idle, and the peak device memory.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -23,7 +31,7 @@ import torch
 from torch.autograd import DeviceType
 
 from ..ops.ideal import BACKWARD_RANGE
-from ..train import unsup
+from ..train import teaug, unsup
 from ..train.common import STEP_RANGE
 from .common import parse_flags, resolve_device, synthetic_dataset
 from .profile_infer import category
@@ -33,6 +41,9 @@ CATEGORIES = (
     ("convlstm_bwd kernels", ("gates_bwd", "dinp_kernel", "dk_kernel",
                               "reduce_kernel")),
     ("ideal_cycle kernel", ("cycle_kernel",)),
+    ("ideal_forward kernel", ("synth_kernel",)),
+    ("ideal_fit kernel", ("fit_kernel",)),
+    ("cuDNN RNN kernels", ("rnn", "lstm", "elemwise")),
     ("copies", ("memcpy", "memset")),
     ("convolutions", ("conv", "cudnn", "xmma", "implicit", "winograd",
                       "dgrad", "wgrad", "fprop")),
@@ -41,12 +52,20 @@ CATEGORIES = (
 RANGES = (BACKWARD_RANGE, STEP_RANGE)
 
 
-def main(argv=None):
+def _is_lstm_op(name: str) -> bool:
+    """The host-side operators of the TEEncoders' LSTMs, forward and
+    backward, whose launched kernels (cuDNN's RNN kernels and the matmuls
+    inside them) are the LSTMs' device time."""
+    return name == "aten::lstm" or (
+        name.startswith("autograd::engine::evaluate_function:")
+        and "Rnn" in name)
+
+
+def _unsup_step(argv):
+    """(cfg, device, step): one AI-DEAL PM step pair on one synthetic batch."""
     cfg = parse_flags(dict(unsup.DEFAULTS, data_size=384, steps=3, seed=0,
                            device="cuda", out_vars="PM"), argv)
     dev = resolve_device(cfg["device"])
-    if dev.type != "cuda":
-        raise SystemExit("profile_train measures the card: --device cuda")
     bs, size = cfg["batch_size"], cfg["data_size"]
     acqs, _, te = synthetic_dataset(bs, h=size, w=size, ne=cfg["n_echoes"],
                                     field=cfg["field"])
@@ -57,24 +76,63 @@ def main(argv=None):
     state = unsup.init_state(cfg, g_fm, g_r2, tx,
                              torch.Generator().manual_seed(cfg["seed"]), dev)
 
-    def pair():
+    def step():
         nonlocal state
         state, _ = step_fn(state, batch)
         state, _ = r2_step_fn(state, batch)
 
-    pair()
+    return cfg, dev, step
+
+
+def _teaug_step(argv):
+    """(cfg, device, step): one VET-Net generator step on one synthetic batch."""
+    cfg = parse_flags(dict(teaug.DEFAULTS, data_size=384, steps=3, seed=0,
+                           device="cuda"), argv)
+    dev = resolve_device(cfg["device"])
+    bs, size = cfg["batch_size"], cfg["data_size"]
+    _, maps, _ = synthetic_dataset(bs, h=size, w=size, ne=cfg["n_echoes"],
+                                   field=cfg["field"])
+    gen = torch.Generator().manual_seed(cfg["seed"])
+    batch = (torch.from_numpy(maps).to(dev),
+             teaug.sample_te(gen, cfg, bs).to(dev))
+    model = teaug.build_model(cfg)
+    step_fn, tx = teaug.make_train_step(cfg, model)
+    state = teaug.init_state(cfg, model, tx, gen, dev)
+    noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
+
+    def step():
+        nonlocal state
+        state, _ = step_fn(state, batch, noise_gen)
+
+    return cfg, dev, step
+
+
+def main(argv=None):
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--trainer", choices=("unsup", "teaug"),
+                     default="unsup")
+    known, argv = pre.parse_known_args(argv)
+    cfg, dev, step = {"unsup": _unsup_step,
+                      "teaug": _teaug_step}[known.trainer](argv)
+    if dev.type != "cuda":
+        raise SystemExit("profile_train measures the card: --device cuda")
+    step()
     torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(cfg["steps"]):
-            pair()
+            step()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, spans = [], {r: [] for r in RANGES}
+    lstm_ms = 0.0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            if _is_lstm_op(ev.name):
+                lstm_ms += ev.device_time_total / 1e3
             continue
         tr = ev.time_range
         if ev.name in spans:  # the ranges' device-side annotations
@@ -92,24 +150,28 @@ def main(argv=None):
             if any(a <= start < b for a, b in ranges):
                 in_range[r] += us / 1e3
     n = cfg["steps"]
+    bs = cfg["batch_size"]
     busy = sum(per_cat.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    unit = "step_pair" if known.trainer == "unsup" else "step"
     print(json.dumps({
-        "card": smi, "batch": bs, "size": size, "F": cfg["n_G_filters"],
-        "step_pairs": n, "wall_ms_per_step_pair": wall_ms / n,
+        "card": smi, "trainer": known.trainer, "batch": bs,
+        "size": cfg["data_size"], "F": cfg["n_G_filters"], f"{unit}s": n,
+        f"wall_ms_per_{unit}": wall_ms / n,
         "slices_per_s": bs * n * 1e3 / wall_ms,
-        "device_ms_per_step_pair": {k: v / n
-                                    for k, v in sorted(per_cat.items())},
-        "device_ms_in_ranges_per_step_pair": {k: v / n
-                                              for k, v in in_range.items()},
-        "device_busy_ms_per_step_pair": busy / n,
+        f"device_ms_per_{unit}": {k: v / n
+                                  for k, v in sorted(per_cat.items())},
+        f"device_ms_in_ranges_per_{unit}": {k: v / n
+                                            for k, v in in_range.items()},
+        f"device_ms_in_te_encoder_lstms_per_{unit}": lstm_ms / n,
+        f"device_busy_ms_per_{unit}": busy / n,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "top_kernels_ms_per_step_pair": [[k[:90], v / n] for k, v in top],
+        f"top_kernels_ms_per_{unit}": [[k[:90], v / n] for k, v in top],
     }))
 
 

@@ -1,0 +1,98 @@
+"""CLI: TE-augmentation training of VET-Net on the card (port of
+`ideal_gan_tpu/cli/train_teaug.py`).
+
+    python -m ideal_gan_tpu_torch.cli.train_teaug --synthetic 16 \\
+        --data_size 384 --batch_size 8 --epochs 2 --device cuda \\
+        --output_base output
+
+Trains VET-Net (`--n_G_filters 72`, TE input, FM self-attention) from
+seeded random weights (`--seed`) on the ground-truth maps of the cohort:
+per batch `data_aug_p` geometric augmentation (with `--FM_aug`, a random
+field-map scale), with `--bip_grad` a bipolar phase row, one TE train from
+`train.teaug.sample_te`, then one generator step on acquisitions
+synthesized at that TE train plus noise. Checkpoints every `--epoch_ckpt`
+epochs and at the end under <output_base>/<dataset>/checkpoints/, and
+resumes from the latest one. Prints one `PM_loss` line per epoch.
+`--device` defaults to `cuda` and raises without a card; `cpu` runs the
+plain PyTorch versions of the kernels.
+
+Not ported yet (ROADMAP Queue 1 item 7): HDF5 cohorts (SystemExit), the
+U-Net, 2U-Net and MDWF-Net generators, `--out_vars WF`, `--microbatch`,
+bf16 and remat (NotImplementedError); tensorboardX summaries, the sample
+PNGs and the preemption guard are skipped with a printed note.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..data import bipolar_phase_row, random_fm_scale, random_geometric
+from ..train import teaug
+from ..train.common import batch_iterator
+from ..utils import Checkpoint
+from .common import load_cohorts, resolve_device, setup_experiment
+
+_SKIPPED = ("summaries (tensorboardX), sample PNGs and the preemption guard "
+            "are not ported yet (ROADMAP Queue 1 item 7): skipped")
+
+
+def main(argv=None) -> dict:
+    """Runs the training; returns {"state": TEAugState, "epochs": [{"epoch",
+    "seconds", "steps", metric: value, ...}]}, one entry per epoch run (the
+    metrics of its last step, the wall time of the epoch ending in a
+    synchronisation)."""
+    cfg = setup_experiment(teaug.DEFAULTS, argv)
+    dev = resolve_device(cfg["device"])
+    model = teaug.build_model(cfg)
+    _, maps, _ = load_cohorts(cfg)
+    n = len(maps)
+    if n < cfg["batch_size"]:
+        raise SystemExit(
+            f"the cohort has {n} slices < batch_size {cfg['batch_size']}; "
+            "reduce --batch_size (batches drop the remainder, so no step "
+            "would run)")
+    steps_per_epoch = n // cfg["batch_size"]
+    cfg["total_steps"] = steps_per_epoch * cfg["epochs"]
+
+    step_fn, tx = teaug.make_train_step(cfg, model)
+    gen = torch.Generator().manual_seed(cfg["seed"])
+    state = teaug.init_state(cfg, model, tx, gen, dev)
+    noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
+
+    ckpt = Checkpoint(f"{cfg['output_dir']}/checkpoints")
+    start = ckpt.latest_step() or 0
+    if start:
+        state.load_state_dict(ckpt.restore(start))
+        print(f"resumed from the epoch-{start} checkpoint")
+    print(_SKIPPED)
+
+    rng = np.random.default_rng(0)
+    epochs = []
+    for ep in range(start, cfg["epochs"]):
+        t0 = time.perf_counter()
+        for (B,) in batch_iterator((maps,), cfg["batch_size"], rng):
+            B = torch.from_numpy(B)
+            if rng.random() <= cfg["data_aug_p"]:
+                B = random_geometric(gen, B)
+                if cfg["FM_aug"]:
+                    B = random_fm_scale(gen, B, mean=cfg["FM_mean"])
+            if cfg["bip_grad"]:
+                B = bipolar_phase_row(gen, B)
+            te = teaug.sample_te(gen, cfg, len(B))
+            state, metrics = step_fn(state, (B.contiguous().to(dev),
+                                             te.to(dev)), noise_gen)
+        values = {k: float(v) for k, v in metrics.items()}  # synchronises
+        epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
+                           steps=steps_per_epoch, **values))
+        if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"]:
+            ckpt.save(ep + 1, state.state_dict())
+        print(f"epoch {ep + 1}/{cfg['epochs']} "
+              f"PM_loss={values['PM_loss']:.6f}")
+    return {"state": state, "epochs": epochs}
+
+
+if __name__ == "__main__":
+    main()

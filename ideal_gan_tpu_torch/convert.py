@@ -8,8 +8,13 @@ are the `/`-joined paths). Conversion rules:
   transpose convolution with the kernel as stored; torch with it rotated by
   180°), then (kh, kw, Cin, Cout) → torch (Cin, Cout, kh, kw).
 - GroupNorm scale/bias → weight/bias.
+- Dense kernels (in, out) → torch Linear weights (out, in).
+- Flax `OptimizedLSTMCell` (input kernels ii/if/ig/io without bias,
+  recurrent hi/hf/hg/ho with bias) → `torch.nn.LSTM`'s stacked i, f, g, o
+  rows; its input bias is 0.
 
-Only arrays cross this boundary; nothing of JAX is imported.
+Only arrays cross this boundary; nothing of JAX is imported. Every map is
+linear, so the converters also map gradient trees.
 """
 
 from __future__ import annotations
@@ -100,4 +105,51 @@ def unet(p: dict, num_layers: int = 4) -> dict:
         sd.update(self_attention(p["SelfAttention_0"], "attn."))
     sd["head.weight"] = conv_kernel(p["Conv_0"]["kernel"])
     sd["head.bias"] = _t(p["Conv_0"]["bias"])
+    return sd
+
+
+def te_encoder(p: dict, prefix: str) -> dict:
+    """State dict of `models.TEEncoder` from the Flax `TEEncoder` params."""
+    cell = p["OptimizedLSTMCell_0"]
+    gates = ("i", "f", "g", "o")
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]).T
+                           for g in gates])
+    w_hh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]).T
+                           for g in gates])
+    b_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+    return {f"{prefix}lstm.weight_ih_l0": _t(w_ih),
+            f"{prefix}lstm.weight_hh_l0": _t(w_hh),
+            f"{prefix}lstm.bias_ih_l0": torch.zeros(b_hh.shape),
+            f"{prefix}lstm.bias_hh_l0": _t(b_hh),
+            f"{prefix}dense.weight": _t(np.asarray(p["Dense_0"]["kernel"]).T),
+            f"{prefix}dense.bias": _t(p["Dense_0"]["bias"])}
+
+
+def _decoder(p: dict, prefix: str, num_layers: int) -> dict:
+    sd = {}
+    for i in range(num_layers):
+        sd.update(upsample(p[f"Upsample_{i}"], f"{prefix}up.{i}."))
+        sd.update(conv_block(p[f"ConvBlock_{i}"], f"{prefix}blocks.{i}."))
+    if "SelfAttention_0" in p:
+        sd.update(self_attention(p["SelfAttention_0"], f"{prefix}attn."))
+    sd[f"{prefix}head.weight"] = conv_kernel(p["Conv_0"]["kernel"])
+    sd[f"{prefix}head.bias"] = _t(p["Conv_0"]["bias"])
+    return sd
+
+
+def vetnet(p: dict, num_layers: int = 4) -> dict:
+    """State dict of `models.VETNet` from the Flax `VETNet(me_layer=True)`
+    params (ConvLSTM_0; _SharedEncoder_0 with ConvBlock_0..L-1, the bottom
+    ConvBlock_L and, with te_input, TEEncoder_0..L-1; the dec_r2 and dec_fm
+    decoders with Upsample_i, ConvBlock_i, SelfAttention_0 and the Conv_0
+    head)."""
+    sd = convlstm(p["ConvLSTM_0"], "lstm.")
+    enc = p["_SharedEncoder_0"]
+    for i in range(num_layers):
+        sd.update(conv_block(enc[f"ConvBlock_{i}"], f"encoder.blocks.{i}."))
+        if f"TEEncoder_{i}" in enc:
+            sd.update(te_encoder(enc[f"TEEncoder_{i}"], f"encoder.te.{i}."))
+    sd.update(conv_block(enc[f"ConvBlock_{num_layers}"], "encoder.bottom."))
+    for dec in ("dec_r2", "dec_fm"):
+        sd.update(_decoder(p[dec], f"{dec}.", num_layers))
     return sd

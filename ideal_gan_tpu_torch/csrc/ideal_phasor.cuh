@@ -1,4 +1,5 @@
-// Phasor helpers shared by the IDEAL kernels (ideal_fit.cu, ideal_cycle.cu).
+// Phasor helpers shared by the IDEAL kernels (ideal_fit.cu, ideal_cycle.cu,
+// ideal_forward.cu).
 //
 // The phasor of echo e is exp(sign*2*pi*i*te_e*phi) * exp(-sign*te_e*r2):
 // sign = -1 demodulates (and grows by exp(+te*R2*)), sign = +1 remodulates

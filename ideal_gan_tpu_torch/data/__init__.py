@@ -1,5 +1,7 @@
 """Data layer of the port (augmentation only so far)."""
 
-from .augment import random_echo_count, random_geometric
+from .augment import (bipolar_phase_row, random_echo_count, random_fm_scale,
+                      random_geometric)
 
-__all__ = ["random_echo_count", "random_geometric"]
+__all__ = ["bipolar_phase_row", "random_echo_count", "random_fm_scale",
+           "random_geometric"]

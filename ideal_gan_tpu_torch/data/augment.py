@@ -1,7 +1,7 @@
 """Training-time augmentation (port of `ideal_gan_tpu/data/augment.py`'s
-`random_geometric` and `random_echo_count`). A `torch.Generator` takes the
-place of a JAX key: the draws differ from the JAX package's, the
-distribution is the same."""
+`random_geometric`, `random_fm_scale`, `bipolar_phase_row` and
+`random_echo_count`). A `torch.Generator` takes the place of a JAX key: the
+draws differ from the JAX package's, the distribution is the same."""
 
 from __future__ import annotations
 
@@ -23,6 +23,33 @@ def random_geometric(generator: torch.Generator,
     if flip_ud:
         x = torch.flip(x, dims=(2,))
     return x.contiguous()
+
+
+def random_fm_scale(generator: torch.Generator, maps: torch.Tensor,
+                    mean: float) -> torch.Tensor:
+    """Scale the field-map channel (row 2, channel 0 of MEBCRN maps (nb, k,
+    H, W, 2)) by one random N(mean, 0.25²) factor. Returns a new tensor."""
+    scale = mean + 0.25 * float(torch.randn((), generator=generator))
+    out = maps.clone()
+    out[:, 2, ..., 0] *= scale
+    return out
+
+
+def bipolar_phase_row(generator: torch.Generator,
+                      maps: torch.Tensor) -> torch.Tensor:
+    """Append a synthetic bipolar-gradient phase row to MEBCRN maps (nb, k,
+    H, W, 2): a horizontal linear ramp x·U(0.1, 0.5) + U(0, 0.01) over
+    x ∈ [-1, 1], zero where the field map is zero, imaginary part 0."""
+    x_lim, x_off = torch.rand(2, generator=generator).tolist()
+    x_lim, x_off = 0.1 + 0.4 * x_lim, 0.01 * x_off
+    wdt = maps.shape[3]
+    ramp = torch.linspace(-1.0, 1.0, wdt, dtype=maps.dtype,
+                          device=maps.device) * x_lim + x_off
+    fm = maps[:, 2:3, ..., 0:1]
+    bp = torch.where(fm != 0.0, ramp[None, None, None, :, None],
+                     torch.zeros_like(fm))
+    row = torch.cat([bp, torch.zeros_like(bp)], dim=-1)
+    return torch.cat([maps, row], dim=1)
 
 
 def random_echo_count(rng: np.random.Generator, lo: int = 3,

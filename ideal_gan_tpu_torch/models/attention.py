@@ -1,7 +1,8 @@
-"""SAGAN self-attention (port of `ideal_gan_tpu/models/attention.py`).
+"""SAGAN self-attention and AdaIN conditioning (port of
+`ideal_gan_tpu/models/attention.py`).
 
 Plain `torch.matmul`/`softmax`, as the JAX package computes it with einsum
-outside any kernel. AdaIN conditioning is not ported yet.
+outside any kernel.
 """
 
 from __future__ import annotations
@@ -36,3 +37,17 @@ class SelfAttention(nn.Module):
         for conv in (self.f, self.g, self.h):
             nn.init.xavier_uniform_(conv.weight, generator=generator)
         nn.init.zeros_(self.gamma)
+
+
+def adain(content: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    """Adaptive instance normalization with the reference's statistics
+    (its α = 1, ε = 1e-5): content (nb, C, H, W) normalized by its
+    per-channel (H, W) moments, then scaled and shifted by the *scalar*
+    per-sample moments of the style vector (nb, S). Both variances are
+    biased (ddof 0), as `jnp.var`."""
+    s_mean = style.mean(dim=1)[:, None, None, None]
+    s_var = style.var(dim=1, unbiased=False)[:, None, None, None]
+    c_mean = content.mean(dim=(2, 3), keepdim=True)
+    c_var = content.var(dim=(2, 3), unbiased=False, keepdim=True)
+    normalized = (content - c_mean) / torch.sqrt(c_var + 1e-5)
+    return normalized * torch.sqrt(s_var) + s_mean

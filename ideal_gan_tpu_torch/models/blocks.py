@@ -72,6 +72,47 @@ class Upsample(nn.Module):
         return self.conv(x)
 
 
+class TEEncoder(nn.Module):
+    """TE-vector conditioning: an LSTM of `lstm_features` over the echo axis
+    (one TE a step, zero initial state), then Dense(filters) and ReLU on
+    its last output: the style input of the AdaIN conditioning.
+
+    `torch.nn.LSTM` has Flax's `OptimizedLSTMCell` gates in the same order
+    (i, f, g, o; sigmoid gates, tanh cell); Flax's input kernels carry no
+    bias, so `lstm.bias_ih_l0` stays 0 and the recurrent bias is
+    `lstm.bias_hh_l0`."""
+
+    def __init__(self, filters: int, lstm_features: int = 6):
+        super().__init__()
+        self.lstm = nn.LSTM(1, lstm_features, batch_first=True)
+        self.lstm.bias_ih_l0.requires_grad_(False)  # no such Flax parameter
+        self.dense = nn.Linear(lstm_features, filters)
+
+    def forward(self, te):
+        """te (nb, ne) or (nb, ne, 1) → (nb, filters)."""
+        if te.ndim == 2:
+            te = te[..., None]
+        y, _ = self.lstm(te.to(self.dense.weight.dtype))
+        return F.relu(self.dense(y[:, -1]))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """Flax's initializers: LeCun-normal input kernels, orthogonal
+        recurrent kernels, zero biases, He-uniform Dense kernel."""
+        n = self.lstm.hidden_size
+        with torch.no_grad():
+            nn.init.normal_(self.lstm.weight_ih_l0, 0.0, 1.0,
+                            generator=generator)  # fan_in 1
+            for g in range(4):
+                nn.init.orthogonal_(self.lstm.weight_hh_l0[g * n:(g + 1) * n],
+                                    generator=generator)
+            nn.init.zeros_(self.lstm.bias_ih_l0)
+            nn.init.zeros_(self.lstm.bias_hh_l0)
+            bound = math.sqrt(6.0 / self.dense.in_features)
+            nn.init.uniform_(self.dense.weight, -bound, bound,
+                             generator=generator)
+            nn.init.zeros_(self.dense.bias)
+
+
 def he_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
     return nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_in),
                            generator=generator)

@@ -43,7 +43,8 @@ class ConvLSTM(nn.Module):
 
     def forward(self, x):
         hidden = lstm_ops.convlstm_fused(
-            x.float().contiguous(), self.merged_kernel(),
+            x.to(self.input_conv.weight.dtype).contiguous(),
+            self.merged_kernel(),
             self.input_conv.bias.contiguous(), self.activation,
             self.recurrent_activation)
         return hidden.permute(0, 3, 1, 2)

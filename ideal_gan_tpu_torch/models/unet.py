@@ -1,16 +1,22 @@
-"""U-Net (port of `ideal_gan_tpu/models/unet.py::UNet`).
+"""U-Net and VET-Net (port of `ideal_gan_tpu/models/unet.py::UNet` and
+`VETNet`).
 
-Ported on the path `train.unsup.build_models` uses: the multi-echo ConvLSTM
-front (`me_layer=True`), `num_layers` encoder levels with skip connections,
-optional self-attention at the first decoder level, a 1×1 head and its
-activation. The other options (Bayesian and σ heads, TE conditioning, the
-CSE physics layer, echo folding without the ConvLSTM, other norms, dropout,
-rematerialization, bf16 compute) raise NotImplementedError; ROADMAP.md
-queues them.
+`UNet` is ported on the path `train.unsup.build_models` uses: the
+multi-echo ConvLSTM front (`me_layer=True`), `num_layers` encoder levels
+with skip connections, optional self-attention at the first decoder level,
+a 1×1 head and its activation. `VETNet` (the reference `PM_Generator`) is
+ported on the path `train.teaug.build_model` uses: the ConvLSTM front, the
+shared encoder with LSTM→AdaIN TE conditioning at every level (`te_input`)
+or none, and two decoders (R2* sigmoid, field map tanh). The other options
+(Bayesian and σ heads, TE conditioning of the UNet, the CSE physics layer,
+echo folding without the ConvLSTM, dropout) raise NotImplementedError;
+VET-Net is the ConvLSTM-front form without dropout, instance norm only, one
+output channel per decoder and no "dense_l1" TE mode (MDWF-Net's). ROADMAP.md
+queues the rest.
 
-Input MEBCRN-like (nb, ne, H, W, Cin); output (nb, 1, H, W, n_out), the JAX
-package's layouts. Inside, activations are NCHW. H and W must be divisible
-by 2**num_layers.
+Input MEBCRN-like (nb, ne, H, W, Cin); output (nb, 1, H, W, n_out) for the
+UNet and (nb, 1, H, W, [FM, R2*]) for VET-Net, the JAX package's layouts.
+Inside, activations are NCHW. H and W must be divisible by 2**num_layers.
 """
 
 from __future__ import annotations
@@ -19,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import SelfAttention
-from .blocks import ConvBlock, Upsample, get_activation, init_params
+from .attention import SelfAttention, adain
+from .blocks import ConvBlock, TEEncoder, Upsample, get_activation, init_params
 from .convlstm import ConvLSTM
 
 
@@ -75,6 +81,96 @@ class UNet(nn.Module):
                 x = self.attn(x)
             x = block(x)
         out = get_activation(self.output_activation)(self.head(x))
+        return out.permute(0, 2, 3, 1)[:, None]
+
+    def init_params(self, generator: torch.Generator) -> None:
+        init_params(self, generator)
+
+
+class _SharedEncoder(nn.Module):
+    """The encoder trunk of the multi-decoder generators: `num_layers`
+    conv blocks, each followed (with `te_input`) by AdaIN towards its own
+    TEEncoder's style and a 2×2 max-pool, then the bottom block. Returns
+    (x, skips)."""
+
+    def __init__(self, in_channels: int, filters: int, num_layers: int,
+                 te_input: bool):
+        super().__init__()
+        self.blocks = nn.ModuleList()
+        self.te = nn.ModuleList() if te_input else None
+        cin, f = in_channels, filters
+        for _ in range(num_layers):
+            self.blocks.append(ConvBlock(cin, f))
+            if te_input:
+                self.te.append(TEEncoder(f))
+            cin, f = f, 2 * f
+        self.bottom = ConvBlock(cin, f)
+
+    def forward(self, x, te=None):
+        skips = []
+        for level, block in enumerate(self.blocks):
+            x = block(x)
+            if self.te is not None:
+                x = adain(x, self.te[level](te))
+            skips.append(x)
+            x = F.max_pool2d(x, 2)
+        return self.bottom(x), skips
+
+
+class _Decoder(nn.Module):
+    """One decoder branch: per level upsample → concat skip →
+    (self-attention at level 0) → conv block; 1×1 head to one channel and
+    its activation. NCHW in, (nb, 1, H, W) out."""
+
+    def __init__(self, filters_top: int, num_layers: int,
+                 head_activation: str, self_attention: bool):
+        super().__init__()
+        self.head_activation = head_activation
+        self.up = nn.ModuleList()
+        self.blocks = nn.ModuleList()
+        self.attn = None
+        f = filters_top
+        for level in range(num_layers):
+            self.up.append(Upsample(f, f // 2))
+            if self_attention and level == 0:
+                self.attn = SelfAttention(f)
+            self.blocks.append(ConvBlock(f, f // 2))
+            f //= 2
+        self.head = nn.Conv2d(f, 1, 1)
+
+    def forward(self, x, skips):
+        for level, (up, block) in enumerate(zip(self.up, self.blocks)):
+            x = torch.cat([up(x), skips[-1 - level]], dim=1)
+            if self.attn is not None and level == 0:
+                x = self.attn(x)
+            x = block(x)
+        return get_activation(self.head_activation)(self.head(x))
+
+
+class VETNet(nn.Module):
+    """The reference `PM_Generator`, VET-Net with `te_input=True`: ConvLSTM
+    multi-echo front, shared encoder with LSTM→AdaIN TE conditioning, two
+    decoders (R2* sigmoid, field map tanh). `forward(x, te)` takes echoes
+    (nb, ne, H, W, Cin) and the TE vector (nb, ne) and returns (nb, 1, H,
+    W, [FM, R2*])."""
+
+    def __init__(self, in_channels: int, te_input: bool = False,
+                 filters: int = 72, num_layers: int = 4,
+                 r2_self_attention: bool = False,
+                 fm_self_attention: bool = True):
+        super().__init__()
+        self.te_input = te_input
+        self.lstm = ConvLSTM(in_channels, filters)
+        self.encoder = _SharedEncoder(filters, filters, num_layers, te_input)
+        ftop = filters * 2 ** num_layers
+        self.dec_r2 = _Decoder(ftop, num_layers, "sigmoid", r2_self_attention)
+        self.dec_fm = _Decoder(ftop, num_layers, "tanh", fm_self_attention)
+
+    def forward(self, x, te=None):
+        if self.te_input and te is None:
+            raise ValueError("VETNet(te_input=True) needs the TE vector")
+        x, skips = self.encoder(self.lstm(x), te)
+        out = torch.cat([self.dec_fm(x, skips), self.dec_r2(x, skips)], dim=1)
         return out.permute(0, 2, 3, 1)[:, None]
 
     def init_params(self, generator: torch.Generator) -> None:

@@ -1,22 +1,25 @@
-"""The IDEAL map fit and cycle on the card (counterpart of
-`ideal_gan_tpu/ops/pallas_ideal.py`'s fit and cycle entry points).
+"""The IDEAL map fit, cycle and forward synthesis on the card (counterpart
+of `ideal_gan_tpu/ops/pallas_ideal.py`'s fit, cycle and synthesis entry
+points).
 
 For CUDA tensors every entry point launches a hand-written kernel
-(`csrc/ideal_fit.cu`, `csrc/ideal_cycle.cu`); for CPU tensors it calls the
-kernel's plain version, `physics.ops.fit_rho` or `physics.ops.cycle_full`.
-A CUDA tensor the kernel cannot take raises: there is no fallback to the
-plain version on the card.
+(`csrc/ideal_fit.cu`, `csrc/ideal_cycle.cu`, `csrc/ideal_forward.cu`); for
+CPU tensors it calls the kernel's plain version, `physics.ops.fit_rho`,
+`physics.ops.cycle_full` or `physics.ops.synthesize`. A CUDA tensor the
+kernel cannot take raises: there is no fallback to the plain version on
+the card.
 
-    fit:    ρ_s = (1/rho_sc) · Σ_e M⁺[s,e] · e^{−2πi·te_e·ξ} · S_e
-    cycle:  the fit, then Â_e = e^{+2πi·te_e·ξ} · Σ_s M[e,s] · (rho_sc·ρ_s)
-    ξ = φ·fm_sc + i·R2*·r2_sc/2π
+    fit:        ρ_s = (1/rho_sc) · Σ_e M⁺[s,e] · e^{−2πi·te_e·ξ} · S_e
+    cycle:      the fit, then Â_e = e^{+2πi·te_e·ξ} · Σ_s M[e,s] · (rho_sc·ρ_s)
+    synthesis:  S_e = e^{+2πi·te_e·ξ₊} · Σ_s M[e,s] · (rho_sc·ρ_s)
+    ξ = φ·fm_sc + i·R2*·r2_sc/2π;  ξ₊ the same with R2* clamped at 0
 
-`fit_rho_fused`, `cycle_full_fused` and `cycle_fused` are differentiable:
-as the JAX package's custom VJPs do, the backward is autograd through the
-plain version from the saved (acqs, param_maps, te), for the inputs that
-need a gradient. The TPU tiling constants of the JAX module (row tiles, the
-(16, 128) bf16 block rule and its f32 fallbacks) have no counterpart here:
-the kernels index voxels directly and take any H, W.
+`fit_rho_fused`, `cycle_full_fused`, `cycle_fused` and `synthesize_fused`
+are differentiable: as the JAX package's custom VJPs do, the backward is
+autograd through the plain version from the saved inputs, for the inputs
+that need a gradient. The TPU tiling constants of the JAX module (row
+tiles, the (16, 128) bf16 block rule and its f32 fallbacks) have no
+counterpart here: the kernels index voxels directly and take any H, W.
 """
 
 from __future__ import annotations
@@ -43,6 +46,10 @@ FIT_KERNEL = Kernel("ideal_fit", {
 CYCLE_KERNEL = Kernel("ideal_cycle", {
     "ideal_cycle": (_I, [_P] * 11 + [_I, _I] + [_L] * 12
                     + [_I, _F, _F, _F, _I, _P]),
+})
+FORWARD_KERNEL = Kernel("ideal_forward", {
+    "ideal_forward": (_I, [_P] * 8 + [_I, _I] + [_L] * 9
+                      + [_I, _F, _F, _F, _I, _P]),
 })
 MAX_ECHOES = 12
 # the profiler range around the physics Functions' reference backward
@@ -333,3 +340,94 @@ def cycle_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
     """The fused IDEAL cycle Â = W⁺MM⁺W⁻A (layouts as `cycle_full_fused`)."""
     return cycle_full_fused(acqs, param_maps, te, field, r2_sc, fm_sc,
                             RHO_SC, species, uniform_te)[1]
+
+
+def precompute_synth_matrices(te: torch.Tensor, field: float = 1.5,
+                              species: SpeciesModel = WATER_FAT_7PEAK):
+    """The synthesis kernel's per-row operands for a TE train: (M as (nb,
+    2·ne·ns) float32 re/im pairs, te as (nb, ne) float32)."""
+    nb, ne = te.shape[0], te.shape[1]
+    return (_mat_scalars(mx.model_matrix(te, field, species)),
+            te.reshape(nb, ne).float().contiguous())
+
+
+def _synth_kernel(out_maps, te, field, r2_sc, fm_sc, rho_sc, species,
+                  uniform_te, precomputed=None):
+    """The synthesis kernel on MEBCRN views: echoes (nb, ne, H, W, 2),
+    forward only."""
+    nb, nm, hgt, wdt, two = out_maps.shape
+    ns = species.n_species
+    if ns != 2:
+        raise ValueError(f"synthesis kernel: takes 2 species, got {ns}")
+    if two != 2 or nm != ns + 1 or out_maps.dtype != torch.float32:
+        raise TypeError(f"synthesis kernel: out_maps must be float32 (nb, "
+                        f"{ns + 1}, H, W, 2), got {out_maps.dtype} "
+                        f"{tuple(out_maps.shape)}")
+    if te.device != out_maps.device:
+        raise ValueError(f"synthesis kernel: te on {te.device}, out_maps on "
+                         f"{out_maps.device}")
+    ne = te.shape[1]
+    if not 2 <= ne <= MAX_ECHOES or tuple(te.shape) != (nb, ne, 1):
+        raise ValueError(f"synthesis kernel: te must be (nb, 2..{MAX_ECHOES}, "
+                         f"1), got {tuple(te.shape)}")
+    m_s, te_flat = precomputed or precompute_synth_matrices(te, field,
+                                                            species)
+    if m_s.shape != (nb, 2 * ne * ns) or te_flat.shape != (nb, ne):
+        raise ValueError(f"synthesis kernel: precomputed operands "
+                         f"{m_s.shape}, {te_flat.shape} do not match {nb} "
+                         f"rows of {ne} echoes")
+    out = torch.empty((nb, ne, hgt, wdt, 2), dtype=torch.float32,
+                      device=out_maps.device)
+    r_re, r_im = out_maps[:, :ns, ..., 0], out_maps[:, :ns, ..., 1]
+    phi, r2s = out_maps[:, ns:, ..., 0], out_maps[:, ns:, ..., 1]
+    r_str = _flat_strides(r_re, "out_maps")
+    p_str = _flat_strides(phi, "out_maps")
+    o_str = _flat_strides(out[..., 0], "echoes")
+    rc = FORWARD_KERNEL.fn("ideal_forward")(
+        r_re.data_ptr(), r_im.data_ptr(), phi.data_ptr(), r2s.data_ptr(),
+        m_s.data_ptr(), te_flat.data_ptr(), out[..., 0].data_ptr(),
+        out[..., 1].data_ptr(), nb, ne, hgt * wdt, *r_str, p_str[0],
+        p_str[2], *o_str, _phasor_mode(uniform_te), fm_sc, r2_sc, rho_sc,
+        out_maps.device.index,
+        torch.cuda.current_stream(out_maps.device).cuda_stream)
+    FORWARD_KERNEL.launches += 1
+    check_launch(FORWARD_KERNEL, rc)
+    return out
+
+
+class _Synthesize(torch.autograd.Function):
+    """The synthesis kernel, whose backward is autograd through
+    `physics.synthesize` from the saved (out_maps, te), as the JAX
+    package's `_synth_bwd` does. CPU tensors run the plain version."""
+
+    @staticmethod
+    def forward(ctx, out_maps, te, consts, uniform_te):
+        ctx.consts = consts
+        ctx.save_for_backward(out_maps, te)
+        if out_maps.device.type == "cpu":
+            return pops.synthesize(out_maps, te, *consts)
+        return _synth_kernel(out_maps, te, *consts, uniform_te)
+
+    @staticmethod
+    def backward(ctx, g):
+        out_maps, te = ctx.saved_tensors
+        with torch.enable_grad(), \
+                torch.profiler.record_function(BACKWARD_RANGE):
+            om = out_maps.detach().requires_grad_()
+            (dm,) = torch.autograd.grad(
+                pops.synthesize(om, te, *ctx.consts), om, g)
+        return dm, None, None, None
+
+
+def synthesize_fused(out_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
+                     rho_sc=RHO_SC, species: SpeciesModel = WATER_FAT_7PEAK,
+                     uniform_te: bool | None = None):
+    """The fused forward synthesis S = W⁺Mρ: echoes (nb, ne, H, W, 2)
+    float32 from out_maps (nb, 3, H, W, 2) float32, rows [water, fat,
+    (φ, R2*)] with R2* clamped at 0, at te (nb, ne, 1). `uniform_te`: True
+    forces the uniform-TE phasor recurrence, False the per-echo form, None
+    lets the kernel test each row's te. Differentiable in out_maps
+    (autograd through `physics.synthesize`)."""
+    return _Synthesize.apply(out_maps, te,
+                             (field, r2_sc, fm_sc, rho_sc, species),
+                             uniform_te)

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..cli.common import resolve_device
 from ..losses import l1_mean, total_variation_2d
 from ..models import UNet
 from ..ops import cycle_full_fused
@@ -209,12 +210,14 @@ def make_r2_train_step(cfg, g_fm, g_r2, tx):
 
 
 def init_state(cfg, g_fm, g_r2, tx, generator: torch.Generator,
-               device="cpu") -> UnsupState:
+               device="cuda") -> UnsupState:
     """Seeded random weights for both nets (`models.init_params`), moved to
-    `device`, with fresh optimizers from the recipe `tx`."""
+    `device` (default the card; raises without one), with fresh optimizers
+    from the recipe `tx`."""
+    dev = resolve_device(device)
     for net in (g_fm, g_r2):
         net.init_params(generator)
-        net.to(device)
+        net.to(dev)
     return UnsupState(g_fm, tx(g_fm.parameters()), g_r2,
                       tx(g_r2.parameters()),
-                      torch.zeros((), dtype=torch.float32, device=device))
+                      torch.zeros((), dtype=torch.float32, device=dev))

@@ -121,6 +121,9 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "ideal_gan_tpu"))
 assert not bad, bad
 for n in ("ideal_gan_tpu_torch.cli.train_unsup",
+          "ideal_gan_tpu_torch.cli.train_teaug",
+          "ideal_gan_tpu_torch.train.teaug",
+          "ideal_gan_tpu_torch.ops.ideal",
           "ideal_gan_tpu_torch.cli.profile_train",
           "ideal_gan_tpu_torch.train.common",
           "ideal_gan_tpu_torch.losses.regs",

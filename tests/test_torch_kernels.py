@@ -61,6 +61,17 @@ def _fit_case(nb=2, h=24, w=40, ne=6, uniform=True, seed=0, device="cpu"):
     return physics.synthesize(maps_t, te), maps_t[:, 2:3].contiguous(), te
 
 
+def _synth_maps(nb=2, h=24, w=40, seed=0, device="cpu"):
+    """(nb, 3, H, W, 2) maps with R2* in [-0.2, 0.5]: the clamp at 0 is
+    hit."""
+    rng = np.random.default_rng(seed)
+    maps = np.zeros((nb, 3, h, w, 2), np.float32)
+    maps[:, :2] = rng.uniform(-0.5, 0.7, (nb, 2, h, w, 2))
+    maps[:, 2, ..., 0] = rng.uniform(-0.3, 0.3, (nb, h, w))
+    maps[:, 2, ..., 1] = rng.uniform(-0.2, 0.5, (nb, h, w))
+    return torch.from_numpy(maps).to(device)
+
+
 def _lstm_case(nb=2, ne=6, h=20, w=36, cin=2, f=36, seed=0, device="cpu"):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(nb, ne, h, w, cin)).astype(np.float32) * 0.5
@@ -79,6 +90,9 @@ def test_cpu_tensors_take_the_plain_versions():
     x, k, b = _lstm_case(f=6)
     np.testing.assert_array_equal(ops.convlstm_forward(x, k, b).numpy(),
                                   ops.convlstm_reference(x, k, b).numpy())
+    maps = _synth_maps()
+    np.testing.assert_array_equal(ops.synthesize_fused(maps, te).numpy(),
+                                  physics.synthesize(maps, te).numpy())
     assert {k.name: k.launches for k in ops.KERNELS} == before
 
 
@@ -140,7 +154,7 @@ def test_fit_kernel_rejects_what_it_cannot_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,f,ne", [(1, 6, 3), (2, 8, 6), (2, 36, 6),
-                                      (1, 36, 6), (2, 72, 2)])
+                                      (1, 36, 6), (2, 72, 2), (2, 72, 6)])
 def test_convlstm_kernel_matches_plain(cuda, cin, f, ne):
     x, k, b = _lstm_case(ne=ne, cin=cin, f=f, seed=cin + f, device=cuda)
     n0 = ops.CONVLSTM_KERNEL.launches
@@ -171,19 +185,35 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path, monkeypatch):
     import chip_smoke
     cpu = torch.device("cpu")
     fit = chip_smoke.fit_entry(cpu, size=32, nbs=(2, 3))
-    lstm = chip_smoke.convlstm_entry(cpu, size=16, nb=1, f=6)
+    shapes = ((2, 6, 1), (1, 6, 1), (2, 8, 1))  # (Cin, F, nb)
+    lstm = chip_smoke.convlstm_entry(cpu, size=16, shapes=shapes)
     cycle = chip_smoke.cycle_entry(cpu, size=16, nb=2)
-    bwd = chip_smoke.convlstm_bwd_entry(cpu, size=12, nb=1, f=6)
-    for entry, n_cases in ((fit, 7), (lstm, 2), (cycle, 2), (bwd, 6)):
+    bwd = chip_smoke.convlstm_bwd_entry(cpu, size=12, shapes=shapes)
+    synth = chip_smoke.forward_entry(cpu, size=16, nb=2)
+    for entry, n_cases in ((fit, 8), (lstm, 3), (cycle, 2), (bwd, 9),
+                           (synth, 4)):
         assert KERNEL_KEYS <= set(entry)
         assert len(entry["cases"]) == n_cases
         assert Path(ROOT, entry["source"]).is_file()
-    for entry in (fit, lstm, cycle):
+    assert {e["name"] for e in (fit, lstm, cycle, bwd, synth)} \
+        == {k.name for k in ops.KERNELS}
+    for entry in (lstm, bwd):
+        assert entry["wide"]["F"] == 8 and entry["wide"]["cin"] == 2
+    assert 0.0 < synth["clamped_share"] < 0.5
+    for entry in (fit, cycle, synth):  # profiler device time: card only
+        assert "device_ms" in entry and entry["device_ms"] is None
+    for entry in (fit, lstm, cycle, synth):
         assert entry["max_abs_err"] == 0.0  # plain vs plain here
     # the backward is held to the plain version in float64 too
     assert bwd["max_abs_err"] < 1e-5
     assert all(c[n]["max_abs_err"] == 0.0 for c in bwd["cases"]
                for n in ("dx", "dk", "db"))
+    # random inputs: the launch against its launches on pairs of samples
+    odd = chip_smoke.convlstm_bwd_entry(cpu, size=8, shapes=((1, 4, 3),))
+    pairs = [c[n] for c in bwd["cases"] + odd["cases"]
+             if c["inputs"] == "random" for n in ("dx", "dk", "db")]
+    assert len(pairs) == 12
+    assert all(p["vs_pairs"] <= 1e-6 * p["scale"] for p in pairs)
     no_launches = {k.name: 0 for k in ops.KERNELS}
     train = chip_smoke.train_phase(cpu, tmp_path / "t", size=32, n=4,
                                    batch=2, f=4, parity_size=32,
@@ -210,6 +240,23 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path, monkeypatch):
     # the ConvLSTM output and the gradient reaching it are both traced
     assert "lstm" in dict(witness["forward_rel"])
     assert "lstm" in dict(witness["gradient_rel"])
+    teaug = chip_smoke.teaug_phase(cpu, tmp_path / "a", size=32, n=4,
+                                   batch=2, f=4, parity_size=32,
+                                   parity_batch=1)
+    assert teaug["launches"] == no_launches and teaug["steps"] == 4
+    assert [ep["epoch"] for ep in teaug["epochs"]] == [1, 2]
+    assert teaug["parity"]["loss_rel_diff"] == 0.0
+    assert teaug["parity"]["grad_max_rel"] == 0.0
+    assert teaug["parity"]["metrics"] == teaug["parity"]["metrics_ref"]
+    assert set(teaug["parity"]["metrics_rel_diff"].values()) == {0.0}
+    assert teaug["parity"]["plain_convlstm_on_card_vs_cpu"] == 0.0
+    # the float64 witness: the same step on both sides here, f32 rounding
+    vs64 = teaug["parity"]["vs_cpu_float64"]
+    assert vs64["card"] == vs64["cpu"] and 0.0 < vs64["cpu"] < 1e-3
+    assert teaug["parity"]["first_gradient_over_1e_2"] is None
+    assert teaug["parity"]["relu_flips"] == {}
+    assert teaug["parity"]["relu_outputs"] > 0
+    assert "lstm" in dict(teaug["parity"]["gradient_rel"])
     e2e = chip_smoke.e2e_phase(cpu, tmp_path / "e", size=32, n=3, batch=2)
     assert e2e["launches"] == no_launches
     assert e2e["maps_max_abs_err_vs_cpu"] == 0.0
@@ -296,7 +343,8 @@ def _bwd_grad(shape, seed, device):
 @pytest.mark.parametrize("cin,f,ne,h,w,zero_region", [
     (1, 6, 3, 13, 21, False), (2, 8, 6, 20, 36, False),
     (2, 36, 6, 24, 40, True), (1, 36, 2, 9, 17, False),
-    (2, 12, 1, 16, 16, False)])
+    (2, 12, 1, 16, 16, False), (2, 72, 6, 20, 36, False),
+    (2, 72, 6, 13, 21, True)])
 def test_convlstm_bwd_kernel_matches_plain(cuda, cin, f, ne, h, w,
                                            zero_region):
     x, k, b = _lstm_case(nb=2, ne=ne, h=h, w=w, cin=cin, f=f, seed=cin + f,
@@ -350,3 +398,67 @@ def test_convlstm_module_gets_gradients_on_card(cuda):
     for n in cpu:
         scale = float(cpu[n].abs().max())
         assert float((card[n] - cpu[n]).abs().max()) <= 1e-4 * scale, n
+
+
+def _te_rows(ne, kinds):
+    """(nb, ne, 1) TE trains, one row per kind: "uniform" the protocol's,
+    "jittered" N(0, (2e-4)²) spacing jitter."""
+    rows = []
+    for i, kind in enumerate(kinds):
+        t = physics.te_train(ne)[0, :, 0].numpy().astype(np.float64)
+        if kind == "jittered":
+            steps = np.diff(t) + 2e-4 * np.random.default_rng(i).normal(
+                size=ne - 1)
+            t = t[0] + np.concatenate([[0.0], np.cumsum(steps)])
+        rows.append(t.astype(np.float32))
+    return torch.from_numpy(np.stack(rows)[..., None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ne,kinds,flag,h,w", [
+    (6, ("jittered", "jittered"), False, 24, 40),
+    (6, ("uniform", "jittered"), None, 13, 21),
+    (6, ("uniform", "uniform"), True, 7, 5),
+    (3, ("jittered", "uniform"), None, 24, 40),
+    (12, ("uniform", "uniform"), True, 9, 33),
+    (12, ("jittered", "jittered"), False, 9, 33)])
+def test_forward_kernel_matches_plain(cuda, ne, kinds, flag, h, w):
+    """The synthesis kernel against `physics.synthesize`: odd H×W, 3 to 12
+    echoes, a TE train per row (the per-row test), R2* < 0 clamped."""
+    maps = _synth_maps(h=h, w=w, device=cuda)
+    te = _te_rows(ne, kinds).to(cuda)
+    n0 = ops.FORWARD_KERNEL.launches
+    got = ops.synthesize_fused(maps, te, uniform_te=flag)
+    assert ops.FORWARD_KERNEL.launches == n0 + 1
+    ref = physics.synthesize(maps, te)
+    torch.cuda.synchronize()
+    # the per-echo form (and the per-row test) computes each echo on its
+    # own: the JAX package's 1e-4 / 1e-5 at any echo count. The forced
+    # recurrence multiplies the phasor echo by echo, so its rounding grows
+    # with the echo count: the cycle's 2e-4 / 2e-5, and 5e-4 / 5e-5 at 12
+    rtol, atol = ((5e-4, 5e-5) if ne == 12 else (2e-4, 2e-5)) if flag \
+        else (1e-4, 1e-5)
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+    # a B with a fourth (bipolar) row: the kernel reads rows 0-2 in place
+    extra = torch.cat([maps, maps[:, :1]], dim=1)
+    torch.testing.assert_close(
+        ops.synthesize_fused(extra[:, :3], te, uniform_te=flag), got,
+        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_backward_and_rejects(cuda):
+    maps = _synth_maps(device=cuda)
+    te = _te_rows(6, ("jittered", "uniform")).to(cuda)
+    grads = []
+    for fn in (ops.synthesize_fused, physics.synthesize):
+        m = maps.detach().clone().requires_grad_()
+        fn(m, te).square().mean().backward()
+        grads.append(m.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-3, atol=1e-5)
+    with pytest.raises(TypeError):
+        ops.synthesize_fused(maps.double(), te)
+    with pytest.raises(ValueError):
+        ops.synthesize_fused(maps, te.cpu())
+    with pytest.raises(ValueError):
+        ops.synthesize_fused(maps, _te_rows(13, ("uniform",) * 2).to(cuda))

@@ -25,10 +25,10 @@ from ideal_gan_tpu_torch import convert, models  # noqa: E402
 from ideal_gan_tpu_torch.train import unsup as tunsup  # noqa: E402
 
 
-def flax_params(module, x, seed, noise=0.1):
+def flax_params(module, x, seed, noise=0.1, extra=()):
     """Initialized Flax params with every leaf perturbed by `noise`·N(0, 1)
-    (γ set to 0.7)."""
-    params = module.init(jax.random.PRNGKey(seed), x)["params"]
+    (γ set to 0.7); `extra` are further arguments of the module's call."""
+    params = module.init(jax.random.PRNGKey(seed), x, *extra)["params"]
     rng = np.random.default_rng(seed)
 
     def perturb(path, leaf):

@@ -437,7 +437,7 @@ def test_cycle_loss_decreases_on_cpu(out_vars):
     step, tx = tunsup.make_train_step(cfg, g_fm, g_r2)
     r2_step = tunsup.make_r2_train_step(cfg, g_fm, g_r2, tx)
     state = tunsup.init_state(cfg, g_fm, g_r2, tx,
-                              torch.Generator().manual_seed(0))
+                              torch.Generator().manual_seed(0), "cpu")
     batch = (_t(acqs), _t(te))
     losses_ = []
     for _ in range(6):
@@ -500,3 +500,13 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
         train_unsup.main(["--synthetic", "4", "--data_size", "32",
                           "--batch_size", "2", "--output_base",
                           str(tmp_path)])
+
+
+def test_init_state_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = dict(tunsup.DEFAULTS, n_G_filters=F_SMALL)
+    g_fm, g_r2 = tunsup.build_models(cfg)
+    _, tx = tunsup.make_train_step(cfg, g_fm, g_r2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tunsup.init_state(cfg, g_fm, g_r2, tx, torch.Generator())
