@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AI-DEAL training, TE-augmentation training and
-serving paths on one NVIDIA card.
+"""Drive the PyTorch port's AI-DEAL training, TE-augmentation training,
+AI-DEAL serving, magnitude training and Mag serving paths on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -33,7 +34,14 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             - forward synthesis: the TE-augmentation call (MEBCRN maps with
               some R2* < 0, nb=8, 384², ne=6) at a jittered TE train
               (per-echo form, and the per-row test) and at a uniform one
-              (forced recurrence, and the per-row test).
+              (forced recurrence, and the per-row test);
+            - magnitude fit: the magnitude trainer's and Mag serving's call
+              (|S| (nb, ne, H, W, 1), R2* in channel 0, nb=8, 384², ne=6)
+              at a uniform TE train (per-row test, and the forced
+              recurrence) and at a jittered one (per-row test, and the
+              per-echo form), each output held to the JAX package's
+              rtol 1e-3 / atol 5e-4, with the count of voxels beyond
+              1e-5 + 1e-4·|plain| reported.
 4. train    `ideal_gan_tpu_torch.cli.train_unsup.main` with --out_vars PM
             on 16 synthetic 384² slices at batch 8 for 2 epochs (AI-DEAL,
             F=36, seeded random weights), with every launch counter set to 0
@@ -69,11 +77,28 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             2 fit and 24 ConvLSTM launches) and every map is finite. Then the
             first chunk again on the card (TF32 off) and on the CPU with the
             same weights, maps and PDFF compared.
+7. mag      `ideal_gan_tpu_torch.cli.train_mag.main` on 16 synthetic 384²
+            slices at batch 8 for 2 epochs (F=36, the JAX `DEFAULTS`:
+            supervised, MSE on R2*, TE input, self-attention), then one
+            unsupervised step (the magnitude cycle loss), each with every
+            launch counter set to 0 just before and read just after; fails
+            unless the magnitude fit and synthesis kernels ran once a step
+            and the ConvLSTM forward and backward at least once a step,
+            and every loss is finite. Then one step of each config on the
+            card (TF32 off) and on the CPU from the same weights and batch
+            (F=36, 96², batch 2, ground-truth maps with 1e-3 noise; see
+            `mag_step_parity`): loss, metrics and every gradient leaf
+            compared. Then `ideal_gan_tpu_torch.cli.infer.main --model_sel
+            Mag` on 16 slices at batch 8 with the counters read around it
+            (fails unless the magnitude fit and ConvLSTM forward kernels
+            ran once a chunk), and its first slices on the card (TF32 off)
+            and on the CPU, maps compared.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` summary (launches from the path that runs each kernel:
 the train phase for the cycle and the ConvLSTM backward, teaug for the
-synthesis, e2e for the fit and the ConvLSTM forward) and `{"ok": true,
+synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
+the magnitude fit) and `{"ok": true,
 "device": {...}}`.
 """
 
@@ -677,6 +702,123 @@ def forward_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
         cases=cases)
 
 
+def mag_fit_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
+    """The magnitude fit kernel against `physics.cse_mag_fit` on the same
+    inputs: the magnitudes of bench.py's synthetic echoes (and of the same
+    maps synthesized at a jittered TE train) with R2* 0.02 off the truth,
+    in channel 0 of a (nb, 1, H, W, 1) row. Each output is held to the JAX
+    package's rtol 1e-3 / atol 5e-4 (voxels on the 1e-6 and λmax > 0
+    thresholds may flip under another summation order); the count of
+    voxels beyond 1e-5 + 1e-4·|plain| is reported beside it."""
+    import torch
+    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch.ops import ideal
+    from ideal_gan_tpu_torch.physics import constants as pc
+    _, maps, te_u = bench_inputs(nb, size, dev)
+    r2 = (maps[:, 2:3, ..., 1:] + 0.02).contiguous()
+    tes = {"uniform": te_u, "jittered": physics.sample_te_train(
+        torch.Generator().manual_seed(6), NE, nb, device=dev)}
+    nv = nb * size * size
+    # read |S| 4·ne + R2* 4, write ρ 8 + |Ŝ| 4·ne + LS 12 + ratio 4 bytes
+    # a voxel; per echo 8 FLOP of the LS sums and 6 of the reprojection
+    b_ms, b_by = bound(nv * (8 * NE + 28), nv * (14 * NE + 30))
+    names = ("rho", "recon", "ls_coeffs", "uncertainty")
+    cases = []
+    for te_kind, flag in (("uniform", None), ("uniform", True),
+                          ("jittered", None), ("jittered", False)):
+        te = tes[te_kind]
+        acqs = physics.synthesize(maps, te)
+        a_mag = acqs.square().sum(-1, keepdim=True).sqrt()
+        plain = lambda: physics.cse_mag_fit(a_mag, r2, te)  # noqa: E731
+        ref = plain()
+        pre = ops.precompute_mag_matrices(te)
+        call = lambda: ops.cse_mag_fused(  # noqa: E731
+            a_mag, r2, te, uniform_te=flag)
+        kernel_only = (lambda: tuple(getattr(call(), n) for n in names)) \
+            if dev.type == "cpu" else (lambda: ideal._mag_fit_kernel(
+                a_mag, r2, te, 1.5, pc.R2_SC, pc.RHO_SC, pc.WATER_FAT_7PEAK,
+                flag, pre))
+        got = kernel_only()
+        case = dict(te=te_kind, uniform_te=flag, nb=nb, ne=NE, size=size)
+        ok = True
+        for name, out in zip(names, got):
+            r = getattr(ref, name)
+            d = (out - r).abs()
+            if name == "rho":
+                ok &= _mag_rho_ok(out, r, ref.ls_coeffs)
+                case["rho_f64"] = _mag_rho_vs_f64(out, r, ref.ls_coeffs)
+                case["rho_within_tol_every_voxel"] = bool(
+                    (d <= 5e-4 + 1e-3 * r.abs()).all())
+            else:
+                ok &= bool((d <= 5e-4 + 1e-3 * r.abs()).all())
+            case[name] = dict(max_abs_err=float(d.max()),
+                              ref_max_abs=float(r.abs().max()),
+                              beyond_1e_5_1e_4=int(
+                                  (d > 1e-5 + 1e-4 * r.abs()).sum()))
+        case.update(within_tol=ok, ms=time_ms(kernel_only, dev),
+                    device_ms=device_ms(kernel_only, dev, "mag_ls_kernel"),
+                    call_ms=time_ms(call, dev), plain_ms=time_ms(plain, dev),
+                    bound_ms=b_ms, bound_by=b_by)
+        cases.append(case)
+    bad = [c for c in cases if not c["within_tol"]]
+    if bad:
+        raise AssertionError(f"magnitude fit kernel disagrees with "
+                             f"cse_mag_fit: {bad}")
+    main = cases[0]  # the trainer and Mag serving: uniform TE, per-row test
+    return dict(
+        name=ops.MAG_FIT_KERNEL.name, route="cuda",
+        source=ops.MAG_FIT_KERNEL.source,
+        replaces="ideal_gan_tpu/ops/pallas_ideal.py:621", launches=None,
+        max_abs_err=max(c[n]["max_abs_err"] for c in cases for n in names),
+        ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tolerance="|d| <= 5e-4 + 1e-3*|plain| (the JAX package's) for "
+                  "recon, ls_coeffs, uncertainty, and rho where |b| >= "
+                  "1e-3*|a - c| (elsewhere the closed form's fat part "
+                  "cancels: rho_f64, _mag_rho_ok); beyond_1e_5_1e_4 counts "
+                  "the elements outside 1e-5 + 1e-4*|plain|",
+        cases=cases)
+
+
+def _mag_rho_well(ls):
+    """Voxels whose 2×2 eigenvector the closed form gets in float32: where
+    |b| < 1e-3·|a − c| its fat part λmax − a = √((a−c)²/4 + b²/4) − (a−c)/2
+    cancels, and float32's rounding of a few 1e-8·|a − c| is a large share
+    of it (b ≈ 0 where the fitted fat is 0, or where an R2* off the truth
+    bends the LS coefficients)."""
+    a, b, c = ls[:, 0], ls[:, 1], ls[:, 2]
+    return b.abs() >= 1e-3 * (a - c).abs()  # (nb, H, W, 1)
+
+
+def _mag_rho_ok(rho, rho_ref, ls) -> bool:
+    """ρ against the plain version where the eigenvector is well-conditioned
+    (`_mag_rho_well`; both components, 5e-4 + 1e-3·|plain|), and the other
+    voxels under 1 % of all. Elsewhere neither float32 closed form holds
+    ρ's direction, nor its norm once |b| nears the 1e-12 inside √."""
+    d = (rho - rho_ref).abs()
+    well = _mag_rho_well(ls)[:, None].expand_as(d)
+    return bool((d <= 5e-4 + 1e-3 * rho_ref.abs())[well].all()
+                and (~well).float().mean() < 0.01)
+
+
+def _mag_rho_vs_f64(rho, rho_ref, ls) -> dict:
+    """The voxels outside `_mag_rho_well` and how far the kernel's and the
+    plain version's ρ there are from the float64 eigensolve of the plain
+    version's LS coefficients: both float32 closed forms, not the kernel."""
+    from ideal_gan_tpu_torch import physics
+    from ideal_gan_tpu_torch.physics import constants as pc
+    x = (ls.double() * pc.RHO_SC ** 2)[..., 0].permute(0, 2, 3, 1)
+    rho64 = physics.eigenvals_2x2(x)[0].permute(0, 3, 1, 2)[..., None]
+    rho64 = rho64 / pc.RHO_SC
+    bad = ~_mag_rho_well(ls)[:, None].expand_as(rho)
+    if not bool(bad.any()):
+        return dict(cancelling_voxels=0)
+    return dict(cancelling_voxels=int(bad[:, 0].sum()),
+                kernel_vs_f64=float((rho.double() - rho64).abs()[bad].max()),
+                plain_vs_f64=float((rho_ref.double() - rho64).abs()[bad]
+                                   .max()))
+
+
 def _grads(net):
     return {n: p.grad.detach().cpu() for n, p in net.named_parameters()
             if p.grad is not None}
@@ -1085,6 +1227,209 @@ def e2e_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
                 serving_tf32_maps_max_abs_diff_vs_cpu=tf32_err)
 
 
+MAG_PARITY_CONFIGS = {
+    "defaults": {},
+    # the magnitude cycle loss and every regularizer: a real gradient
+    # through the magnitude fit (the defaults reach it only through
+    # 0-weighted terms)
+    "unsupervised": dict(training_mode="unsupervised", main_loss="MAE",
+                         R2_TV_weight=1e-3, A_demod_TV_weight=1e-3,
+                         LS_NZ_weight=1e-2, LS_cond_weight=1e-2),
+}
+
+
+def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """For each of `MAG_PARITY_CONFIGS`, one magnitude step's loss, metrics
+    and gradients on `dev` and on the CPU from the same weights, maps and
+    TE train (TF32 off on the card), and the card step with the plain
+    ConvLSTM. The ground-truth maps carry N(0, 1e-3²) noise, so the net's
+    input |A| has no exactly zero background (PERF.md §7). Each TEEncoder's
+    Dense bias is spread over [0, 1], as the CPU parity tests do: with the
+    zero-bias init every style vector is nearly constant, and AdaIN's √var
+    of it amplifies float32 rounding in the TEEncoders' gradients."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import mag
+
+    cpu = torch.device("cpu")
+    _, maps, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    B = torch.from_numpy(maps + 1e-3 * np.random.default_rng(2).normal(
+        size=maps.shape).astype(np.float32))
+    te = torch.from_numpy(te)
+    out = {}
+    for name, over in MAG_PARITY_CONFIGS.items():
+        cfg = dict(mag.DEFAULTS, n_G_filters=f, **over)
+        model = mag.build_model(cfg)
+        model.init_params(torch.Generator().manual_seed(4))
+        with torch.no_grad():
+            for enc in model.te or ():
+                enc.dense.bias += torch.linspace(0.0, 1.0,
+                                                 enc.dense.bias.numel())
+
+        def run(where, plain=False):
+            net = copy.deepcopy(model).to(where)
+            with plain_convlstm() if plain else contextlib.nullcontext():
+                loss, metrics = mag.make_loss_fn(cfg, net)(B.to(where),
+                                                           te.to(where))
+                loss.backward()
+            return dict(loss=float(loss.detach()), grads=_grads(net),
+                        metrics={k: float(v.detach())
+                                 for k, v in metrics.items()})
+
+        card, ref = run(dev), run(cpu)
+        res = _compare(card, ref)
+        res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
+        res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
+                                   for k, v in card["metrics"].items()}
+        res["plain_convlstm_on_card_vs_cpu"] = _compare(
+            run(dev, plain=True), ref)["grad_max_rel"]
+        out[name] = res
+    return out
+
+
+def mag_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+              batch: int = NB_SERVE, f: int = F_MAIN, parity_size: int = 96,
+              parity_batch: int = 2, serve_compared: int = 2) -> dict:
+    """The magnitude training CLI and one unsupervised step on the card,
+    with the launch counters read around each; the card-vs-CPU steps; the
+    Mag serving CLI with the counters read around it, and its first
+    `serve_compared` slices on the card and on the CPU, compared."""
+    import math
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch.cli import infer, roi_analysis, train_mag
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import mag
+
+    def counted(fn):
+        for k in ops.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return result, time.perf_counter() - t0, {k.name: k.launches
+                                                  for k in ops.KERNELS}
+
+    argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+            str(batch), "--epochs", "2", "--n_G_filters", str(f), "--seed",
+            "0", "--device", str(dev), "--output_base", str(out_dir / "t")]
+    result, wall, launches = counted(lambda: train_mag.main(argv))
+    state = result["state"]
+    losses = [ep["G_loss"] for ep in result["epochs"]]
+    no_grad = [n_ for n_, p in state.model.lstm.named_parameters()
+               if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    if not all(math.isfinite(v) for v in losses) or no_grad:
+        raise AssertionError(f"mag training: losses {result['epochs']}, "
+                             f"ConvLSTM parameters without a gradient "
+                             f"{no_grad}")
+    last = result["epochs"][-1]
+    step_ms = last["seconds"] / last["steps"] * 1e3
+
+    # one unsupervised step (the cycle loss) on the cohort's first batch
+    cfg_u = dict(mag.DEFAULTS, n_G_filters=f, training_mode="unsupervised")
+    model_u = mag.build_model(cfg_u)
+    step_u, tx_u = mag.make_train_step(cfg_u, model_u)
+    state_u = mag.init_state(cfg_u, model_u, tx_u, torch.Generator().manual_seed(0), dev)
+    _, maps, te = load_cohorts(dict(mag.DEFAULTS, synthetic=n,
+                                    data_size=size))
+    bt = (torch.from_numpy(maps[:batch]).to(dev),
+          torch.from_numpy(te[:batch]).to(dev))
+    step_u(state_u, bt)  # warm-up
+    (_, metrics_u), unsup_s, launches_u = counted(lambda: step_u(state_u, bt))
+    unsup = dict(launches=launches_u, ms_per_step=unsup_s * 1e3,
+                 metrics={k: float(v) for k, v in metrics_u.items()})
+    if not all(math.isfinite(v) for v in unsup["metrics"].values()):
+        raise AssertionError(f"unsupervised mag step not finite: {unsup}")
+
+    set_tf32(False)
+    parity = mag_step_parity(dev, parity_size, parity_batch, f)
+
+    set_tf32(True)
+    argv = ["--model_sel", "Mag", "--synthetic", str(n), "--data_size",
+            str(size), "--infer_batch", str(batch), "--export", "npz",
+            "--seed", "0", "--device", str(dev), "--output_base",
+            str(out_dir / "s")]
+    served, serve_wall, launches_s = counted(lambda: infer.main(argv))
+    if served.shape != (n, 3, size, size, 2) or not np.isfinite(served).all():
+        raise AssertionError(f"Mag maps shape {served.shape} or not finite")
+    with np.load(out_dir / "s" / "infer" / "maps_pred.npz") as npz:
+        slices_per_s = float(npz["slices_per_s"])
+    cfg = dict(infer.DEFAULTS, model_sel="Mag", seed=0, synthetic=n,
+               data_size=size)
+    acqs, _, te = load_cohorts(cfg)
+    a, t = acqs[:serve_compared], te[:serve_compared]
+    set_tf32(False)
+    dev_maps, dev_var = roi_analysis._per_slice(
+        roi_analysis.make_infer_run(cfg, a, dev), a, t, serve_compared, dev)
+    cpu_maps, cpu_var = roi_analysis._per_slice(
+        roi_analysis.make_infer_run(cfg, a, "cpu"), a, t, serve_compared,
+        "cpu")
+    # the CPU's LS coefficients mark where ρ's eigenvector is well-posed
+    a_mag = np.sqrt(np.sum(np.square(a), -1, keepdims=True))
+    ls = physics.cse_mag_fit(torch.from_numpy(a_mag),
+                             torch.from_numpy(cpu_maps[:, 2:3, ..., 1:]),
+                             torch.from_numpy(t)).ls_coeffs
+    well = _mag_rho_well(ls)[:, None].expand(-1, 2, -1, -1, -1).numpy()
+    d_rho = np.abs(dev_maps[:, :2, ..., :1] - cpu_maps[:, :2, ..., :1])
+    serve = dict(launches=launches_s, chunks=-(-n // batch),
+                 slices_per_s=slices_per_s, ms_per_slice=1e3 / slices_per_s,
+                 wall_s=serve_wall, compared_slices=serve_compared,
+                 r2_max_abs_err_vs_cpu=float(
+                     np.abs(dev_maps[:, 2] - cpu_maps[:, 2]).max()),
+                 rho_max_abs_err_vs_cpu=float(d_rho.max()),
+                 rho_well_max_abs_err_vs_cpu=float(d_rho[well].max()),
+                 rho_cancelling_share=float(1.0 - well.mean()),
+                 rho_var_max_abs_err_vs_cpu=float(
+                     np.abs(dev_var - cpu_var).max()))
+    return dict(launches=launches, steps=state.step, wall_s=wall,
+                epochs=result["epochs"], ms_per_step=step_ms,
+                slices_per_s=batch * 1e3 / step_ms, unsupervised_step=unsup,
+                parity=parity, parity_shape=dict(size=parity_size,
+                                                  batch=parity_batch, F=f),
+                serve=serve)
+
+
+def check_mag(mag: dict) -> None:
+    """The mag phase's gates: kernels launched on each path, card-vs-CPU
+    steps (MODEL_PARITY.json's tolerances, as the other trainers) and the
+    served maps against the CPU (the fit turns an R2* difference dR into a
+    relative one of up to 2·te·r2_sc·dR ≈ 5·dR at the last echo; 5e-3 as
+    the AI-DEAL maps)."""
+    steps = mag["steps"]
+    runs = {"train": (mag["launches"], steps),
+            "unsupervised step": (mag["unsupervised_step"]["launches"], 1)}
+    for what, (launches, k) in runs.items():
+        if launches["ideal_mag_fit"] != k or launches["ideal_forward"] != k \
+                or launches["convlstm_fwd"] < k \
+                or launches["convlstm_bwd"] < k:
+            raise AssertionError(f"mag {what} skipped kernels in {k} steps: "
+                                 f"{launches}")
+    served, chunks = mag["serve"]["launches"], mag["serve"]["chunks"]
+    if served["ideal_mag_fit"] < chunks or served["convlstm_fwd"] < chunks:
+        raise AssertionError(f"Mag serving skipped kernels: {served}")
+    bad = {name: (v["loss_rel_diff"], v["grad_max_rel"],
+                  max(v["metrics_rel_diff"].values()))
+           for name, v in mag["parity"].items()
+           if v["loss_rel_diff"] > 2e-5 or v["grad_max_rel"] > 2e-2
+           or max(v["metrics_rel_diff"].values()) > 2e-5}
+    if bad:
+        raise AssertionError(f"card and CPU mag steps disagree (loss, "
+                             f"gradients, metrics): {bad}")
+    # R2*, the rank-1 ratio and ρ where its eigenvector is well-posed: where
+    # the random net's R2* bends the LS b coefficient to ≈ 0 the closed
+    # form's fat part cancels (_mag_rho_well)
+    serve = mag["serve"]
+    if max(serve["r2_max_abs_err_vs_cpu"], serve["rho_well_max_abs_err_vs_cpu"],
+           serve["rho_var_max_abs_err_vs_cpu"]) > 5e-3:
+        raise AssertionError(f"card and CPU Mag maps disagree: {serve}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1109,7 +1454,7 @@ def main() -> int:
     build_phase()
     set_tf32(False)
     kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
-               convlstm_bwd_entry(dev), forward_entry(dev)]
+               convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev)]
     emit("kernels", card=smi, kernels=kernels)
     set_tf32(True)  # the runs at PyTorch's defaults
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
@@ -1167,8 +1512,14 @@ def main() -> int:
     if e2e["maps_max_abs_err_vs_cpu"] > 5e-3 \
             or e2e["pdff_max_abs_err_vs_cpu"] > 5e-3:
         raise AssertionError(f"card and CPU maps disagree: {e2e}")
+    set_tf32(True)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        mag = mag_phase(dev, Path(tmp))
+    emit("mag", card=smi, **mag)
+    check_mag(mag)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
-               "convlstm_bwd": train, "ideal_forward": teaug}
+               "convlstm_bwd": train, "ideal_forward": teaug,
+               "ideal_mag_fit": mag}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
     emit("done", seconds=round(time.perf_counter() - t_start, 3))

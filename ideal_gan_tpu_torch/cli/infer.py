@@ -1,17 +1,18 @@
 """CLI: bulk inference on the card — cohort in, quantitative maps out (port of
-`ideal_gan_tpu/cli/infer.py`, AI-DEAL, npz export).
+`ideal_gan_tpu/cli/infer.py`, AI-DEAL and Mag, npz export).
 
     python -m ideal_gan_tpu_torch.cli.infer --model_sel AI-DEAL \\
         --synthetic 16 --data_size 384 --infer_batch 8 --export npz \\
         --seed 0 --output_base output [--weights flax_params.npz] \\
         [--device cuda]
 
-Runs the AI-DEAL generators and the map fit in fixed-shape chunks of
-`--infer_batch` slices on `--device` (default `cuda`; `cpu` runs the plain
-PyTorch versions of the kernels), writes <output_base>/<dataset>/
-maps_pred.npz (maps MEBCRN + pdff/r2s/field planes) and prints the
-steady-state throughput measured after a warm-up chunk. PNG and DICOM
-export are not ported yet.
+Runs the selected model family (`--model_sel AI-DEAL`: the field-map
+generators and the map fit; `--model_sel Mag`: the magnitude R2* UNet and
+the magnitude fit) in fixed-shape chunks of `--infer_batch` slices on
+`--device` (default `cuda`; `cpu` runs the plain PyTorch versions of the
+kernels), writes <output_base>/<dataset>/maps_pred.npz (maps MEBCRN +
+pdff/r2s/field planes) and prints the steady-state throughput measured
+after a warm-up chunk. PNG and DICOM export are not ported yet.
 """
 
 from __future__ import annotations

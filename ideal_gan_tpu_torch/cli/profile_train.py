@@ -5,12 +5,16 @@
         [--seed 0]
     python -m ideal_gan_tpu_torch.cli.profile_train --trainer teaug
         [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 72]
+    python -m ideal_gan_tpu_torch.cli.profile_train --trainer mag
+        [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 36]
+        [--training_mode supervised]
 
 `--trainer unsup` (the default) runs `--steps` AI-DEAL PM-mode step pairs
 (the FM step, then the R2 step with g_fm frozen, as `cli.train_unsup` runs
 them); `--trainer teaug` runs `--steps` VET-Net generator steps (as
-`cli.train_teaug` runs them, at one sampled TE train). Both run on one
-synthetic batch under `torch.profiler`, after one warm-up step, and print
+`cli.train_teaug` runs them, at one sampled TE train); `--trainer mag`
+runs `--steps` magnitude R2* steps (as `cli.train_mag` runs them, at the
+cohort's TE train). Each runs on one synthetic batch under `torch.profiler`, after one warm-up step, and print
 one JSON line: the card's name and power limit, the wall time per step, the
 device time per step in each kernel category (the hand-written kernels,
 cuDNN convolutions, cuDNN's RNN kernels, matmuls, copies, the rest), the
@@ -31,7 +35,7 @@ import torch
 from torch.autograd import DeviceType
 
 from ..ops.ideal import BACKWARD_RANGE
-from ..train import teaug, unsup
+from ..train import mag, teaug, unsup
 from ..train.common import STEP_RANGE
 from .common import parse_flags, resolve_device, synthetic_dataset
 from .profile_infer import category
@@ -42,6 +46,7 @@ CATEGORIES = (
                               "reduce_kernel")),
     ("ideal_cycle kernel", ("cycle_kernel",)),
     ("ideal_forward kernel", ("synth_kernel",)),
+    ("ideal_mag_fit kernel", ("mag_ls_kernel",)),
     ("ideal_fit kernel", ("fit_kernel",)),
     ("cuDNN RNN kernels", ("rnn", "lstm", "elemwise")),
     ("copies", ("memcpy", "memset")),
@@ -107,13 +112,34 @@ def _teaug_step(argv):
     return cfg, dev, step
 
 
+def _mag_step(argv):
+    """(cfg, device, step): one magnitude R2* step on one synthetic batch."""
+    cfg = parse_flags(dict(mag.DEFAULTS, data_size=384, steps=3, seed=0,
+                           device="cuda"), argv)
+    dev = resolve_device(cfg["device"])
+    bs, size = cfg["batch_size"], cfg["data_size"]
+    _, maps, te = synthetic_dataset(bs, h=size, w=size, ne=cfg["n_echoes"],
+                                    field=cfg["field"])
+    batch = (torch.from_numpy(maps).to(dev), torch.from_numpy(te).to(dev))
+    model = mag.build_model(cfg)
+    step_fn, tx = mag.make_train_step(cfg, model)
+    state = mag.init_state(cfg, model, tx,
+                           torch.Generator().manual_seed(cfg["seed"]), dev)
+
+    def step():
+        nonlocal state
+        state, _ = step_fn(state, batch)
+
+    return cfg, dev, step
+
+
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--trainer", choices=("unsup", "teaug"),
+    pre.add_argument("--trainer", choices=("unsup", "teaug", "mag"),
                      default="unsup")
     known, argv = pre.parse_known_args(argv)
-    cfg, dev, step = {"unsup": _unsup_step,
-                      "teaug": _teaug_step}[known.trainer](argv)
+    cfg, dev, step = {"unsup": _unsup_step, "teaug": _teaug_step,
+                      "mag": _mag_step}[known.trainer](argv)
     if dev.type != "cuda":
         raise SystemExit("profile_train measures the card: --device cuda")
     step()

@@ -1,8 +1,9 @@
-"""Per-chunk model inference for the serving CLI (port of the AI-DEAL branch
-of `ideal_gan_tpu/cli/roi_analysis.py`'s `make_infer_run` and `_per_slice`).
+"""Per-chunk model inference for the serving CLI (port of the AI-DEAL and
+Mag branches of `ideal_gan_tpu/cli/roi_analysis.py`'s `make_infer_run`,
+and of `_per_slice`).
 
-The other model families (VET-Net, Mag, U-Net, MDWF, 2D-Net), the PDFF-var
-map and the ROI evaluation are not ported yet (ROADMAP Queue 1).
+The other model families (VET-Net, U-Net, MDWF, 2D-Net), the PDFF-var map
+and the ROI evaluation are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import numpy as np
 import torch
 
 from .. import convert, ops
-from ..train import unsup
+from ..prob import Rician
+from ..train import mag, unsup
 from .common import resolve_device
 
 
@@ -62,6 +64,32 @@ def load_models(cfg, device="cuda"):
     return g_fm.to(dev).eval(), g_r2.to(dev).eval(), fm_offset
 
 
+def load_mag_model(cfg, device="cuda"):
+    """The magnitude UNet on `device`, in eval mode, and its `train.mag`
+    settings. Weights come from `cfg["weights"]`, an `.npz` of the Flax
+    state's `params/...` paths, whose shapes also give the width, the
+    attention flag, the TE input (supervised training) and the Rician head
+    (main_loss="Rice"); or else from a seeded random initialization
+    (`cfg["seed"]`) at `mag.DEFAULTS`."""
+    dev = resolve_device(device)
+    mcfg = dict(mag.DEFAULTS)
+    if cfg.get("weights"):
+        p = convert.load_npz(cfg["weights"])["params"]
+        lstm = p["ConvLSTM_0"]["input_conv"]["kernel"]
+        mcfg.update(n_G_filters=int(lstm.shape[-1]) // 4,
+                    D1_SelfAttention="SelfAttention_0" in p,
+                    training_mode="supervised" if "TEEncoder_0" in p
+                    else "unsupervised",
+                    main_loss="Rice" if "Conv_1" in p else "MSE")
+        model = mag.build_model(mcfg)
+        model.load_state_dict(convert.unet(p))
+    else:
+        model = mag.build_model(mcfg)
+        model.init_params(torch.Generator().manual_seed(int(cfg.get("seed",
+                                                                    0))))
+    return model.to(dev).eval(), mcfg
+
+
 def make_infer_run(cfg, acqs, device="cuda"):
     """Model dispatch → the per-chunk inference closure run(a, te_b) ->
     (maps (nb, 3, H, W, 2), rho_var (nb, 4, H, W, 1)). Builds the models
@@ -69,12 +97,14 @@ def make_infer_run(cfg, acqs, device="cuda"):
     parity with the JAX signature and not read."""
     del acqs
     sel = cfg["model_sel"]
-    if sel != "AI-DEAL":
+    if sel not in ("AI-DEAL", "Mag"):
         raise SystemExit(f"model_sel {sel!r} is not ported yet (ROADMAP "
-                         "Queue 1); the port serves AI-DEAL")
+                         "Queue 1); the port serves AI-DEAL and Mag")
     if cfg.get("map", "PDFF") != "PDFF":
         raise SystemExit(f"map {cfg['map']!r} is not ported yet (ROADMAP "
                          "Queue 1)")
+    if sel == "Mag":
+        return _mag_run(cfg, device)
     g_fm, g_r2, fm_offset = load_models(cfg, device)
     field = cfg["field"]
 
@@ -87,5 +117,28 @@ def make_infer_run(cfg, acqs, device="cuda"):
         rho = ops.fit_rho_fused(a, pm, te_b, field=field)
         rho_var = rho.new_zeros(rho.shape[:1] + (4,) + rho.shape[2:4] + (1,))
         return torch.cat([rho, pm], dim=1), rho_var
+
+    return run
+
+
+def _mag_run(cfg, device):
+    """The Mag branch: |a| → the magnitude UNet (with the TE vector when it
+    was trained supervised) → R2* (the Rician's mean for a Bayesian head)
+    → the magnitude fit. Maps [|W|, 0], [|F|, 0], [0, R2*]; rho_var the
+    rank-1 ratio repeated 4 times."""
+    model, mcfg = load_mag_model(cfg, device)
+    supervised = mcfg["training_mode"] == "supervised"
+    field = cfg["field"]
+
+    @torch.inference_mode()
+    def run(a, te_b):
+        a_mag = torch.sqrt(torch.sum(torch.square(a), dim=-1, keepdim=True))
+        out = model(a_mag, te_b[..., 0]) if supervised else model(a_mag)
+        r2 = out.mean() if isinstance(out, Rician) else out
+        res = ops.cse_mag_fused(a_mag, r2, te_b, field=field)
+        wf = torch.cat([res.rho, torch.zeros_like(res.rho)], dim=-1)
+        pm = torch.cat([torch.zeros_like(r2), r2], dim=-1)
+        return (torch.cat([wf, pm], dim=1),
+                torch.cat([res.uncertainty] * 4, dim=1))
 
     return run

@@ -90,21 +90,32 @@ def convlstm(p: dict, prefix: str) -> dict:
     }
 
 
+def _conv(p: dict, prefix: str) -> dict:
+    return {f"{prefix}weight": conv_kernel(p["kernel"]),
+            f"{prefix}bias": _t(p["bias"])}
+
+
 def unet(p: dict, num_layers: int = 4) -> dict:
     """State dict of `models.UNet(me_layer=True)` from the Flax `UNet`
     params (ConvBlock_0..L-1 encoder, ConvBlock_L bottom, ConvBlock_L+1..
-    decoder, Upsample_0.., SelfAttention_0, Conv_0 head)."""
+    decoder, Upsample_0.., SelfAttention_0, Conv_0 head; with te_input
+    TEEncoder_0..L-1, one per encoder level; with the σ head Conv_1 (to 16)
+    and Conv_2 (to n_out))."""
     sd = convlstm(p["ConvLSTM_0"], "lstm.")
     for i in range(num_layers):
         sd.update(conv_block(p[f"ConvBlock_{i}"], f"down.{i}."))
         sd.update(conv_block(p[f"ConvBlock_{num_layers + 1 + i}"],
                              f"dec.{i}."))
         sd.update(upsample(p[f"Upsample_{i}"], f"up.{i}."))
+        if f"TEEncoder_{i}" in p:
+            sd.update(te_encoder(p[f"TEEncoder_{i}"], f"te.{i}."))
     sd.update(conv_block(p[f"ConvBlock_{num_layers}"], "bottom."))
     if "SelfAttention_0" in p:
         sd.update(self_attention(p["SelfAttention_0"], "attn."))
-    sd["head.weight"] = conv_kernel(p["Conv_0"]["kernel"])
-    sd["head.bias"] = _t(p["Conv_0"]["bias"])
+    sd.update(_conv(p["Conv_0"], "head."))
+    if "Conv_1" in p:
+        sd.update(_conv(p["Conv_1"], "sigma.conv1."))
+        sd.update(_conv(p["Conv_2"], "sigma.conv2."))
     return sd
 
 
@@ -132,8 +143,7 @@ def _decoder(p: dict, prefix: str, num_layers: int) -> dict:
         sd.update(conv_block(p[f"ConvBlock_{i}"], f"{prefix}blocks.{i}."))
     if "SelfAttention_0" in p:
         sd.update(self_attention(p["SelfAttention_0"], f"{prefix}attn."))
-    sd[f"{prefix}head.weight"] = conv_kernel(p["Conv_0"]["kernel"])
-    sd[f"{prefix}head.bias"] = _t(p["Conv_0"]["bias"])
+    sd.update(_conv(p["Conv_0"], f"{prefix}head."))
     return sd
 
 

@@ -1,5 +1,5 @@
 // Phasor helpers shared by the IDEAL kernels (ideal_fit.cu, ideal_cycle.cu,
-// ideal_forward.cu).
+// ideal_forward.cu; ideal_mag_fit.cu takes its block size and TE test).
 //
 // The phasor of echo e is exp(sign*2*pi*i*te_e*phi) * exp(-sign*te_e*r2):
 // sign = -1 demodulates (and grows by exp(+te*R2*)), sign = +1 remodulates

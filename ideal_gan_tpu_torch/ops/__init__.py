@@ -5,20 +5,21 @@ kernels' plain PyTorch versions."""
 from .convlstm import (CONVLSTM_BWD_KERNEL, CONVLSTM_KERNEL,
                        convlstm_backward, convlstm_backward_reference,
                        convlstm_forward, convlstm_fused, convlstm_reference)
-from .ideal import (CYCLE_KERNEL, FIT_KERNEL, FORWARD_KERNEL,
-                    cycle_full_fused, cycle_fused, fit_rho_fused,
-                    fit_rho_planar, precompute_cycle_matrices,
-                    precompute_fit_matrices, precompute_synth_matrices,
-                    synthesize_fused)
+from .ideal import (CYCLE_KERNEL, FIT_KERNEL, FORWARD_KERNEL, MAG_FIT_KERNEL,
+                    cse_mag_fused, cycle_full_fused, cycle_fused,
+                    fit_rho_fused, fit_rho_planar, precompute_cycle_matrices,
+                    precompute_fit_matrices, precompute_mag_matrices,
+                    precompute_synth_matrices, synthesize_fused)
 
 KERNELS = (FIT_KERNEL, CONVLSTM_KERNEL, CYCLE_KERNEL, CONVLSTM_BWD_KERNEL,
-           FORWARD_KERNEL)
+           FORWARD_KERNEL, MAG_FIT_KERNEL)
 
 __all__ = [
     "CONVLSTM_BWD_KERNEL", "CONVLSTM_KERNEL", "CYCLE_KERNEL", "FIT_KERNEL",
-    "FORWARD_KERNEL", "KERNELS", "convlstm_backward",
+    "FORWARD_KERNEL", "KERNELS", "MAG_FIT_KERNEL", "convlstm_backward",
     "convlstm_backward_reference", "convlstm_forward", "convlstm_fused",
-    "convlstm_reference", "cycle_full_fused", "cycle_fused", "fit_rho_fused",
-    "fit_rho_planar", "precompute_cycle_matrices", "precompute_fit_matrices",
+    "convlstm_reference", "cse_mag_fused", "cycle_full_fused", "cycle_fused",
+    "fit_rho_fused", "fit_rho_planar", "precompute_cycle_matrices",
+    "precompute_fit_matrices", "precompute_mag_matrices",
     "precompute_synth_matrices", "synthesize_fused",
 ]

@@ -1,21 +1,22 @@
-"""The IDEAL map fit, cycle and forward synthesis on the card (counterpart
-of `ideal_gan_tpu/ops/pallas_ideal.py`'s fit, cycle and synthesis entry
-points).
+"""The IDEAL map fit, cycle, forward synthesis and magnitude fit on the card
+(counterpart of `ideal_gan_tpu/ops/pallas_ideal.py`'s entry points).
 
 For CUDA tensors every entry point launches a hand-written kernel
-(`csrc/ideal_fit.cu`, `csrc/ideal_cycle.cu`, `csrc/ideal_forward.cu`); for
-CPU tensors it calls the kernel's plain version, `physics.ops.fit_rho`,
-`physics.ops.cycle_full` or `physics.ops.synthesize`. A CUDA tensor the
-kernel cannot take raises: there is no fallback to the plain version on
-the card.
+(`csrc/ideal_fit.cu`, `csrc/ideal_cycle.cu`, `csrc/ideal_forward.cu`,
+`csrc/ideal_mag_fit.cu`); for CPU tensors it calls the kernel's plain
+version, `physics.ops.fit_rho`, `cycle_full`, `synthesize` or
+`cse_mag_fit`. A CUDA tensor the kernel cannot take raises: there is no
+fallback to the plain version on the card.
 
     fit:        ρ_s = (1/rho_sc) · Σ_e M⁺[s,e] · e^{−2πi·te_e·ξ} · S_e
     cycle:      the fit, then Â_e = e^{+2πi·te_e·ξ} · Σ_s M[e,s] · (rho_sc·ρ_s)
     synthesis:  S_e = e^{+2πi·te_e·ξ₊} · Σ_s M[e,s] · (rho_sc·ρ_s)
     ξ = φ·fm_sc + i·R2*·r2_sc/2π;  ξ₊ the same with R2* clamped at 0
+    magnitude:  (a, b, c) = A⁺ · (e^{te·R2*}·|S|)², |Ŝ_e| = √(A·(a,b,c))_e /
+                e^{te_e·R2*}, (|W|, |F|) from the 2×2 eigensolve
 
-`fit_rho_fused`, `cycle_full_fused`, `cycle_fused` and `synthesize_fused`
-are differentiable: as the JAX package's custom VJPs do, the backward is
+`fit_rho_fused`, `cycle_full_fused`, `cycle_fused`, `synthesize_fused` and
+`cse_mag_fused` are differentiable: as the JAX package's custom VJPs do, the backward is
 autograd through the plain version from the saved inputs, for the inputs
 that need a gradient. The TPU tiling constants of the JAX module (row
 tiles, the (16, 128) bf16 block rule and its f32 fallbacks) have no
@@ -49,6 +50,10 @@ CYCLE_KERNEL = Kernel("ideal_cycle", {
 })
 FORWARD_KERNEL = Kernel("ideal_forward", {
     "ideal_forward": (_I, [_P] * 8 + [_I, _I] + [_L] * 9
+                      + [_I, _F, _F, _F, _I, _P]),
+})
+MAG_FIT_KERNEL = Kernel("ideal_mag_fit", {
+    "ideal_mag_fit": (_I, [_P] * 9 + [_I, _I] + [_L] * 6
                       + [_I, _F, _F, _F, _I, _P]),
 })
 MAX_ECHOES = 12
@@ -431,3 +436,98 @@ def synthesize_fused(out_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
     return _Synthesize.apply(out_maps, te,
                              (field, r2_sc, fm_sc, rho_sc, species),
                              uniform_te)
+
+
+def precompute_mag_matrices(te: torch.Tensor, field: float = 1.5,
+                            species: SpeciesModel = WATER_FAT_7PEAK):
+    """The magnitude fit kernel's per-row operands for a TE train: (A as
+    (nb, ne·3), A⁺ as (nb, 3·ne), te as (nb, ne)), float32."""
+    nb, ne = te.shape[0], te.shape[1]
+    a, a_pinv = mx.mag_design_matrix(mx.model_matrix(te, field, species))
+    return (a.reshape(nb, -1).contiguous(), a_pinv.reshape(nb, -1).contiguous(),
+            te.reshape(nb, ne).float().contiguous())
+
+
+def _mag_fit_kernel(acqs, out_maps, te, field, r2_sc, rho_sc, species,
+                    uniform_te, precomputed=None):
+    """The magnitude fit kernel: (ρ (nb, 2, H, W, 1), |Ŝ| (nb, ne, H, W, 1),
+    LS (nb, 3, H, W, 1), ratio (nb, 1, H, W, 1)), forward only. R2* is read
+    in place from channel 0 of `out_maps`' row 0."""
+    nb, ne, hgt, wdt, one = acqs.shape
+    if species.n_species != 2:
+        raise ValueError(f"magnitude fit kernel: takes 2 species, got "
+                         f"{species.n_species}")
+    if one != 1 or acqs.dtype != torch.float32:
+        raise TypeError(f"magnitude fit kernel: acqs must be float32 (nb, ne, "
+                        f"H, W, 1), got {acqs.dtype} {tuple(acqs.shape)}")
+    if out_maps.dtype != torch.float32:
+        raise TypeError(f"magnitude fit kernel: out_maps must be float32, got "
+                        f"{out_maps.dtype}")
+    if out_maps.ndim != 5 or out_maps.shape[0] != nb \
+            or tuple(out_maps.shape[2:4]) != (hgt, wdt):
+        raise ValueError(f"magnitude fit kernel: out_maps must be (nb, ≥1, H, "
+                         f"W, ≥1) with R2* in channel 0 of row 0, got "
+                         f"{tuple(out_maps.shape)} for acqs "
+                         f"{tuple(acqs.shape)}")
+    if not 3 <= ne <= MAX_ECHOES or tuple(te.shape) != (nb, ne, 1):
+        raise ValueError(f"magnitude fit kernel: takes 3..{MAX_ECHOES} echoes "
+                         f"and te (nb, ne, 1), got acqs {tuple(acqs.shape)}, "
+                         f"te {tuple(te.shape)}")
+    for name, t in (("out_maps", out_maps), ("te", te)):
+        if t.device != acqs.device:
+            raise ValueError(f"magnitude fit kernel: {name} on {t.device}, "
+                             f"acqs on {acqs.device}")
+    a_s, ap_s, te_flat = precomputed or precompute_mag_matrices(te, field,
+                                                                species)
+    if a_s.shape != (nb, 3 * ne) or ap_s.shape != a_s.shape \
+            or te_flat.shape != (nb, ne):
+        raise ValueError(f"magnitude fit kernel: precomputed operands "
+                         f"{a_s.shape}, {ap_s.shape}, {te_flat.shape} do not "
+                         f"match {nb} rows of {ne} echoes")
+    dev = acqs.device
+    rho, recon, ls, unc = (
+        torch.empty((nb, k, hgt, wdt, 1), dtype=torch.float32, device=dev)
+        for k in (2, ne, 3, 1))
+    s = acqs[..., 0]
+    r2s = out_maps[:, 0:1, ..., 0]
+    s_str = _flat_strides(s, "acqs")
+    p_str = _flat_strides(r2s, "out_maps")
+    rc = MAG_FIT_KERNEL.fn("ideal_mag_fit")(
+        s.data_ptr(), r2s.data_ptr(), a_s.data_ptr(), ap_s.data_ptr(),
+        te_flat.data_ptr(), rho.data_ptr(), recon.data_ptr(), ls.data_ptr(),
+        unc.data_ptr(), nb, ne, hgt * wdt, *s_str, p_str[0], p_str[2],
+        _phasor_mode(uniform_te), r2_sc, rho_sc, rho_sc ** 2, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    MAG_FIT_KERNEL.launches += 1
+    check_launch(MAG_FIT_KERNEL, rc)
+    return rho, recon, ls, unc
+
+
+def _mag_fit_plain(acqs, out_maps, te, field, r2_sc, rho_sc, species):
+    """The kernel's outputs from `physics.cse_mag_fit`."""
+    res = pops.cse_mag_fit(acqs, out_maps, te, field, r2_sc, rho_sc,
+                           species=species)
+    return res.rho, res.recon, res.ls_coeffs, res.uncertainty
+
+
+def cse_mag_fused(acqs, out_maps, te, field=1.5, r2_sc=R2_SC, rho_sc=RHO_SC,
+                  r2s_nu=None, species: SpeciesModel = WATER_FAT_7PEAK,
+                  uniform_te: bool | None = None) -> pops.CSEMagResult:
+    """The fused magnitude-domain fit: `physics.cse_mag_fit`'s
+    `CSEMagResult` with ρ, |Ŝ|, the LS coefficients and the rank-1 ratio
+    from one pass of the magnitude fit kernel.
+
+    acqs (nb, ne, H, W, 1) float32 magnitudes; out_maps (nb, ≥1, H, W, ≥1)
+    float32 with channel 0 of row 0 the normalized R2*; te (nb, ne, 1).
+    `uniform_te`: True forces the uniform-TE recurrence, False one exp per
+    echo, None lets the kernel test each row's te. `demod` is not a kernel
+    output (nor the TPU kernel's): it is (e^{te·R2*}·|S|)² in plain
+    elementwise ops, with the Rician ν `r2s_nu` in place of R2* when given,
+    so ν's gradient is ordinary autograd. Differentiable in acqs and
+    out_maps (autograd through `physics.cse_mag_fit`)."""
+    rho, recon, ls, unc = _Physics.apply(
+        _mag_fit_kernel, _mag_fit_plain, acqs, out_maps, te,
+        (field, r2_sc, rho_sc, species), (uniform_te,))
+    demod = pops.mag_demod(acqs, out_maps if r2s_nu is None else r2s_nu, te,
+                           r2_sc)
+    return pops.CSEMagResult(rho, recon, demod, ls, unc)

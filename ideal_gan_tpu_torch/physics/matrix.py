@@ -86,3 +86,41 @@ def model_matrix(te: torch.Tensor, field: float = 1.5,
     amps = torch.as_tensor(species.amps_matrix().astype(np.complex64),
                            device=dev)
     return torch.exp(phase) @ amps
+
+
+def mag_design_matrix(m: torch.Tensor):
+    """Design matrix of the magnitude-only fit: A = [|M_w|, Re(M_f),
+    |M_f|²], the columns of |S|² ≈ A·(a, b, c). m (nb, ne, 2) complex →
+    (A (nb, ne, 3), A⁺ = (AᵀA)⁻¹Aᵀ (nb, 3, ne)), float32."""
+    m_abs = m.abs()
+    a = torch.cat([m_abs[..., :1], m.real[..., 1:], m_abs[..., 1:].square()],
+                  dim=-1).float()
+    at = a.transpose(-1, -2)
+    return a, small_inv(at @ a) @ at
+
+
+def eigenvals_2x2(x: torch.Tensor, eps: float = 1e-12):
+    """Closed-form eigensolve of the per-voxel symmetric 2×2 matrices
+    [[a, b/2], [b/2, c]] packed as (..., 3) = (a, b, c): the rank-1
+    (water, fat) magnitude estimate √λmax·v_max (..., 2) and the rank-1
+    ratio λmin/λmax (..., 1), both 0 where λmax ≤ 0."""
+    a, b, c = x[..., :1], x[..., 1:2], x[..., 2:]
+    adiff_half = 0.5 * (a - c)
+    b_half = 0.5 * b
+    delta = torch.sqrt(adiff_half * adiff_half + b_half * b_half + eps)
+    lam_max = 0.5 * (a + c) + delta
+    lam_min = 0.5 * (a + c) - delta
+    lam_max_pos = torch.clamp(lam_max, min=0.0)
+    lam_min_pos = torch.clamp(lam_min, min=0.0)
+    vx, vy = b_half, lam_max - a
+    norm = torch.sqrt(vx * vx + vy * vy + eps)
+    zero = torch.zeros_like(norm)
+    vx = torch.where(norm > 0, vx / norm, zero)
+    vy = torch.where(norm > 0, vy / norm, zero)
+    # the double where keeps sqrt'(0) = inf out of the gradient where
+    # λmax ≤ 0 (every background voxel of the synthetic cohort)
+    pos = lam_max_pos > 0
+    lam_safe = torch.where(pos, lam_max_pos, torch.ones_like(lam_max_pos))
+    scale = torch.where(pos, torch.sqrt(lam_safe), zero)
+    ratio = torch.where(pos, lam_min_pos / lam_safe, zero)
+    return scale * torch.cat([vx, vy], dim=-1), ratio

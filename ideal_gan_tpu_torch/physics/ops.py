@@ -11,11 +11,17 @@ kernel, and both give the kernels' backwards.
 Normalization: field maps are stored as φ/fm_sc, R2* as r2s/r2_sc,
 water/fat as ρ/rho_sc.
 
+`cse_mag_fit` is the magnitude-domain fit, the plain version of the
+magnitude fit kernel (`ops.ideal.cse_mag_fused`) and its backward.
+
 Not ported yet: the bipolar readout phase, the shared-phase constraint and
-the demodulated-echo output of `fit_rho`, and the magnitude operators.
+the demodulated-echo output of `fit_rho`, `synthesize_mag` and
+`synthesize_mag_phase`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -147,3 +153,76 @@ def cycle(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
     physics loss. Layouts as `cycle_full`; returns Â."""
     return cycle_full(acqs, param_maps, te, field, r2_sc, fm_sc, RHO_SC,
                       species)[1]
+
+
+class CSEMagResult(NamedTuple):
+    """Outputs of the magnitude-domain LS fit."""
+    rho: torch.Tensor          # (nb, ns, H, W, 1) |W|, |F| / rho_sc
+    recon: torch.Tensor        # (nb, ne, H, W, 1) reconstructed |S|
+    demod: torch.Tensor        # (nb, ne, H, W, 1) demodulated squared signal
+    ls_coeffs: torch.Tensor    # (nb, 3, H, W, 1) LS (a, b, c) / rho_sc²
+    uncertainty: torch.Tensor  # (nb, 1, H, W, 1) rank-1 ratio λmin/λmax
+
+
+def _demod(smtx: torch.Tensor, maps: torch.Tensor, te: torch.Tensor,
+           r2_sc: float) -> torch.Tensor:
+    """(e^{te·R2*}·|S|)² over (nb, ne, nv): |S| flattened (nb, ne, nv), R2*
+    from channel 0 of row 0 of `maps` (nb, ≥1, H, W, ≥1)."""
+    r2s = (maps[:, 0, ..., 0] * r2_sc).reshape(maps.shape[0], 1, -1)
+    return torch.square(torch.exp(te.float() * r2s) * smtx)
+
+
+def mag_demod(acqs: torch.Tensor, maps: torch.Tensor, te: torch.Tensor,
+              r2_sc: float = R2_SC) -> torch.Tensor:
+    """The `demod` output of `cse_mag_fit`: (e^{te·R2*}·|S|)², (nb, ne, H,
+    W, 1), with R2* channel 0 of `maps` (the fitted R2*, or the Rician ν)."""
+    nb, ne, hgt, wdt, _ = acqs.shape
+    smtx = acqs[..., 0].reshape(nb, ne, -1)
+    return _demod(smtx, maps, te, r2_sc).reshape(nb, ne, hgt, wdt, 1)
+
+
+def cse_mag_fit(acqs: torch.Tensor, out_maps: torch.Tensor, te: torch.Tensor,
+                field: float = 1.5, r2_sc: float = R2_SC,
+                rho_sc: float = RHO_SC, r2s_nu: torch.Tensor | None = None,
+                species: SpeciesModel = WATER_FAT_7PEAK) -> CSEMagResult:
+    """Magnitude-only water/fat LS fit: demodulate |S|² by e^{2·te·R2*},
+    fit the quadratic model |S|² ≈ A·(a, b, c) per voxel through A⁺,
+    recover rank-1 (|W|, |F|) with the closed-form 2×2 eigensolve, and
+    reproject |Ŝ|.
+
+    acqs: magnitude echoes (nb, ne, H, W, 1); out_maps (nb, 1, H, W, ≥1)
+    with channel 0 = normalized R2*; te (nb, ne, 1). `r2s_nu` (the Rician
+    ν, normalized, as out_maps) replaces R2* in the `demod` output only.
+    The plain version of the magnitude fit kernel (`ops.ideal`)."""
+    nb, ne, hgt, wdt, _ = acqs.shape
+    ns = species.n_species
+    a, a_pinv = mx.mag_design_matrix(mx.model_matrix(te, field, species))
+    smtx = acqs[..., 0].reshape(nb, ne, -1)
+    wms = _demod(smtx, out_maps, te, r2_sc)
+    awms = a_pinv @ wms  # (nb, 3, nv)
+    aawms = a @ awms     # (nb, ne, nv)
+    # the double where keeps sqrt'(0) = inf out of the gradient where the
+    # fitted |S|² ≤ 1e-6 (every background voxel of the synthetic cohort)
+    pos = aawms > 1e-6
+    aawms_safe = torch.where(pos, aawms, torch.ones_like(aawms))
+    r2s = (out_maps[:, 0, ..., 0] * r2_sc).reshape(nb, 1, -1)
+    wp = torch.exp(-te.float() * r2s)
+    smtx_hat = wp * torch.where(pos, torch.sqrt(aawms_safe),
+                                torch.zeros_like(aawms))
+    demod = wms if r2s_nu is None else _demod(smtx, r2s_nu, te, r2_sc)
+    rho_hat, rho_unc = mx.eigenvals_2x2(awms.transpose(-1, -2))
+
+    def img(x, k):  # (nb, k, nv) → (nb, k, H, W, 1)
+        return x.reshape(nb, k, hgt, wdt, 1)
+
+    return CSEMagResult(
+        rho=img(rho_hat.transpose(-1, -2), ns) / rho_sc,
+        recon=img(smtx_hat, ne), demod=img(demod, ne),
+        ls_coeffs=img(awms, 3) / (rho_sc ** 2),
+        uncertainty=img(rho_unc.transpose(-1, -2), 1))
+
+
+def mag_cycle(acqs: torch.Tensor, out_maps: torch.Tensor, te: torch.Tensor,
+              **kw) -> torch.Tensor:
+    """Magnitude-domain cycle: |S| → LS fit → reconstructed |Ŝ|."""
+    return cse_mag_fit(acqs, out_maps, te, **kw).recon

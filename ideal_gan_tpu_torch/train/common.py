@@ -7,6 +7,7 @@
   `torch.nn.utils.clip_grad_norm_`), and the learning rate is the schedule
   at the count before the step, as optax's `scale_by_schedule` reads it.
 - `batch_iterator`: host-side shuffled batches over aligned numpy arrays.
+- `ModelState`: one net, its optimizer and the step count, as checkpointed.
 
 Not ported yet: `TrainLoop` and `accumulate_microbatch_grads` (ROADMAP
 Queue 1 item 6).
@@ -14,6 +15,7 @@ Queue 1 item 6).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Iterable
 
 import numpy as np
@@ -108,3 +110,23 @@ def batch_iterator(arrays, batch_size: int, rng: np.random.Generator,
     for i in range(0, stop, batch_size):
         sel = idx[i:i + batch_size]
         yield tuple(a[sel] for a in arrays)
+
+
+@dataclasses.dataclass
+class ModelState:
+    """A one-net trainer's state: the net, its optimizer and the step
+    count."""
+    model: torch.nn.Module
+    opt: Adam
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        """CPU tensors and ints, for `utils.Checkpoint`."""
+        return {"model": {k: v.detach().cpu()
+                          for k, v in self.model.state_dict().items()},
+                "opt": self.opt.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.opt.load_state_dict(state["opt"])
+        self.step = int(state["step"])

@@ -18,8 +18,6 @@ NotImplementedError.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -28,7 +26,7 @@ from ..cli.common import resolve_device
 from ..losses import total_variation_2d
 from ..models import VETNet
 from ..ops import fit_rho_fused, synthesize_fused
-from .common import Adam, linear_decay_schedule, make_adam
+from .common import ModelState, linear_decay_schedule, make_adam
 
 DEFAULTS = dict(
     dataset="TEaug-300", n_echoes=6, field=1.5, G_model="PM-Gen",
@@ -132,24 +130,7 @@ def make_loss_fn(cfg, model):
     return loss_fn
 
 
-@dataclasses.dataclass
-class TEAugState:
-    """The trainer's state: the generator, its optimizer and the step
-    count."""
-    model: torch.nn.Module
-    opt: Adam
-    step: int = 0
-
-    def state_dict(self) -> dict:
-        """CPU tensors and ints, for `utils.Checkpoint`."""
-        return {"model": {k: v.detach().cpu()
-                          for k, v in self.model.state_dict().items()},
-                "opt": self.opt.state_dict(), "step": self.step}
-
-    def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["opt"])
-        self.step = int(state["step"])
+TEAugState = ModelState  # the generator, its optimizer and the step count
 
 
 def make_train_step(cfg, model):

@@ -123,6 +123,10 @@ assert not bad, bad
 for n in ("ideal_gan_tpu_torch.cli.train_unsup",
           "ideal_gan_tpu_torch.cli.train_teaug",
           "ideal_gan_tpu_torch.train.teaug",
+          "ideal_gan_tpu_torch.cli.train_mag",
+          "ideal_gan_tpu_torch.train.mag",
+          "ideal_gan_tpu_torch.prob",
+          "ideal_gan_tpu_torch.prob.distributions",
           "ideal_gan_tpu_torch.ops.ideal",
           "ideal_gan_tpu_torch.cli.profile_train",
           "ideal_gan_tpu_torch.train.common",

@@ -9,7 +9,10 @@ Tests marked `cuda` skip without a card (decided inside the fixture). On the
 card TF32 is switched off for the plain versions. Tolerances: the fit and
 the cycle to |d| ≤ 1e-5 + 1e-4·|plain| (the JAX package's kernel
 tolerance), 2e-5 + 2e-4·|plain| for the cycle's uniform-TE recurrence,
-5e-4 / 5e-5 over 12 echoes; bf16 ρ stores to 2^-8 relative; the ConvLSTM
+5e-4 / 5e-5 over 12 echoes; the magnitude fit to the JAX package's rtol
+1e-3 / atol 5e-4 for its kernel (voxels on the fit's thresholds, and
+ill-conditioned eigenvectors, move under another summation order), with
+at most 0.1 % of the elements beyond 1e-5 + 1e-4·|plain|; bf16 ρ stores to 2^-8 relative; the ConvLSTM
 forward to 1e-4 of the output scale (f32 sums over K = 9·(Cin+F) in another
 order than cuDNN's, carried through the recurrence) and its backward's dx,
 dk and db each to 1e-4 of the plain version's max |·| (sums over all pixels
@@ -190,20 +193,24 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path, monkeypatch):
     cycle = chip_smoke.cycle_entry(cpu, size=16, nb=2)
     bwd = chip_smoke.convlstm_bwd_entry(cpu, size=12, shapes=shapes)
     synth = chip_smoke.forward_entry(cpu, size=16, nb=2)
+    mag_fit = chip_smoke.mag_fit_entry(cpu, size=16, nb=2)
     for entry, n_cases in ((fit, 8), (lstm, 3), (cycle, 2), (bwd, 9),
-                           (synth, 4)):
+                           (synth, 4), (mag_fit, 4)):
         assert KERNEL_KEYS <= set(entry)
         assert len(entry["cases"]) == n_cases
         assert Path(ROOT, entry["source"]).is_file()
-    assert {e["name"] for e in (fit, lstm, cycle, bwd, synth)} \
+    assert {e["name"] for e in (fit, lstm, cycle, bwd, synth, mag_fit)} \
         == {k.name for k in ops.KERNELS}
     for entry in (lstm, bwd):
         assert entry["wide"]["F"] == 8 and entry["wide"]["cin"] == 2
     assert 0.0 < synth["clamped_share"] < 0.5
-    for entry in (fit, cycle, synth):  # profiler device time: card only
+    for entry in (fit, cycle, synth, mag_fit):  # profiler time: card only
         assert "device_ms" in entry and entry["device_ms"] is None
-    for entry in (fit, lstm, cycle, synth):
+    for entry in (fit, lstm, cycle, synth, mag_fit):
         assert entry["max_abs_err"] == 0.0  # plain vs plain here
+    assert {c["te"] for c in mag_fit["cases"]} == {"uniform", "jittered"}
+    assert all(c[n]["beyond_1e_5_1e_4"] == 0 for c in mag_fit["cases"]
+               for n in ("rho", "recon", "ls_coeffs", "uncertainty"))
     # the backward is held to the plain version in float64 too
     assert bwd["max_abs_err"] < 1e-5
     assert all(c[n]["max_abs_err"] == 0.0 for c in bwd["cases"]
@@ -260,6 +267,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path, monkeypatch):
     e2e = chip_smoke.e2e_phase(cpu, tmp_path / "e", size=32, n=3, batch=2)
     assert e2e["launches"] == no_launches
     assert e2e["maps_max_abs_err_vs_cpu"] == 0.0
+    mag = chip_smoke.mag_phase(cpu, tmp_path / "m", size=32, n=4, batch=2,
+                               f=4, parity_size=32, parity_batch=1)
+    assert mag["launches"] == no_launches and mag["steps"] == 4
+    assert mag["unsupervised_step"]["launches"] == no_launches
+    assert [ep["epoch"] for ep in mag["epochs"]] == [1, 2]
+    assert set(mag["parity"]) == {"defaults", "unsupervised"}
+    for par in mag["parity"].values():
+        assert par["loss_rel_diff"] == par["grad_max_rel"] == 0.0
+        assert set(par["metrics_rel_diff"].values()) == {0.0}
+        assert par["plain_convlstm_on_card_vs_cpu"] == 0.0
+    assert mag["serve"]["launches"] == no_launches
+    assert mag["serve"]["chunks"] == 2
+    assert mag["serve"]["rho_max_abs_err_vs_cpu"] == 0.0
+    assert mag["serve"]["r2_max_abs_err_vs_cpu"] == 0.0
 
 
 def _cycle_case(ne=6, uniform=True, h=24, w=40, seed=0, device="cpu"):
@@ -462,3 +483,88 @@ def test_forward_kernel_backward_and_rejects(cuda):
         ops.synthesize_fused(maps, te.cpu())
     with pytest.raises(ValueError):
         ops.synthesize_fused(maps, _te_rows(13, ("uniform",) * 2).to(cuda))
+
+
+def _mag_case(nb=2, h=24, w=40, ne=6, kinds=("uniform", "uniform"),
+              channels=1, device="cpu"):
+    """Magnitudes synthesized from `_synth_maps` (R2* ≥ 0 there) at a TE
+    train per row, and an R2* row 0.02 off the truth in channel 0 of a
+    (nb, 1, H, W, `channels`) row (other channels hold noise)."""
+    maps = _synth_maps(nb=nb, h=h, w=w).clamp(min=-0.5)
+    maps[:, 2, ..., 1] = maps[:, 2, ..., 1].abs()
+    te = _te_rows(ne, kinds) if kinds else physics.te_train(ne, bs=nb)
+    a_mag = physics.synthesize(maps, te).square().sum(-1, keepdim=True).sqrt()
+    r2 = torch.rand((nb, 1, h, w, channels),
+                    generator=torch.Generator().manual_seed(3))
+    r2[..., 0] = maps[:, 2:3, ..., 1] + 0.02
+    return a_mag.to(device), r2.to(device), te.to(device)
+
+
+_MAG_FIELDS = ("rho", "recon", "ls_coeffs", "uncertainty")
+
+
+def test_cpu_mag_fit_takes_the_plain_version():
+    before = {k.name: k.launches for k in ops.KERNELS}
+    a_mag, r2, te = _mag_case(channels=2)
+    got = ops.cse_mag_fused(a_mag, r2, te)
+    ref = physics.cse_mag_fit(a_mag, r2, te)
+    for name in _MAG_FIELDS + ("demod",):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert {k.name: k.launches for k in ops.KERNELS} == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ne,kinds,flag,h,w,channels", [
+    (6, ("uniform", "uniform"), None, 24, 40, 1),
+    (6, ("uniform", "jittered"), None, 13, 21, 1),
+    (6, ("uniform", "uniform"), True, 7, 5, 2),
+    (6, ("jittered", "jittered"), False, 24, 40, 3),
+    (3, ("jittered", "uniform"), None, 24, 40, 1),
+    (12, ("uniform", "uniform"), True, 9, 33, 1),
+    (12, ("jittered", "jittered"), False, 9, 33, 2)])
+def test_mag_fit_kernel_matches_plain(cuda, ne, kinds, flag, h, w, channels):
+    """The magnitude fit kernel against `physics.cse_mag_fit`: odd H×W, 3 to
+    12 echoes, each phasor mode, R2* read from channel 0 of a row with
+    more channels (the stride read)."""
+    a_mag, r2, te = _mag_case(h=h, w=w, ne=ne, kinds=kinds,
+                              channels=channels, device=cuda)
+    n0 = ops.MAG_FIT_KERNEL.launches
+    got = ops.cse_mag_fused(a_mag, r2, te, uniform_te=flag)
+    assert ops.MAG_FIT_KERNEL.launches == n0 + 1
+    ref = physics.cse_mag_fit(a_mag, r2, te)
+    torch.cuda.synchronize()
+    beyond = 0
+    for name in _MAG_FIELDS:
+        g, r = getattr(got, name), getattr(ref, name)
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=5e-4, msg=name)
+        beyond += int(((g - r).abs() > 1e-5 + 1e-4 * r.abs()).sum())
+    assert beyond <= 1e-3 * a_mag.numel()
+    assert torch.equal(got.demod, ref.demod)
+
+
+@pytest.mark.cuda
+def test_mag_fit_kernel_backward_and_rejects(cuda):
+    a_mag, r2, te = _mag_case(kinds=("jittered", "uniform"), device=cuda)
+    a_mag[:, :, :6] = 0.0  # a zero background: the double wheres' case
+    nu = (r2 + 0.1).contiguous()
+    grads = []
+    for fn in (ops.cse_mag_fused, physics.cse_mag_fit):
+        p = r2.detach().clone().requires_grad_()
+        n = nu.detach().clone().requires_grad_()
+        res = fn(a_mag, p, te, r2s_nu=n)
+        (res.recon.square().mean() + res.ls_coeffs.mean()
+         + 1e-3 * res.demod.mean()).backward()
+        grads.append((p.grad, n.grad))
+    assert torch.isfinite(grads[0][0]).all()
+    for g, r in zip(*grads):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-5)
+    with pytest.raises(TypeError):
+        ops.cse_mag_fused(a_mag.double(), r2, te)
+    with pytest.raises(TypeError):
+        ops.cse_mag_fused(a_mag, r2.double(), te)
+    with pytest.raises(ValueError):
+        ops.cse_mag_fused(a_mag, r2.cpu(), te)
+    with pytest.raises(ValueError):  # A⁺ needs 3 echoes
+        ops.cse_mag_fused(a_mag[:, :2].contiguous(), r2, te[:, :2])
+    with pytest.raises(ValueError):
+        ops.cse_mag_fused(a_mag, r2[:, :, :-1], te)
