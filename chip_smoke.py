@@ -30,7 +30,10 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
               each at ne=6, nb=8, dx, dk and db against
               `convlstm_backward_reference` in float64 and float32, on
               inputs that keep clear of leaky_relu's kink on either side of
-              it and on random ones (see `convlstm_bwd_entry`);
+              it and on random ones, two launches bit for bit, the call
+              split into the state recompute and the 3xTF32 echo sweep's
+              stages, and the HMMA instructions `cuobjdump -sass` finds in
+              the stages' kernels (see `convlstm_bwd_entry`);
             - forward synthesis: the TE-augmentation call (MEBCRN maps with
               some R2* < 0, nb=8, 384², ne=6) at a jittered TE train
               (per-echo form, and the per-row test) and at a uniform one
@@ -88,7 +91,8 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             card (TF32 off) and on the CPU from the same weights and batch
             (F=36, 96², batch 2, ground-truth maps with 1e-3 noise; see
             `mag_step_parity`): loss, metrics and every gradient leaf
-            compared. Then `ideal_gan_tpu_torch.cli.infer.main --model_sel
+            compared, with a float64 witness, and the same steps at the
+            zero-bias TEEncoder init reported beside them. Then `ideal_gan_tpu_torch.cli.infer.main --model_sel
             Mag` on 16 slices at batch 8 with the counters read around it
             (fails unless the magnitude fit and ConvLSTM forward kernels
             ran once a chunk), and its first slices on the card (TF32 off)
@@ -114,9 +118,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): FP32 on CUDA cores, HBM3 bandwidth
+# H100 SXM data-sheet peaks (dense): FP32 on CUDA cores, HBM3 bandwidth,
+# and FP32 products as 3xTF32 on the tensor cores (three TF32 MMAs each)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 
 SIZE, NE, F_MAIN, NB_SERVE = 384, 6, 36, 8
 F_TEAUG = 72  # VET-Net's width (teaug DEFAULTS)
@@ -163,6 +169,14 @@ def device_ms(fn, dev, fragment: str, iters: int = 20):
     `fragment`, from torch.profiler (None on the CPU). `time_ms` over
     back-to-back launches of a ~0.05 ms kernel measures the host's launch
     rate; this reads the kernel's own duration."""
+    split = device_ms_by(fn, dev, {fragment: fragment}, iters)
+    return split and split[fragment]
+
+
+def device_ms_by(fn, dev, fragments: dict, iters: int = 3):
+    """Mean device time per call of `fn` of the kernels whose name holds
+    each fragment of `fragments` ({label: fragment}), from one
+    torch.profiler window (None on the CPU)."""
     import torch
     from torch.autograd import DeviceType
     if dev.type != "cuda":
@@ -174,14 +188,38 @@ def device_ms(fn, dev, fragment: str, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize(dev)
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and fragment in ev.name)
-    return us / 1e3 / iters
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return {label: sum(ev.time_range.elapsed_us() for ev in events
+                       if frag in ev.name) / 1e3 / iters
+            for label, frag in fragments.items()}
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def hmma_counts(name: str, fragments) -> dict | None:
+    """The number of HMMA (tensor-core) instructions `cuobjdump -sass` finds
+    in each kernel of the built `csrc/<name>.cu` whose symbol holds one of
+    `fragments` (None where there is no build or no cuobjdump)."""
+    import shutil
+    from ideal_gan_tpu_torch.ops import _build
+    lib = _build._lib_path(name)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not lib.exists() or not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts = dict.fromkeys(fragments, 0)
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((f for f in fragments if f in line), None)
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def bound(n_bytes: float, flops: float,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -424,7 +462,9 @@ def _widest(cases) -> dict:
     """The timed case of the largest F (VET-Net's width)."""
     c = max((c for c in cases if "ms" in c), key=lambda c: c["F"])
     return {k: c[k] for k in ("cin", "F", "nb", "ms", "plain_ms", "bound_ms",
-                              "bound_by")}
+                              "bound_by", "device_ms", "bound_fp32_ms",
+                              "recompute", "sweep", "stages_device_ms")
+            if k in c}
 
 
 def cycle_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
@@ -498,6 +538,12 @@ def lstm_bwd_flops(nb, size, cin, f, ne=NE, dx=False):
     return fwd + dinp + dk, fwd + dinp + dk + states
 
 
+# the ConvLSTM backward's kernels by name: the state recompute (the forward
+# kernel) and the echo sweep's three stages and reduction
+BWD_STAGES = {"recompute": "convlstm_echo", "gates": "gates_mma",
+              "dinp": "dinp_mma", "dk": "dk_mma", "reduce": "sum_slots"}
+
+
 def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
     """The ConvLSTM backward kernels against `convlstm_backward_reference`
     (dx, dk, db) at each (Cin, F, nb) of `shapes`, each on three inputs:
@@ -523,7 +569,12 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
       max |plain|. The whole launch's distances from float64 are reported
       beside them.
 
-    Timed on the random inputs as the trainer calls it (no dx)."""
+    On the random inputs also: a second launch, which must give dx, dk and
+    db bit for bit (`deterministic`); the call timed as the trainer makes
+    it (no dx), and split by torch.profiler into the state recompute (the
+    forward kernel) and the echo sweep's stages (a) gates, (b) dinp, (c) dk
+    and the slot reduction, each beside its bound. The entry reports the
+    HMMA instructions `cuobjdump -sass` finds in each stage's kernel."""
     import numpy as np
     import torch
     from ideal_gan_tpu_torch import ops
@@ -573,7 +624,11 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
                           sum(p[1] for p in pairs), sum(p[2] for p in pairs))
                 first = vs_plain(pairs[0], x[:2].contiguous(), k, b,
                                  g[:2].contiguous())
-                ok = True
+                again = ops.convlstm_backward(x, k, b, g)
+                case["deterministic"] = all(
+                    torch.equal(a, r) for a, r in zip(got, again))
+                del again
+                ok = case["deterministic"]
                 for name, a, j in zip(("dx", "dk", "db"), got, joined):
                     d = float((a - j).abs().max())
                     fp = first[name]
@@ -587,8 +642,10 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
                 del pairs, joined
             del got
             if kind == "random":
-                kernel_ms = time_ms(lambda: ops.convlstm_backward(  # noqa
-                    x, k, b, g, need_dx=False), dev, iters=3, warmup=1)
+                call = lambda: ops.convlstm_backward(  # noqa: E731
+                    x, k, b, g, need_dx=False)
+                kernel_ms = time_ms(call, dev, iters=3, warmup=1)
+                split = device_ms_by(call, dev, BWD_STAGES)
                 plain_ms = time_ms(lambda: ops.convlstm_backward_reference(
                     x, k, b, g, need_dx=False), dev, iters=3, warmup=1)
                 # partial yardstick: one echo's weight-gradient convolution
@@ -600,11 +657,25 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
                 need, done = lstm_bwd_flops(nb, size, cin, f)
                 n_bytes = 4 * (x.numel() + 2 * k.numel() + 2 * b.numel()
                                + g.numel())
-                b_ms, b_by = bound(n_bytes, need)
+                b_ms, b_by = bound(n_bytes, need, PEAK_3XTF32_FLOPS)
+                states = done - need  # the recompute, on the FP32 forward
                 case.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, gflop_necessary=need / 1e9,
+                            bound_by=b_by,
+                            bound_fp32_ms=bound(n_bytes, need)[0],
+                            gflop_necessary=need / 1e9,
                             gflop_done=done / 1e9,
-                            cudnn_one_echo_wgrad_ms_partial=wgrad_ms)
+                            cudnn_one_echo_wgrad_ms_partial=wgrad_ms,
+                            device_ms=split and sum(split.values()),
+                            stages_device_ms=split,
+                            recompute=dict(
+                                device_ms=split and split["recompute"],
+                                bound_ms=bound(0, states)[0]),
+                            sweep=dict(
+                                device_ms=split and sum(
+                                    v for n, v in split.items()
+                                    if n != "recompute"),
+                                bound_ms=b_ms,
+                                bound_fp32_ms=bound(0, need)[0]))
                 del inp, dg
             case["within_tol"] = ok
             cases.append(case)
@@ -614,6 +685,12 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
             del x, g
             torch.cuda.empty_cache()
     main = cases[2]  # Cin=2, random inputs
+    hmma = hmma_counts(ops.CONVLSTM_BWD_KERNEL.name,
+                       [v for n, v in BWD_STAGES.items()
+                        if n not in ("recompute", "reduce")])
+    if hmma is not None and not all(hmma.values()):
+        raise AssertionError(f"a stage of the ConvLSTM backward has no "
+                             f"tensor-core instruction: {hmma}")
     return dict(
         name=ops.CONVLSTM_BWD_KERNEL.name, route="cuda",
         source=ops.CONVLSTM_BWD_KERNEL.source,
@@ -621,14 +698,22 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
         max_abs_err=max(c[n]["max_abs_err_vs_f64"] for c in cases
                         if c["inputs"] in KINK_FREE
                         for n in ("dx", "dk", "db")),
-        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=None,
+        ms=main["ms"], device_ms=main["device_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], bound_fp32_ms=main["bound_fp32_ms"],
+        recompute=main["recompute"], sweep=main["sweep"],
+        stages_device_ms=main["stages_device_ms"], hmma=hmma,
+        deterministic=all(c["deterministic"] for c in cases
+                          if "deterministic" in c),
+        library_ms=None,
         tolerance="smooth and negative inputs: |d| <= 1e-4 * max|plain f64| "
                   "for each of dx, dk, db (max_abs_err: the largest, vs the "
                   "plain version in float64); random inputs: the launch vs "
                   "the launches on each pair of samples <= 1e-4 * max|d|, "
                   "and on the first pair |d vs f64| <= 2 * |plain f32 vs "
-                  "f64| + 1e-5 * max|plain|",
+                  "f64| + 1e-5 * max|plain|; two launches on the random "
+                  "inputs bit-identical; bound_ms: 3xTF32 on the tensor "
+                  "cores (bound_fp32_ms: FP32 on the CUDA cores)",
         cases=cases, wide=_widest(cases))
 
 
@@ -825,13 +910,23 @@ def _grads(net):
 
 
 @contextlib.contextmanager
-def plain_convlstm():
+def plain_convlstm(noise: tuple[float, int] | None = None):
     """The ConvLSTM Function on its plain versions (`convlstm_reference`,
     `convlstm_backward_reference`) on every device: the kernels taken out,
-    for the witness runs of `step_parity` only."""
+    for the witness runs of the step parities only. With `noise` = (eps,
+    seed), the forward's output gets eps·max|h|·N(0, 1) added (a seeded
+    perturbation of the size of float32 rounding)."""
+    import torch
     from ideal_gan_tpu_torch.ops import convlstm as mod
     saved = mod.convlstm_forward, mod.convlstm_backward
-    mod.convlstm_forward = mod.convlstm_reference
+
+    def noisy(*args):
+        out = mod.convlstm_reference(*args)
+        gen = torch.Generator(device=out.device).manual_seed(noise[1])
+        return out + noise[0] * float(out.abs().max()) * torch.randn(
+            out.shape, generator=gen, device=out.device)
+
+    mod.convlstm_forward = noisy if noise else mod.convlstm_reference
     mod.convlstm_backward = mod.convlstm_backward_reference
     try:
         yield
@@ -1238,6 +1333,18 @@ MAG_PARITY_CONFIGS = {
 }
 
 
+class _Float32Out:
+    """A net run in float64 whose output is cast back to float32, so that
+    the loss and the physics around it stay float32 (the float64 witness
+    of `mag_step_parity`)."""
+
+    def __init__(self, net):
+        self.net = net
+
+    def __call__(self, *args):
+        return self.net(*args).float()
+
+
 def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
     """For each of `MAG_PARITY_CONFIGS`, one magnitude step's loss, metrics
     and gradients on `dev` and on the CPU from the same weights, maps and
@@ -1246,7 +1353,18 @@ def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
     input |A| has no exactly zero background (PERF.md §7). Each TEEncoder's
     Dense bias is spread over [0, 1], as the CPU parity tests do: with the
     zero-bias init every style vector is nearly constant, and AdaIN's √var
-    of it amplifies float32 rounding in the TEEncoders' gradients."""
+    of it amplifies float32 rounding in the TEEncoders' gradients.
+
+    Witnesses, as `teaug_step_parity` has them: both f32 steps against the
+    CPU step with the net in float64 (the physics and the loss stay
+    float32), and the first module (in the backward's order) where the
+    card's gradient leaves the CPU's by over 1e-2 of its scale. The same
+    steps at Flax's zero-bias init (`zero_bias_init`) are reported beside
+    the gated ones and not gated, with what sets their distance from
+    float64: the card step with the plain ConvLSTM, and with the plain
+    ConvLSTM's output perturbed by 1e-7 of its scale (four seeds), against
+    float64; and how many ReLU inputs (norm outputs) lie on the other side
+    of 0 in the card step with the kernels than with the plain ConvLSTM."""
     import copy
 
     import numpy as np
@@ -1259,34 +1377,71 @@ def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
     B = torch.from_numpy(maps + 1e-3 * np.random.default_rng(2).normal(
         size=maps.shape).astype(np.float32))
     te = torch.from_numpy(te)
+
+    def steps(cfg, model, witness=False) -> dict:
+        def run(where, plain=False, dtype=torch.float32, trace=False,
+                noise=None):
+            net = copy.deepcopy(model).to(device=where, dtype=dtype)
+            traced = _trace(net) if trace else None
+            call = net if dtype == torch.float32 else _Float32Out(net)
+            with plain_convlstm(noise) if plain or noise \
+                    else contextlib.nullcontext():
+                loss, metrics = mag.make_loss_fn(cfg, call)(B.to(where),
+                                                            te.to(where))
+                loss.backward()
+            if traced:
+                for h in traced[3]:
+                    h.remove()
+            return dict(loss=float(loss.detach()), grads=_grads(net),
+                        metrics={k: float(v.detach())
+                                 for k, v in metrics.items()},
+                        trace=traced[:3] if traced else None)
+
+        card, ref = run(dev, trace=True), run(cpu, trace=True)
+        ref64 = run(cpu, dtype=torch.float64)
+        res = _compare(card, ref)
+        res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
+        res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
+                                   for k, v in card["metrics"].items()}
+        plain = run(dev, plain=True, trace=witness)
+        res["plain_convlstm_on_card_vs_cpu"] = _compare(plain,
+                                                        ref)["grad_max_rel"]
+        res["vs_cpu_float64"] = {
+            "card": _compare(card, ref64)["grad_max_rel"],
+            "cpu": _compare(ref, ref64)["grad_max_rel"]}
+        grads, grads_ref, order_ref = card["trace"][1], *ref["trace"][1:]
+        res["first_gradient_over_1e_2"] = next(
+            (k for k in order_ref if _rel(grads[k], grads_ref[k]) > 1e-2),
+            None)
+        if witness:
+            res["vs_cpu_float64"]["card_plain_convlstm"] = _compare(
+                plain, ref64)["grad_max_rel"]
+            res["vs_cpu_float64"]["card_plain_convlstm_perturbed_1e_7"] = [
+                _compare(run(dev, noise=(1e-7, seed)), ref64)["grad_max_rel"]
+                for seed in range(4)]
+            outs, outs_plain = card["trace"][0], plain["trace"][0]
+            norms = [n for n in outs_plain if n.endswith((".norm1", ".norm2"))]
+            res["relu_flips_vs_plain_convlstm"] = {
+                n: c for n in norms
+                if (c := int(((outs[n] > 0) != (outs_plain[n] > 0)).sum()))}
+            res["relu_inputs"] = sum(outs_plain[n].numel() for n in norms)
+        return res
+
     out = {}
     for name, over in MAG_PARITY_CONFIGS.items():
         cfg = dict(mag.DEFAULTS, n_G_filters=f, **over)
         model = mag.build_model(cfg)
         model.init_params(torch.Generator().manual_seed(4))
+        zero_bias = copy.deepcopy(model) if model.te else None
         with torch.no_grad():
             for enc in model.te or ():
                 enc.dense.bias += torch.linspace(0.0, 1.0,
                                                  enc.dense.bias.numel())
-
-        def run(where, plain=False):
-            net = copy.deepcopy(model).to(where)
-            with plain_convlstm() if plain else contextlib.nullcontext():
-                loss, metrics = mag.make_loss_fn(cfg, net)(B.to(where),
-                                                           te.to(where))
-                loss.backward()
-            return dict(loss=float(loss.detach()), grads=_grads(net),
-                        metrics={k: float(v.detach())
-                                 for k, v in metrics.items()})
-
-        card, ref = run(dev), run(cpu)
-        res = _compare(card, ref)
-        res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
-        res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
-                                   for k, v in card["metrics"].items()}
-        res["plain_convlstm_on_card_vs_cpu"] = _compare(
-            run(dev, plain=True), ref)["grad_max_rel"]
-        out[name] = res
+        out[name] = steps(cfg, model)
+        # without TEEncoders (unsupervised) the gated init is Flax's own
+        out[name]["zero_bias_init"] = zero_bias and {
+            k: v for k, v in steps(cfg, zero_bias, witness=True).items()
+            if k not in ("metrics", "metrics_ref")}
     return out
 
 

@@ -17,11 +17,13 @@ runs `--steps` magnitude R2* steps (as `cli.train_mag` runs them, at the
 cohort's TE train). Each runs on one synthetic batch under `torch.profiler`, after one warm-up step, and print
 one JSON line: the card's name and power limit, the wall time per step, the
 device time per step in each kernel category (the hand-written kernels,
-cuDNN convolutions, cuDNN's RNN kernels, matmuls, copies, the rest), the
-device time inside the physics Functions' reference backward and the
-optimizer steps (profiler ranges), the device time of every kernel the
-TEEncoders' LSTM operators launch (forward and backward), the share of the
-window the card was idle, and the peak device memory.
+the ConvLSTM backward's sweep by stage, cuDNN convolutions, cuDNN's RNN
+kernels, matmuls, copies, the rest), the device time inside the physics
+Functions' reference backward, the optimizer steps and the ConvLSTM
+backward's state recompute (profiler ranges; the recompute's forward-kernel
+launches are also counted in "convlstm_fwd kernel"), the device time of
+every kernel the TEEncoders' LSTM operators launch (forward and backward),
+the share of the window the card was idle, and the peak device memory.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
+from ..ops.convlstm import RECOMPUTE_RANGE
 from ..ops.ideal import BACKWARD_RANGE
 from ..train import mag, teaug, unsup
 from ..train.common import STEP_RANGE
@@ -42,8 +45,10 @@ from .profile_infer import category
 
 CATEGORIES = (
     ("convlstm_fwd kernel", ("convlstm_echo",)),
-    ("convlstm_bwd kernels", ("gates_bwd", "dinp_kernel", "dk_kernel",
-                              "reduce_kernel")),
+    ("convlstm_bwd (a) gates", ("gates_mma",)),
+    ("convlstm_bwd (b) dinp", ("dinp_mma",)),
+    ("convlstm_bwd (c) dk", ("dk_mma",)),
+    ("convlstm_bwd reduce", ("sum_slots",)),
     ("ideal_cycle kernel", ("cycle_kernel",)),
     ("ideal_forward kernel", ("synth_kernel",)),
     ("ideal_mag_fit kernel", ("mag_ls_kernel",)),
@@ -54,7 +59,7 @@ CATEGORIES = (
                       "dgrad", "wgrad", "fprop")),
     ("matmuls", ("gemm", "matmul")),
 )
-RANGES = (BACKWARD_RANGE, STEP_RANGE)
+RANGES = (BACKWARD_RANGE, STEP_RANGE, RECOMPUTE_RANGE)
 
 
 def _is_lstm_op(name: str) -> bool:

@@ -1,371 +1,757 @@
-// The multi-echo ConvLSTM backward, one echo of the reverse sweep per call.
+// The multi-echo ConvLSTM backward, one echo of the reverse sweep per call,
+// as implicit GEMMs on the H100's tensor cores in split TF32 (3xTF32).
 //
 // Replaces the TPU kernel `_bwd_kernel` of
 // ideal_gan_tpu/ops/pallas_convlstm.py (launched there by
 // `convlstm_bwd_pallas` from the custom VJP `_fused_bwd`). The host first
 // recomputes the per-echo states h_e, c_e (e < ne-1) with the forward kernel
 // (convlstm_fwd.cu) into an (ne-1, nb, F, H, W) stack, then calls
-// `convlstm_echo_bwd` for e = ne-1 .. 0 and `convlstm_bwd_reduce` once:
+// `convlstm_echo_bwd` for e = ne-1 .. 0 and `convlstm_bwd_reduce` once.
+// Per echo, over the P = nb*H*W pixels and C = Cin + F input channels:
 //
-//  (a) gates_bwd: recompute the gates of echo e from (x_e, h_{e-1}) with the
-//      forward kernel's tiling (convlstm_tile.cuh) and apply the cell's
-//      derivative in the epilogue:
+//  stage                      M          N              K
+//  (a) gates_mma              P          4F             9*C  (C padded to 8)
+//  (b) dinp_mma               P          F (+Cin: dx)   9*4F
+//  (c) dk_mma                 4F         9*C (+1: db)   P, split in slots
+//
+//  (a) recomputes the gates z = conv3x3_SAME(concat(x_e, h_{e-1}), k) + b
+//      and applies the cell's derivative in the epilogue:
 //        dc~   = dc_e + dh_e * o * lrelu'(c_e)
 //        dz_i  = dc~ * g * i(1-i)      dz_f = dc~ * c_{e-1} * f(1-f)
 //        dz_g  = dc~ * i * lrelu'(z_g) dz_o = dh_e * lrelu(c_e) * o(1-o)
 //        dc_{e-1} = dc~ * f
 //      with sigmoid' = s(1-s) and lrelu' = 1 for x >= 0, else 0.2 (the JAX
-//      package's convention at 0). Writes dgates (nb, 4F, H, W).
-//  (b) dinp_kernel: the SAME transposed 3x3 convolution of dgates with k,
-//      i.e. a forward convolution with the spatially flipped kernel
-//      wt[n][tap][c] = k[8 - tap][c][n]. Gives dh_{e-1} (channels c >= Cin)
-//      and, when asked, dx_e (c < Cin).
-//  (c) dk_kernel: dk[tap][c][n] += sum over pixels of
-//      concat(x_e, h_{e-1})[c] shifted by tap, times dgates[n]; db[n] +=
-//      sum of dgates[n]. Deterministic: block (slot, chunk) walks the pixel
-//      tiles t = slot, slot + S, ... in order and adds into its own slot of
-//      a (S, 9, C, 4F) scratch buffer, across echoes too; the reduction
-//      kernel then sums the S slots in a fixed order. No float atomics, so
-//      two runs give the same gradients.
+//      package's convention at 0). The N columns of a warp are the four
+//      gates of 8 hidden channels (four n8 tiles), so every thread holds
+//      i, f, g, o of its pixels and channels in registers: no interleaved
+//      copy of k and no pass through shared memory.
+//  (b) the transposed 3x3 convolution of dgates with k, i.e. a SAME
+//      convolution with the flipped kernel: dinp[p][c] = sum over taps t and
+//      gates n of dz[p + off(t)][n] * k[8 - t][c][n]. Gives dh_{e-1}
+//      (c >= Cin) and, when asked, dx_e (c < Cin).
+//  (c) dk^T[n][(t, c)] = sum over pixels p of dz[p][n] * in[p + off(t)][c],
+//      where in = concat(x_e, h_{e-1}, 1): the constant channel C makes the
+//      centre tap's column db. Deterministic: block (slot, channels, gates)
+//      walks the pixel chunks slot, slot + S, ... in order with its sums in
+//      registers, and adds them once per echo into its own slot of an
+//      (S, 9, C, 4F) scratch buffer; `sum_slots` sums the S slots in a
+//      fixed order. No float atomics: two runs give the same gradients.
 //  Echo 0 has zero state: its state channels, dh_{-1} and dc_{-1} are
 //  skipped.
 //
-// Bound on an H100: operations. Per echo and pixel each of the gate
-// recompute, dinp and dk does up to 2*9*(Cin+F)*4F FLOP (98.5 kFLOP at
-// Cin=2, F=36); with the state recompute the kernels do 2.2 TFLOP per net
-// at 384^2, ne=6, nb=8 (33 ms at 67 TFLOP/s FP32). The necessary work (one
-// forward plus dinp and dk) is 1.72 TFLOP, 25.7 ms.
+// Precision: every product is 3xTF32 on `mma.sync.m16n8k8.tf32`: each f32
+// operand is split into hi = tf32(x) and lo = tf32(x - hi), and a tile sums
+// lo*hi + hi*lo + hi*hi (lo*lo, below f32's rounding, is dropped). Plain
+// TF32 keeps ~3 digits, short of the backward's 1e-4-of-scale gate against
+// float64. The tensor core's FP32 accumulation truncates, so a long K summed
+// inside it drifts toward zero by a few 1e-6 of the partial sums. Stage (a)
+// decides, by its gate values, which side of leaky_relu's kink a pixel
+// takes: there every k8 step is summed on the tensor core from zero and
+// added to FP32 registers with a rounded add, which keeps the gates as close
+// to float64 as an FP32 FMA chain. Stage (c) does the same once per pixel
+// chunk (a slot walks ~4500 pixels an echo at nb=8, 384^2). Stage (b)'s K
+// (9*4F) is short enough to sum on the tensor core alone.
 //
-// Design: a simple FP32 form on CUDA cores (no tensor cores, no TMA):
-//  - (a) and (b) keep 4 output channels x 16 pixels of accumulators per
-//    thread and stage input patch and weights in shared memory with
-//    cp.async (double-buffered in (b), which has 4F = 144 input channels);
-//  - (c) keeps, per work item (input channel c, 4 gate channels), the 9 taps
-//    x 4 gates in registers; per tile row it loads 4 x 16 dgates and
-//    3 x 18 patch values for 576 FMAs.
-//  - The TPU kernel's whole-recurrence VMEM state, taint fronts and dx
-//    overlap-add have no counterpart: per-echo launches need none of them.
-// Math is float32; no library GEMM or convolution.
+// Bounds on an H100 (NVIDIA H100 SXM data sheet): the necessary work (one
+// forward plus dinp and dk) is 1.72 TFLOP at Cin=2, F=36, nb=8, 384^2,
+// ne=6 (6.75 at F=72): 25.7 ms at 67 TFLOP/s FP32 on CUDA cores, 10.4 ms
+// as 3xTF32 on the tensor cores (495/3 = 165 TFLOP/s). The bytes (x, k, b,
+// dL/dh in, dx, dk, db out) are a few hundred MB: operations bound it.
+//
+// Design: each stage is a tiled implicit GEMM whose operand tiles are
+// staged in shared memory with cp.async in a ring of two stages, so the next
+// channel octet's (or pixel chunk's) loads overlap this one's MMAs. Shared
+// memory strides are padded so that every fragment load is free of bank
+// conflicts. The fragments are read with scalar shared loads (ldmatrix
+// moves 16-bit elements) and split into hi/lo in registers. A warp issues
+// each of the three products over all its tiles before the next, so its
+// MMAs do not wait on one another. Blocks of (a) and (b) need ~70 KB of
+// shared memory, so two to three share an SM; (c) runs one block of 9 warps
+// an SM. Rows of 4 contiguous floats (weights, dgates) are copied 16 bytes
+// at a time.
+//  (a), (b): a block owns a 16x16 pixel tile of one image (4608 tiles per
+//    echo at nb=8, 384^2) and up to 64 (a: 2 x 8 channels x 4 gates) or 40
+//    (b) output columns; each of its 8 warps owns two tile rows (two m16
+//    tiles). K runs over octets of input channels (a) or gates (b), 9 taps
+//    each. (a)'s epilogue moves each thread's two adjacent channels as one
+//    float2 (F even).
+//  (c): a block of 9 warps owns up to 144 gate rows and 16 input channels x
+//    9 taps, and walks chunks of 8 rows x 16 pixels; warp (dy, third) owns
+//    three m16 tiles of gates and the six n8 tiles of its tap row. A
+//    channel octet with nothing to sum (padding past C, echo 0's zero
+//    state) is skipped by a block-uniform branch.
+// The TPU kernel's whole-recurrence VMEM state, taint fronts and dx
+// overlap-add have no counterpart: per-echo launches need none of them.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "convlstm_tile.cuh"
 
 namespace {
 
-using namespace convlstm;
+using convlstm::leaky_relu;
+using convlstm::leaky_relu_grad;
+using convlstm::sigmoid;
 
-constexpr int DCC = 8;         // dgates channels per dinp stage
-constexpr int kMaxGroups = 32;  // output-channel groups of 4 per dinp block
-constexpr int NG = 9;          // gate-channel groups of 4 per dk block
-constexpr int DPS = TH * TW + 1;  // padded plane stride of the dgates tile
+constexpr int T = 16;        // pixel tile side of (a) and (b)
+constexpr int P = T + 2;     // patch side with the SAME halo
+constexpr int PS = 12;       // patch stride per pixel: 8 channels + 4 pad
+constexpr int kWarps = 8;    // (a), (b): warp w owns tile rows 2w, 2w+1
+constexpr int kGroups = 2;   // (a): at most 2 x 8 hidden channels a block
+constexpr int kCols = 40;    // (b): at most 40 output channels a block
+constexpr int kGateRows = 144;  // (c): gate rows a block
+constexpr int RY = 8;        // (c): image rows a pixel chunk
+constexpr int DS = kGateRows + 8;  // (c): dgates stride per pixel
+constexpr int CS = 24;       // (c): patch stride per pixel (16 channels)
 
-// (a) gate recompute with the cell derivative in the epilogue
-__global__ void __launch_bounds__(kMaxThreads) gates_bwd(LstmArgs a) {
-  float acc[4][TW];
-  gate_sums(a, acc);
-  const int tiles_x = (a.W + TW - 1) / TW;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const int y = (blockIdx.x / tiles_x) * TH + threadIdx.x / a.fc;
-  const int f = blockIdx.y * a.fc + threadIdx.x % a.fc;
-  const int b = blockIdx.z;
-  if (f >= a.F || y >= a.H) return;
-  const float bi = a.bias[f], bf = a.bias[a.F + f];
-  const float bg = a.bias[2 * a.F + f], bo = a.bias[3 * a.F + f];
-  const long long hw = (long long)a.H * a.W;
-  const long long base = ((long long)b * a.F + f) * hw + (long long)y * a.W;
-  float* dgi = a.dgates + ((long long)b * 4 * a.F + f) * hw +
-               (long long)y * a.W;
-  const long long gs = (long long)a.F * hw;  // gate plane stride
-#pragma unroll
-  for (int p = 0; p < TW; ++p) {
-    const int xx = tx0 + p;
-    if (xx < a.W) {
-      const long long o = base + xx;
-      const float zg = acc[2][p] + bg;
-      const float gi = sigmoid(acc[0][p] + bi);
-      const float gf = sigmoid(acc[1][p] + bf);
-      const float gg = leaky_relu(zg);
-      const float go = sigmoid(acc[3][p] + bo);
-      const float cp = a.has_state ? a.c_prev[o] : 0.f;
-      const float cn = gf * cp + gi * gg;
-      const float dh = a.dh[o];
-      const float dct = (a.dc ? a.dc[o] : 0.f) + dh * go * leaky_relu_grad(cn);
-      dgi[xx] = dct * gg * gi * (1.f - gi);
-      dgi[gs + xx] = dct * cp * gf * (1.f - gf);
-      dgi[2 * gs + xx] = dct * gi * leaky_relu_grad(zg);
-      dgi[3 * gs + xx] = dh * leaky_relu(cn) * go * (1.f - go);
-      if (a.dc_prev) a.dc_prev[o] = dct * gf;
-    }
-  }
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-struct DinpArgs {
-  const float* dg;  // (nb, 4F, H, W)
-  const float* wt;  // (4F, 9, C): wt[n][tap][c] = k[8 - tap][c][n]
-  float* dx;        // echo e of dx (nb, ne, H, W, Cin), may be null
-  long long dx_b;   // batch stride of dx (elements)
-  float* dh;        // dL/dh_{e-1} (nb, F, H, W), may be null
-  int cin, F, H, W, c0, nco, cg;  // output channels [c0, c0 + nco)
+// d += a*b on the tensor core (not volatile: the compiler may interleave
+// independent tiles' MMAs)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a*b on the tensor core, summed from zero
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// Fragments with each f32 element split: x = hi + lo, both TF32.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(int i, float v) {
+    hi[i] = to_tf32(v);
+    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
+  }
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(int i, float v) {
+    hi[i] = to_tf32(v);
+    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
+  }
 };
 
-// Stage dgates channels [n0, n0 + DCC) of the tile's patch, and their
-// flipped weights for the block's output channels, into one buffer.
-__device__ __forceinline__ void dinp_stage(const DinpArgs& a, float* buf,
-                                           int n0, int b, int ty0, int tx0,
-                                           int cbase) {
-  const int N = 4 * a.F;
-  const int C = a.cin + a.F;
-  const int ow = 4 * a.cg;
-  const long long hw = (long long)a.H * a.W;
-  float* patch = buf;
-  float* ws = buf + DCC * PH * PW;
-  for (int i = threadIdx.x; i < DCC * PH * PW; i += blockDim.x) {
-    const int cc = i / (PH * PW);
-    const int r = i - cc * (PH * PW);
-    const int py = r / PW;
-    const int y = ty0 + py - 1;
-    const int xx = tx0 + (r - py * PW) - 1;
-    const int n = n0 + cc;
-    if (n < N && y >= 0 && y < a.H && xx >= 0 && xx < a.W) {
-      __pipeline_memcpy_async(
-          patch + i, a.dg + ((long long)b * N + n) * hw + (long long)y * a.W + xx,
-          sizeof(float));
-    } else {
-      patch[i] = 0.f;
-    }
-  }
-  for (int i = threadIdx.x; i < DCC * 9 * ow; i += blockDim.x) {
-    const int cc = i / (9 * ow);
-    const int r = i - cc * (9 * ow);
-    const int t = r / ow;
-    const int c = cbase + (r - t * ow);
-    const int n = n0 + cc;
-    if (n < N && c < a.c0 + a.nco) {
-      __pipeline_memcpy_async(ws + i, a.wt + ((long long)n * 9 + t) * C + c,
-                              sizeof(float));
-    } else {
-      ws[i] = 0.f;
-    }
-  }
-  __pipeline_commit();
+// The A fragment of an m16 tile whose rows are the 16 pixels of patch row
+// `pr` starting at column `pc` (tap offset included), k = channels 0..7 of
+// a [pixel][PS] patch: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+__device__ __forceinline__ void load_a_patch(const float* patch, int pr,
+                                             int pc, int g, int t,
+                                             FragA& a) {
+  const float* p = patch + (pr * P + pc + g) * PS + t;
+  a.set(0, p[0]);
+  a.set(1, p[8 * PS]);
+  a.set(2, p[4]);
+  a.set(3, p[8 * PS + 4]);
 }
 
-// (b) dinp = conv3x3_SAME(dgates, flipped k): thread (row, g) computes
-// output channels cbase + 4g .. +3 for the TW pixels of one tile row.
-__global__ void __launch_bounds__(kMaxThreads) dinp_kernel(DinpArgs a) {
-  extern __shared__ float smem[];
-  const int tiles_x = (a.W + TW - 1) / TW;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int b = blockIdx.z;
-  const int cbase = a.c0 + blockIdx.y * 4 * a.cg;
-  const int row = threadIdx.x / a.cg;  // blockDim.x == cg * TH
-  const int g = threadIdx.x % a.cg;
-  const int ow = 4 * a.cg;
-  const int stage = DCC * PH * PW + DCC * 9 * ow;
-  const int n_stages = (4 * a.F + DCC - 1) / DCC;
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool valid) {
+  if (valid) {
+    __pipeline_memcpy_async(dst, src, sizeof(float));
+  } else {
+    *dst = 0.f;
+  }
+}
 
-  float acc[4][TW];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int p = 0; p < TW; ++p) acc[j][p] = 0.f;
+// four floats, both addresses 16-byte aligned
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  if (valid) {
+    __pipeline_memcpy_async(dst, src, 4 * sizeof(float));
+  } else {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
 
-  dinp_stage(a, smem, 0, b, ty0, tx0, cbase);
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) {
-      dinp_stage(a, smem + ((s + 1) & 1) * stage, (s + 1) * DCC, b, ty0, tx0,
-                 cbase);
+// The K loop of every stage: `n` stages of `stage` floats, loaded by
+// load(s, buf) (cp.async, one commit group each) into a ring of two
+// buffers and consumed by compute(buf); stage s + 1 is in flight while
+// stage s is computed. Shared memory: 2 * stage floats.
+template <class Load, class Compute>
+__device__ __forceinline__ void ring(float* smem, int stage, int n, Load load,
+                                     Compute compute) {
+  if (n > 0) load(0, smem);
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) {
+      load(s + 1, smem + ((s + 1) & 1) * stage);
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    const float* patch = smem + (s & 1) * stage;
-    const float* ws = patch + DCC * PH * PW + 4 * g;
-#pragma unroll 1
-    for (int cc = 0; cc < DCC; ++cc) {
-      const float* prow = patch + (cc * PH + row) * PW;
-      const float* wc = ws + cc * 9 * ow;
+    compute(smem + (s & 1) * stage);
+    __syncthreads();  // this buffer is refilled two stages on
+  }
+}
+
+// ---------------------------------------------------------------- (a)
+
+struct GatesArgs {
+  const float* x;  // echo e of x (nb, ne, H, W, Cin): x + e*H*W*Cin
+  long long x_b;   // batch stride of x (elements)
+  const float* k;  // (3, 3, Cin+F, 4F)
+  const float* bias;
+  const float* h_prev;  // (nb, F, H, W), unused without state
+  const float* c_prev;  // (nb, F, H, W), unused without state
+  const float* dh;      // dL/dh_e (nb, H, W, F)
+  const float* dc;      // dL/dc_e (nb, H, W, F), null at the last echo
+  float* dgates;        // dL/dz (nb, H, W, 4F)
+  float* dc_prev;       // dL/dc_{e-1} (nb, H, W, F), null at echo 0
+  int cin, F, H, W, has_state, gpb;  // gpb: groups of 8 channels a block
+};
+
+// column stride of the staged weights: 4 gates x 8 channels per group, plus
+// 8 so that k-rows t and t+4 fall in other banks
+__host__ __device__ inline int gates_ws(int gpb) { return gpb * 32 + 8; }
+
+__host__ __device__ inline int gates_stage(int gpb) {
+  return P * P * PS + 9 * 8 * gates_ws(gpb);
+}
+
+// Stage input channels [c0, c0 + 8) of the patch and their weights for the
+// block's channel groups.
+__device__ __forceinline__ void gates_load(const GatesArgs& a, float* buf,
+                                           int c0, int ceff, int b, int ty0,
+                                           int tx0, int j0) {
+  const int C = a.cin + a.F;
+  const long long hw = (long long)a.H * a.W;
+  float* patch = buf;
+  float* ws = buf + P * P * PS;
+  for (int i = threadIdx.x; i < 8 * P * P; i += blockDim.x) {
+    const int cc = i / (P * P);
+    const int pix = i - cc * (P * P);
+    const int py = pix / P;
+    const int y = ty0 + py - 1;
+    const int xx = tx0 + (pix - py * P) - 1;
+    const int c = c0 + cc;
+    const bool in = c < ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+    const float* src =
+        !in ? nullptr
+        : c < a.cin
+            ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
+            : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
+                  (long long)y * a.W + xx;
+    copy4(patch + pix * PS + cc, src, in);
+  }
+  const int cols = a.gpb * 32;
+  const int wstr = gates_ws(a.gpb);
+  // 4 consecutive channels f of one gate are contiguous in k; 16-byte
+  // aligned when F is a multiple of 4
+  const int vec = a.F % 4 == 0 ? 4 : 1;
+  for (int i = threadIdx.x * vec; i < 72 * cols; i += blockDim.x * vec) {
+    const int r = i / cols;  // tap * 8 + channel
+    const int n = i - r * cols;
+    const int tap = r >> 3;
+    const int c = c0 + (r & 7);
+    const int q = (n >> 3) & 3;  // gate
+    const int f = (j0 + (n >> 5)) * 8 + (n & 7);
+    const bool in = c < ceff && f < a.F;
+    const float* src =
+        in ? a.k + ((long long)tap * C + c) * 4 * a.F + q * a.F + f : nullptr;
+    if (vec == 4) {
+      copy16(ws + r * wstr + n, src, in);
+    } else {
+      copy4(ws + r * wstr + n, src, in);
+    }
+  }
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs a) {
+  extern __shared__ float smem[];
+  const int tiles_x = (a.W + T - 1) / T;
+  const int tx0 = (blockIdx.y % tiles_x) * T;
+  const int ty0 = (blockIdx.y / tiles_x) * T;
+  const int j0 = blockIdx.x * a.gpb;
+  const int ng = min(a.gpb, (a.F + 7) / 8 - j0);
+  const int b = blockIdx.z;
+  const int ceff = a.has_state ? a.cin + a.F : a.cin;
+  const int wstr = gates_ws(a.gpb);
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+
+  float acc[2][kGroups][4][4];
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float v[PW];
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int j = 0; j < PW; ++j) v[j] = prow[dy * PW + j];
+    for (int jj = 0; jj < kGroups; ++jj)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float* wp = wc + (dy * 3 + dx) * ow;
-          const float w0 = wp[0];
-          const float w1 = wp[1];
-          const float w2 = wp[2];
-          const float w3 = wp[3];
+      for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int p = 0; p < TW; ++p) {
-            const float xv = v[p + dx];
-            acc[0][p] = fmaf(w0, xv, acc[0][p]);
-            acc[1][p] = fmaf(w1, xv, acc[1][p]);
-            acc[2][p] = fmaf(w2, xv, acc[2][p]);
-            acc[3][p] = fmaf(w3, xv, acc[3][p]);
+        for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] = 0.f;
+
+  ring(
+      smem, gates_stage(a.gpb), (ceff + 7) / 8,
+      [&](int s, float* buf) {
+        gates_load(a, buf, 8 * s, ceff, b, ty0, tx0, j0);
+      },
+      [&](const float* patch) {
+        const float* ws = patch + P * P * PS;
+#pragma unroll 3
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+          FragA fa[2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
+          const float* wt = ws + (tap * 8 + t) * wstr + g;
+#pragma unroll
+          for (int jj = 0; jj < kGroups; ++jj) {
+            if (jj >= ng) continue;
+            FragB fb[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              fb[q].set(0, wt[(jj * 4 + q) * 8]);
+              fb[q].set(1, wt[4 * wstr + (jj * 4 + q) * 8]);
+            }
+            // this k8 step of 8 tiles, summed from zero, then rounded
+            // into the FP32 accumulators
+            float d[2][4][4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];
+          }
+        }
+      });
+
+  // epilogue: thread (g, t) holds, for tile rows 2*warp + mi, pixels g and
+  // g + 8 (fragment halves h) of channels f0 = 8*(j0+jj) + 2t and f0 + 1,
+  // all 4 gates. The two channels are adjacent in the channels-last
+  // buffers, so with F even they move as one float2.
+  const long long hw = (long long)a.H * a.W;
+  const bool pair = a.F % 2 == 0;
+#pragma unroll
+  for (int jj = 0; jj < kGroups; ++jj) {
+    const int f0 = (j0 + jj) * 8 + 2 * t;
+    if (jj >= ng || f0 >= a.F) continue;
+    const int ne = f0 + 1 < a.F ? 2 : 1;  // channels of the pair in range
+    float bias[4][2];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bias[q][e] = a.bias[q * a.F + min(f0 + e, a.F - 1)];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int y = ty0 + 2 * warp + mi;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int xx = tx0 + g + 8 * h;
+        if (y >= a.H || xx >= a.W) continue;
+        const long long pix = ((long long)b * a.H + y) * a.W + xx;
+        const long long at = pix * a.F + f0;  // (pixel, f0) in dh, dc
+        float dh[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
+        if (pair && ne == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(a.dh + at);
+          dh[0] = v.x;
+          dh[1] = v.y;
+          if (a.dc) {
+            const float2 w = *reinterpret_cast<const float2*>(a.dc + at);
+            dc[0] = w.x;
+            dc[1] = w.y;
+          }
+        } else {
+          for (int e = 0; e < ne; ++e) {
+            dh[e] = a.dh[at + e];
+            dc[e] = a.dc ? a.dc[at + e] : 0.f;
+          }
+        }
+        float out[5][2];  // dz_i, dz_f, dz_g, dz_o, dc_{e-1}
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 2 * h + e;
+          const float zg = acc[mi][jj][2][r] + bias[2][e];
+          const float gi = sigmoid(acc[mi][jj][0][r] + bias[0][e]);
+          const float gf = sigmoid(acc[mi][jj][1][r] + bias[1][e]);
+          const float gg = leaky_relu(zg);
+          const float go = sigmoid(acc[mi][jj][3][r] + bias[3][e]);
+          const float cp =
+              a.has_state && e < ne
+                  ? a.c_prev[((long long)b * a.F + f0 + e) * hw +
+                             (long long)y * a.W + xx]
+                  : 0.f;
+          const float cn = gf * cp + gi * gg;
+          const float dct = dc[e] + dh[e] * go * leaky_relu_grad(cn);
+          out[0][e] = dct * gg * gi * (1.f - gi);
+          out[1][e] = dct * cp * gf * (1.f - gf);
+          out[2][e] = dct * gi * leaky_relu_grad(zg);
+          out[3][e] = dh[e] * leaky_relu(cn) * go * (1.f - go);
+          out[4][e] = dct * gf;
+        }
+        float* dg = a.dgates + pix * 4 * a.F + f0;
+        if (pair && ne == 2) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<float2*>(dg + q * a.F) =
+                make_float2(out[q][0], out[q][1]);
+          if (a.dc_prev)
+            *reinterpret_cast<float2*>(a.dc_prev + at) =
+                make_float2(out[4][0], out[4][1]);
+        } else {
+          for (int e = 0; e < ne; ++e) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dg[q * a.F + e] = out[q][e];
+            if (a.dc_prev) a.dc_prev[at + e] = out[4][e];
           }
         }
       }
     }
-    __syncthreads();  // this buffer is refilled two stages on
   }
+}
 
-  const int y = ty0 + row;
-  if (y >= a.H) return;
-  const long long hw = (long long)a.H * a.W;
+// ---------------------------------------------------------------- (b)
+
+struct DinpArgs {
+  const float* dg;  // (nb, H, W, 4F)
+  const float* k;   // (3, 3, Cin+F, 4F)
+  float* dx;        // echo e of dx (nb, ne, H, W, Cin), may be null
+  long long dx_b;   // batch stride of dx (elements)
+  float* dh;        // dL/dh_{e-1} (nb, H, W, F), may be null
+  int cin, F, H, W, c0, nco, cpb;  // output channels [c0, c0 + nco)
+};
+
+__host__ __device__ inline int dinp_stage(int cpb) {
+  return P * P * PS + 9 * cpb * PS;
+}
+
+// Stage gates [n0, n0 + 8) of the dgates patch and the flipped weights
+// ws[t][j][n] = k[8 - t][c][n0 + n] of the block's output channels.
+__device__ __forceinline__ void dinp_load(const DinpArgs& a, float* buf,
+                                          int n0, int b, int ty0, int tx0,
+                                          int cbase) {
+  const int N = 4 * a.F;
+  const int C = a.cin + a.F;
+  float* patch = buf;
+  float* ws = buf + P * P * PS;
+  // 4 consecutive gates are contiguous and 16-byte aligned (N % 4 == 0)
+  for (int i = threadIdx.x; i < 2 * P * P; i += blockDim.x) {
+    const int pix = i >> 1;
+    const int n = n0 + 4 * (i & 1);
+    const int py = pix / P;
+    const int y = ty0 + py - 1;
+    const int xx = tx0 + (pix - py * P) - 1;
+    const bool in = n < N && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+    copy16(patch + pix * PS + 4 * (i & 1),
+           in ? a.dg + (((long long)b * a.H + y) * a.W + xx) * N + n
+              : nullptr,
+           in);
+  }
+  for (int i = threadIdx.x; i < 9 * a.cpb * 2; i += blockDim.x) {
+    const int n = n0 + 4 * (i & 1);
+    const int r = i >> 1;  // tap * cpb + j
+    const int tap = r / a.cpb;
+    const int c = cbase + (r - tap * a.cpb);
+    const bool in = n < N && c < a.c0 + a.nco;
+    copy16(ws + r * PS + 4 * (i & 1),
+           in ? a.k + ((long long)(8 - tap) * C + c) * N + n : nullptr, in);
+  }
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
+  extern __shared__ float smem[];
+  const int tiles_x = (a.W + T - 1) / T;
+  const int tx0 = (blockIdx.x % tiles_x) * T;
+  const int ty0 = (blockIdx.x / tiles_x) * T;
+  const int b = blockIdx.z;
+  const int cbase = a.c0 + blockIdx.y * a.cpb;
+  const int nt = a.cpb / 8;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  constexpr int NT = kCols / 8;
+
+  float acc[2][NT][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = cbase + 4 * g + j;
-    if (c >= a.c0 + a.nco) continue;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int p = 0; p < TW; ++p) {
-      const int xx = tx0 + p;
-      if (xx >= a.W) continue;
-      if (c < a.cin) {
-        if (a.dx)
-          a.dx[b * a.dx_b + ((long long)y * a.W + xx) * a.cin + c] = acc[j][p];
-      } else if (a.dh) {
-        a.dh[((long long)b * a.F + (c - a.cin)) * hw + (long long)y * a.W +
-             xx] = acc[j][p];
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+
+  ring(
+      smem, dinp_stage(a.cpb), (4 * a.F + 7) / 8,
+      [&](int s, float* buf) { dinp_load(a, buf, 8 * s, b, ty0, tx0, cbase); },
+      [&](const float* patch) {
+        const float* ws = patch + P * P * PS;
+#pragma unroll 3
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+          FragA fa[2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
+          const float* wt = ws + (tap * a.cpb + g) * PS + t;
+          FragB fb[NT];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            if (j < nt) {
+              fb[j].set(0, wt[j * 8 * PS]);
+              fb[j].set(1, wt[j * 8 * PS + 4]);
+            }
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              if (j < nt) mma(acc[mi][j], fa[mi].lo, fb[j].hi);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              if (j < nt) mma(acc[mi][j], fa[mi].hi, fb[j].lo);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              if (j < nt) mma(acc[mi][j], fa[mi].hi, fb[j].hi);
+        }
+      });
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int y = ty0 + 2 * warp + mi;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int xx = tx0 + g + 8 * (r >> 1);
+        const int c = cbase + 8 * j + 2 * t + (r & 1);
+        if (j >= nt || c >= a.c0 + a.nco || y >= a.H || xx >= a.W) continue;
+        const long long pix = (long long)y * a.W + xx;
+        if (c < a.cin) {
+          if (a.dx) a.dx[b * a.dx_b + pix * a.cin + c] = acc[mi][j][r];
+        } else if (a.dh) {
+          a.dh[((long long)b * a.H * a.W + pix) * a.F + (c - a.cin)] =
+              acc[mi][j][r];
+        }
       }
     }
   }
 }
+
+// ---------------------------------------------------------------- (c)
 
 struct DkArgs {
   const float* x;  // echo e of x (nb, ne, H, W, Cin)
   long long x_b;
   const float* h_prev;  // (nb, F, H, W), null at echo 0
-  const float* dg;      // (nb, 4F, H, W)
+  const float* dg;      // (nb, H, W, 4F)
   float* part;          // (S, 9, C, 4F) slot partials of dk
   float* part_b;        // (S, 4F) slot partials of db
   int nb, cin, F, H, W, ceff;
 };
 
-// (c) dk / db partials: block (slot, chunk) owns gate groups
-// [9*chunk, 9*chunk + 9) and the pixel tiles t = slot, slot + S, ...
-__global__ void __launch_bounds__(kMaxThreads) dk_kernel(DkArgs a) {
+constexpr int kDkStage = RY * T * DS + (RY + 2) * P * CS;
+
+// Stage pixel chunk (b, rows y0 .. y0 + RY - 1, columns x0 .. x0 + 15): its
+// dgates rows [m0, m0 + 144) and the (RY + 2) x 18 input patch of channels
+// [cp0, cp0 + 16) (channel C is 1).
+__device__ __forceinline__ void dk_load(const DkArgs& a, float* buf, int b,
+                                        int y0, int x0, int m0, int cp0) {
+  const int N = 4 * a.F;
+  const int C = a.cin + a.F;
+  const long long hw = (long long)a.H * a.W;
+  float* ds = buf;
+  float* ps = buf + RY * T * DS;
+  // 4 consecutive gates are contiguous and 16-byte aligned (N % 4 == 0)
+  for (int i = threadIdx.x; i < RY * T * kGateRows / 4; i += blockDim.x) {
+    const int px = i / (kGateRows / 4);
+    const int m = 4 * (i - px * (kGateRows / 4));
+    const int y = y0 + px / T;
+    const int xx = x0 + px % T;
+    const bool in = y < a.H && xx < a.W && m0 + m < N;
+    copy16(ds + px * DS + m,
+           in ? a.dg + (((long long)b * a.H + y) * a.W + xx) * N + m0 + m
+              : nullptr,
+           in);
+  }
+  for (int i = threadIdx.x; i < 16 * (RY + 2) * P; i += blockDim.x) {
+    const int cc = i / ((RY + 2) * P);
+    const int pix = i - cc * ((RY + 2) * P);
+    const int py = pix / P;
+    const int y = y0 + py - 1;
+    const int xx = x0 + (pix - py * P) - 1;
+    const int c = cp0 + cc;
+    float* dst = ps + pix * CS + cc;
+    if (c == C) {
+      *dst = 1.f;  // the bias column
+      continue;
+    }
+    const bool in = c < a.ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+    const float* src =
+        !in ? nullptr
+        : c < a.cin
+            ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
+            : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
+                  (long long)y * a.W + xx;
+    copy4(dst, src, in);
+  }
+  __pipeline_commit();
+}
+
+// block (slot, channel pair, gate chunk): 9 warps, warp (dy, third)
+__global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
   extern __shared__ float smem[];
   const int N = 4 * a.F;
   const int C = a.cin + a.F;
-  const int g0 = blockIdx.y * NG;
-  const int ng = min(NG, a.F - g0);
   const int slot = blockIdx.x;
-  const int tiles_x = (a.W + TW - 1) / TW;
-  const int tiles_img = tiles_x * ((a.H + TH - 1) / TH);
-  const int n_tiles = a.nb * tiles_img;
-  const long long hw = (long long)a.H * a.W;
-  float* patch = smem;                      // [ceff][PH][PW]
-  float* dgs = smem + a.ceff * PH * PW;     // [4*ng][DPS]
+  const int cp0 = blockIdx.y * 16;
+  const int m0 = blockIdx.z * kGateRows;
+  const int warp = threadIdx.x >> 5;
+  const int dy = warp / 3;
+  const int mw = (warp - 3 * dy) * 48;  // the warp's first gate row
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const int xs = (a.W + T - 1) / T;
+  const int ys = (a.H + RY - 1) / RY;
+  const int n_chunks = a.nb * ys * xs;
+  const int S = gridDim.x;
+  const bool rows = m0 + mw < N;  // the warp has gate rows to sum
+  // octets of the block's 16 channels with a channel to sum: below ceff,
+  // or the bias column C (padding past C, and echo 0's zero state, skipped)
+  bool used[2];
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const int c = cp0 + 8 * o;
+    used[o] = c < a.ceff || (c <= C && C < c + 8);
+  }
+  if (!used[0] && !used[1]) return;
+
+  float acc[3][6][4];
+#pragma unroll
+  for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+
+  ring(
+      smem, kDkStage, slot < n_chunks ? (n_chunks - 1 - slot) / S + 1 : 0,
+      [&](int s, float* buf) {
+        const int chunk = slot + s * S;
+        const int xq = chunk % xs;
+        const int by = chunk / xs;
+        dk_load(a, buf, by / ys, (by % ys) * RY, xq * T, m0, cp0);
+      },
+      [&](const float* ds) {
+        if (!rows) return;
+        const float* ps = ds + RY * T * DS;
+        // this chunk's sums on the tensor core from zero, then rounded into
+        // the FP32 accumulators: a slot walks thousands of pixels an echo,
+        // too long a sum for the tensor core's truncating accumulation
+        float d[3][6][4];
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) d[mi][j][r] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 2 * RY; ++ks) {  // 8 pixels of row ks / 2
+          FragA fa[3];
+#pragma unroll
+          for (int mi = 0; mi < 3; ++mi) {
+            const float* dz = ds + (8 * ks + t) * DS + mw + 16 * mi + g;
+            fa[mi].set(0, dz[0]);
+            fa[mi].set(1, dz[8]);
+            fa[mi].set(2, dz[4 * DS]);
+            fa[mi].set(3, dz[4 * DS + 8]);
+          }
+#pragma unroll
+          for (int o = 0; o < 2; ++o) {  // channel octet; tile 2 * dx + o
+            if (!used[o]) continue;
+            FragB fb[3];
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const float* p = ps + ((ks / 2 + dy) * P + 8 * (ks & 1) + t +
+                                     dx) * CS + 8 * o + g;
+              fb[dx].set(0, p[0]);
+              fb[dx].set(1, p[4 * CS]);
+            }
+#pragma unroll
+            for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx)
+                mma(d[mi][2 * dx + o], fa[mi].lo, fb[dx].hi);
+#pragma unroll
+            for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx)
+                mma(d[mi][2 * dx + o], fa[mi].hi, fb[dx].lo);
+#pragma unroll
+            for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx)
+                mma(d[mi][2 * dx + o], fa[mi].hi, fb[dx].hi);
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mi][j][r] += d[mi][j][r];
+      });
+  if (!rows) return;
+
   float* part = a.part + (long long)slot * 9 * C * N;
   float* part_b = a.part_b + (long long)slot * N;
-  const int items = a.ceff * ng;
-
-  for (int t = slot; t < n_tiles; t += gridDim.x) {
-    const int b = t / tiles_img;
-    const int r = t - b * tiles_img;
-    const int ty0 = (r / tiles_x) * TH;
-    const int tx0 = (r % tiles_x) * TW;
-    for (int i = threadIdx.x; i < a.ceff * PH * PW; i += blockDim.x) {
-      const int c = i / (PH * PW);
-      const int q = i - c * (PH * PW);
-      const int py = q / PW;
-      const int y = ty0 + py - 1;
-      const int xx = tx0 + (q - py * PW) - 1;
-      if (y >= 0 && y < a.H && xx >= 0 && xx < a.W) {
-        const float* src =
-            c < a.cin ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
-                      : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
-                            (long long)y * a.W + xx;
-        __pipeline_memcpy_async(patch + i, src, sizeof(float));
-      } else {
-        patch[i] = 0.f;
-      }
-    }
-    for (int i = threadIdx.x; i < 4 * ng * TH * TW; i += blockDim.x) {
-      const int q = i / (TH * TW);
-      const int rr = i - q * (TH * TW);
-      const int y = ty0 + rr / TW;
-      const int xx = tx0 + rr % TW;
-      float* dst = dgs + q * DPS + rr;
-      if (y < a.H && xx < a.W) {
-        __pipeline_memcpy_async(
-            dst, a.dg + ((long long)b * N + 4 * g0 + q) * hw +
-                     (long long)y * a.W + xx,
-            sizeof(float));
-      } else {
-        *dst = 0.f;  // pixels past the image contribute nothing
-      }
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-
-    for (int w = threadIdx.x; w < items; w += blockDim.x) {
-      const int c = w / ng;
-      const int gl = w - c * ng;
-      float acc[9][4];
-      float accb[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        accb[j] = 0.f;
+  for (int mi = 0; mi < 3; ++mi)
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) acc[tap][j] = 0.f;
-      }
-      const float* dgp = dgs + 4 * gl * DPS;
-      const float* pc = patch + c * PH * PW;
-#pragma unroll 1
-      for (int row = 0; row < TH; ++row) {
-        float d[4][TW];
+    for (int j = 0; j < 6; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int p = 0; p < TW; ++p) d[j][p] = dgp[j * DPS + row * TW + p];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          float v[PW];
-#pragma unroll
-          for (int jj = 0; jj < PW; ++jj) v[jj] = pc[(row + dy) * PW + jj];
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int p = 0; p < TW; ++p)
-                acc[dy * 3 + dx][j] =
-                    fmaf(v[p + dx], d[j][p], acc[dy * 3 + dx][j]);
-        }
-        if (c == 0) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int p = 0; p < TW; ++p) accb[j] += d[j][p];
+      for (int r = 0; r < 4; ++r) {
+        const int n = m0 + mw + 16 * mi + g + 8 * (r >> 1);
+        const int c = cp0 + 8 * (j & 1) + 2 * t + (r & 1);
+        const int tap = dy * 3 + (j >> 1);
+        if (n >= N) continue;
+        if (c < a.ceff) {
+          part[((long long)tap * C + c) * N + n] += acc[mi][j][r];
+        } else if (c == C && tap == 4) {
+          part_b[n] += acc[mi][j][r];
         }
       }
-      const int n = 4 * (g0 + gl);
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          part[((long long)tap * C + c) * N + n + j] += acc[tap][j];
-      if (c == 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part_b[n + j] += accb[j];
-      }
-    }
-    __syncthreads();  // the next tile overwrites the staged patch
-  }
 }
 
 // dk[i] = sum over slots of part[s][i], in slot order; db likewise.
-__global__ void reduce_kernel(const float* part, const float* part_b,
-                              float* dk, float* db, int n_slots, long long K,
-                              int N) {
+__global__ void sum_slots(const float* part, const float* part_b, float* dk,
+                          float* db, int n_slots, long long K, int N) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < K) {
     float s = 0.f;
@@ -386,77 +772,88 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t dinp_smem_bytes(int cg) {
-  return 2 * (size_t)(DCC * PH * PW + DCC * 9 * 4 * cg) * sizeof(float);
+// groups of 8 hidden channels per gates block: at most kGroups, spread
+// evenly over the blocks
+int gates_gpb(int F) {
+  const int groups = (F + 7) / 8;
+  const int chunks = (groups + kGroups - 1) / kGroups;
+  return (groups + chunks - 1) / chunks;
 }
 
-size_t dk_smem_bytes(int ceff, int F) {
-  return (size_t)(ceff * PH * PW + 4 * (F < NG ? F : NG) * DPS) *
-         sizeof(float);
+// output channels per dinp block: octets, at most kCols, spread evenly
+int dinp_cpb(int nco) {
+  const int oct = (nco + 7) / 8;
+  const int chunks = (oct + kCols / 8 - 1) / (kCols / 8);
+  return 8 * ((oct + chunks - 1) / chunks);
 }
 
 }  // namespace
 
 // Largest shared memory any block of the backward needs at (cin, F).
 extern "C" long long convlstm_bwd_smem_bytes(int cin, int F) {
-  const int groups = (cin + F + 3) / 4;
-  const int nchunk = (groups + kMaxGroups - 1) / kMaxGroups;
-  const size_t a = tile_smem_bytes(cin + F, chunk_width(F));
-  const size_t b = dinp_smem_bytes((groups + nchunk - 1) / nchunk);
-  const size_t c = dk_smem_bytes(cin + F, F);
+  const size_t a = 2 * (size_t)gates_stage(gates_gpb(F)) * sizeof(float);
+  const size_t b = 2 * (size_t)dinp_stage(dinp_cpb(cin + F)) * sizeof(float);
+  const size_t c = 2 * (size_t)kDkStage * sizeof(float);
   return (long long)(a > b ? (a > c ? a : c) : (b > c ? b : c));
 }
 
 // One echo e of the reverse sweep: (a) dgates and dc_{e-1}, (b) dh_{e-1} and
 // (when dx is not null) dx_e, (c) dk/db slot partials. Null pointers: dc at
 // the last echo; h_prev, c_prev, dc_prev and dh_prev at echo 0 (has_state
-// 0). Returns the first cudaError_t of the launches (0 on success). The
-// caller checks convlstm_bwd_smem_bytes against a block's shared memory.
+// 0). dh, dc, dgates, dc_prev and dh_prev are channels-last (nb, H, W, ·);
+// h_prev and c_prev are the forward kernel's (nb, F, H, W). Returns the
+// first cudaError_t of the launches (0 on success). The caller checks
+// convlstm_bwd_smem_bytes against a block's shared memory.
 extern "C" int convlstm_echo_bwd(
     const float* x, long long x_b, const float* k, const float* bias,
-    const float* wt, const float* h_prev, const float* c_prev,
-    const float* dh, const float* dc, float* dgates, float* dc_prev,
-    float* dh_prev, float* dx, long long dx_b, float* part, float* part_b,
-    int n_slots, int nb, int cin, int F, int H, int W, int has_state,
-    int device, void* stream) {
+    const float* h_prev, const float* c_prev, const float* dh,
+    const float* dc, float* dgates, float* dc_prev, float* dh_prev,
+    float* dx, long long dx_b, float* part, float* part_b, int n_slots,
+    int nb, int cin, int F, int H, int W, int has_state, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = ((W + TW - 1) / TW) * ((H + TH - 1) / TH);
+  const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);
 
-  LstmArgs a{x,      x_b,    k,  bias, h_prev,  c_prev,
-             nullptr, nullptr, dh, dc,   dgates,  dc_prev,
-             cin,    F,      H,  W,    chunk_width(F), has_state};
-  err = launch_gate_tiles(gates_bwd, a, nb, st);
+  const int gpb = gates_gpb(F);
+  GatesArgs ga{x,      x_b,     k,       bias, h_prev, c_prev,   dh,
+               dc,     dgates,  dc_prev, cin,  F,      H,        W,
+               has_state, gpb};
+  size_t bytes = 2 * (size_t)gates_stage(gpb) * sizeof(float);
+  err = allow_smem(gates_mma, bytes);
+  if (err != cudaSuccess) return (int)err;
+  // channel chunks fastest: the blocks that stage one tile's input patch
+  // run together and share it in L2
+  gates_mma<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb), kWarps * 32,
+              bytes, st>>>(ga);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int c0 = dx ? 0 : cin;
   const int c1 = has_state ? cin + F : cin;
   if (c1 > c0) {
-    const int groups = (c1 - c0 + 3) / 4;
-    const int nchunk = (groups + kMaxGroups - 1) / kMaxGroups;
-    const int cg = (groups + nchunk - 1) / nchunk;
-    DinpArgs d{dgates, wt,     dx, dx_b, has_state ? dh_prev : nullptr,
-               cin,    F,      H,  W,    c0,
-               c1 - c0, cg};
-    const size_t bytes = dinp_smem_bytes(cg);
-    err = allow_smem(dinp_kernel, bytes);
+    const int cpb = dinp_cpb(c1 - c0);
+    DinpArgs d{dgates, k, dx, dx_b, has_state ? dh_prev : nullptr,
+               cin,    F, H,  W,    c0,
+               c1 - c0, cpb};
+    bytes = 2 * (size_t)dinp_stage(cpb) * sizeof(float);
+    err = allow_smem(dinp_mma, bytes);
     if (err != cudaSuccess) return (int)err;
-    dinp_kernel<<<dim3(tiles, nchunk, nb), cg * TH, bytes, st>>>(d);
+    dinp_mma<<<dim3(tiles, (c1 - c0 + cpb - 1) / cpb, nb), kWarps * 32,
+               bytes, st>>>(d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
 
-  const int ceff = has_state ? cin + F : cin;
-  const int items = ceff * (F < NG ? F : NG);
-  const int rounds = (items + kMaxThreads - 1) / kMaxThreads;
-  const int threads = ((items + rounds - 1) / rounds + 31) / 32 * 32;
   DkArgs kd{x, x_b, has_state ? h_prev : nullptr, dgates, part, part_b,
-            nb, cin, F, H, W, ceff};
-  const size_t bytes = dk_smem_bytes(ceff, F);
-  err = allow_smem(dk_kernel, bytes);
+            nb, cin, F, H, W, has_state ? cin + F : cin};
+  bytes = 2 * (size_t)kDkStage * sizeof(float);
+  err = allow_smem(dk_mma, bytes);
   if (err != cudaSuccess) return (int)err;
-  dk_kernel<<<dim3(n_slots, (F + NG - 1) / NG), threads, bytes, st>>>(kd);
+  dk_mma<<<dim3(n_slots, (cin + F + 1 + 15) / 16,
+                (4 * F + kGateRows - 1) / kGateRows),
+           9 * 32, bytes, st>>>(kd);
   return (int)cudaGetLastError();
 }
 
@@ -469,8 +866,8 @@ extern "C" int convlstm_bwd_reduce(const float* part, const float* part_b,
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   const long long n = K > N ? K : N;
-  reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(part, part_b, dk, db,
-                                                       n_slots, K, N);
+  sum_slots<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+              static_cast<cudaStream_t>(stream)>>>(part, part_b, dk, db,
+                                                   n_slots, K, N);
   return (int)cudaGetLastError();
 }

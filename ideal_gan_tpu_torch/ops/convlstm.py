@@ -40,12 +40,14 @@ CONVLSTM_KERNEL = Kernel("convlstm_fwd", {
     "convlstm_smem_bytes": (_L, [_I, _I]),
 })
 CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
-    "convlstm_echo_bwd": (_I, [_P, _L] + [_P] * 11 + [_L, _P, _P]
+    "convlstm_echo_bwd": (_I, [_P, _L] + [_P] * 10 + [_L, _P, _P]
                           + [_I] * 8 + [_P]),
     "convlstm_bwd_reduce": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
     "convlstm_bwd_smem_bytes": (_L, [_I, _I]),
 })
 _MAX_SMEM = 227 * 1024
+# the profiler range around the backward's state recompute (forward kernel)
+RECOMPUTE_RANGE = "convlstm backward state recompute"
 
 
 def _echo_step(x_e, h_prev, c_prev, weight, bias, act, rec_act):
@@ -207,8 +209,10 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
 
     On the card: the forward kernel recomputes h_e, c_e for e < ne-1 into
     an (ne-1, nb, F, H, W) stack (about 1 GB each at nb=8, 384², F=36), then
-    `convlstm_echo_bwd` runs echo e = ne-1 .. 0 of the reverse sweep and
-    `convlstm_bwd_reduce` sums the deterministic dk/db slot partials.
+    `convlstm_echo_bwd` runs echo e = ne-1 .. 0 of the reverse sweep (three
+    3xTF32 tensor-core GEMMs per echo) and `convlstm_bwd_reduce` sums the
+    deterministic dk/db slot partials. The sweep's buffers (dL/dh, dL/dc,
+    dL/dgates) are channels-last, as g is.
     """
     if x.device.type == "cpu":
         return convlstm_backward_reference(x, k_merged, bias, g, activation,
@@ -224,6 +228,8 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
     if smem > _MAX_SMEM:
         raise ValueError(f"convlstm backward: Cin+F={cin + f} needs {smem} B "
                          f"of shared memory, more than a block has")
+    if k_merged.data_ptr() % 16:  # the sweep copies k in 16-byte pieces
+        k_merged = k_merged.clone()
     dev = x.device
     c = cin + f
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -238,20 +244,18 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
                      device=dev)
     cs = torch.empty_like(hs)
     fwd = CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
-    for e in range(ne - 1):
-        rc = fwd(x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
-                 hs[e - 1].data_ptr() if e else None,
-                 cs[e - 1].data_ptr() if e else None,
-                 hs[e].data_ptr(), cs[e].data_ptr(), nb, cin, f, h, w,
-                 int(e > 0), dev.index, stream)
-        CONVLSTM_KERNEL.launches += 1
-        check_launch(CONVLSTM_KERNEL, rc)
+    with torch.profiler.record_function(RECOMPUTE_RANGE):
+        for e in range(ne - 1):
+            rc = fwd(x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
+                     hs[e - 1].data_ptr() if e else None,
+                     cs[e - 1].data_ptr() if e else None,
+                     hs[e].data_ptr(), cs[e].data_ptr(), nb, cin, f, h, w,
+                     int(e > 0), dev.index, stream)
+            CONVLSTM_KERNEL.launches += 1
+            check_launch(CONVLSTM_KERNEL, rc)
 
-    # k with taps flipped, (4F, 3, 3, C): dinp is a forward convolution
-    # of dgates with it
-    wt = k_merged.flip(0, 1).permute(3, 0, 1, 2).contiguous()
-    dgates = torch.empty((nb, 4 * f, h, w), dtype=torch.float32, device=dev)
-    dh_in = g.permute(0, 3, 1, 2).contiguous()
+    dgates = torch.empty((nb, h, w, 4 * f), dtype=torch.float32, device=dev)
+    dh_in = g.contiguous()
     dh_bufs = [torch.empty_like(dh_in) for _ in range(2)]
     dc_bufs = [torch.empty_like(dh_in) for _ in range(2)]
     dc_in = None
@@ -266,7 +270,6 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
         dh_out, dc_out = dh_bufs[e % 2], dc_bufs[e % 2]
         rc = step(
             x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
-            wt.data_ptr(),
             hs[e - 1].data_ptr() if has_state else None,
             cs[e - 1].data_ptr() if has_state else None,
             dh_in.data_ptr(), None if dc_in is None else dc_in.data_ptr(),
