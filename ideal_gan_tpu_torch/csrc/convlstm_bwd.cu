@@ -58,7 +58,9 @@
 // as 3xTF32 on the tensor cores (495/3 = 165 TFLOP/s). The bytes (x, k, b,
 // dL/dh in, dx, dk, db out) are a few hundred MB: operations bound it.
 //
-// Design: each stage is a tiled implicit GEMM whose operand tiles are
+// Design: stage (a)'s mainloop is the forward kernel's (convlstm_tile.cuh:
+// the same code, so the recomputed gates are the forward's bit for bit).
+// Each stage is a tiled implicit GEMM whose operand tiles are
 // staged in shared memory with cp.async in a ring of two stages, so the next
 // channel octet's (or pixel chunk's) loads overlap this one's MMAs. Shared
 // memory strides are padded so that every fragment load is free of bank
@@ -91,262 +93,43 @@
 
 namespace {
 
-using convlstm::leaky_relu;
-using convlstm::leaky_relu_grad;
-using convlstm::sigmoid;
+using namespace convlstm;
 
-constexpr int T = 16;        // pixel tile side of (a) and (b)
-constexpr int P = T + 2;     // patch side with the SAME halo
-constexpr int PS = 12;       // patch stride per pixel: 8 channels + 4 pad
-constexpr int kWarps = 8;    // (a), (b): warp w owns tile rows 2w, 2w+1
-constexpr int kGroups = 2;   // (a): at most 2 x 8 hidden channels a block
+// T, P, PS, kWarps, kGroups: the 16x16 pixel tiles of (a) and (b)
+// (convlstm_tile.cuh)
 constexpr int kCols = 40;    // (b): at most 40 output channels a block
 constexpr int kGateRows = 144;  // (c): gate rows a block
 constexpr int RY = 8;        // (c): image rows a pixel chunk
 constexpr int DS = kGateRows + 8;  // (c): dgates stride per pixel
 constexpr int CS = 24;       // (c): patch stride per pixel (16 channels)
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a*b on the tensor core (not volatile: the compiler may interleave
-// independent tiles' MMAs)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a*b on the tensor core, summed from zero
-__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-// Fragments with each f32 element split: x = hi + lo, both TF32.
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(int i, float v) {
-    hi[i] = to_tf32(v);
-    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
-  }
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(int i, float v) {
-    hi[i] = to_tf32(v);
-    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
-  }
-};
-
-// The A fragment of an m16 tile whose rows are the 16 pixels of patch row
-// `pr` starting at column `pc` (tap offset included), k = channels 0..7 of
-// a [pixel][PS] patch: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
-__device__ __forceinline__ void load_a_patch(const float* patch, int pr,
-                                             int pc, int g, int t,
-                                             FragA& a) {
-  const float* p = patch + (pr * P + pc + g) * PS + t;
-  a.set(0, p[0]);
-  a.set(1, p[8 * PS]);
-  a.set(2, p[4]);
-  a.set(3, p[8 * PS + 4]);
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src,
-                                      bool valid) {
-  if (valid) {
-    __pipeline_memcpy_async(dst, src, sizeof(float));
-  } else {
-    *dst = 0.f;
-  }
-}
-
-// four floats, both addresses 16-byte aligned
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool valid) {
-  if (valid) {
-    __pipeline_memcpy_async(dst, src, 4 * sizeof(float));
-  } else {
-    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// The K loop of every stage: `n` stages of `stage` floats, loaded by
-// load(s, buf) (cp.async, one commit group each) into a ring of two
-// buffers and consumed by compute(buf); stage s + 1 is in flight while
-// stage s is computed. Shared memory: 2 * stage floats.
-template <class Load, class Compute>
-__device__ __forceinline__ void ring(float* smem, int stage, int n, Load load,
-                                     Compute compute) {
-  if (n > 0) load(0, smem);
-  for (int s = 0; s < n; ++s) {
-    if (s + 1 < n) {
-      load(s + 1, smem + ((s + 1) & 1) * stage);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    compute(smem + (s & 1) * stage);
-    __syncthreads();  // this buffer is refilled two stages on
-  }
-}
-
 // ---------------------------------------------------------------- (a)
 
 struct GatesArgs {
-  const float* x;  // echo e of x (nb, ne, H, W, Cin): x + e*H*W*Cin
-  long long x_b;   // batch stride of x (elements)
-  const float* k;  // (3, 3, Cin+F, 4F)
+  GateConv conv;        // x_e, k, h_{e-1} and the shape
   const float* bias;
-  const float* h_prev;  // (nb, F, H, W), unused without state
   const float* c_prev;  // (nb, F, H, W), unused without state
   const float* dh;      // dL/dh_e (nb, H, W, F)
   const float* dc;      // dL/dc_e (nb, H, W, F), null at the last echo
   float* dgates;        // dL/dz (nb, H, W, 4F)
   float* dc_prev;       // dL/dc_{e-1} (nb, H, W, F), null at echo 0
-  int cin, F, H, W, has_state, gpb;  // gpb: groups of 8 channels a block
 };
 
-// column stride of the staged weights: 4 gates x 8 channels per group, plus
-// 8 so that k-rows t and t+4 fall in other banks
-__host__ __device__ inline int gates_ws(int gpb) { return gpb * 32 + 8; }
-
-__host__ __device__ inline int gates_stage(int gpb) {
-  return P * P * PS + 9 * 8 * gates_ws(gpb);
-}
-
-// Stage input channels [c0, c0 + 8) of the patch and their weights for the
-// block's channel groups.
-__device__ __forceinline__ void gates_load(const GatesArgs& a, float* buf,
-                                           int c0, int ceff, int b, int ty0,
-                                           int tx0, int j0) {
-  const int C = a.cin + a.F;
-  const long long hw = (long long)a.H * a.W;
-  float* patch = buf;
-  float* ws = buf + P * P * PS;
-  for (int i = threadIdx.x; i < 8 * P * P; i += blockDim.x) {
-    const int cc = i / (P * P);
-    const int pix = i - cc * (P * P);
-    const int py = pix / P;
-    const int y = ty0 + py - 1;
-    const int xx = tx0 + (pix - py * P) - 1;
-    const int c = c0 + cc;
-    const bool in = c < ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
-    const float* src =
-        !in ? nullptr
-        : c < a.cin
-            ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
-            : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
-                  (long long)y * a.W + xx;
-    copy4(patch + pix * PS + cc, src, in);
-  }
-  const int cols = a.gpb * 32;
-  const int wstr = gates_ws(a.gpb);
-  // 4 consecutive channels f of one gate are contiguous in k; 16-byte
-  // aligned when F is a multiple of 4
-  const int vec = a.F % 4 == 0 ? 4 : 1;
-  for (int i = threadIdx.x * vec; i < 72 * cols; i += blockDim.x * vec) {
-    const int r = i / cols;  // tap * 8 + channel
-    const int n = i - r * cols;
-    const int tap = r >> 3;
-    const int c = c0 + (r & 7);
-    const int q = (n >> 3) & 3;  // gate
-    const int f = (j0 + (n >> 5)) * 8 + (n & 7);
-    const bool in = c < ceff && f < a.F;
-    const float* src =
-        in ? a.k + ((long long)tap * C + c) * 4 * a.F + q * a.F + f : nullptr;
-    if (vec == 4) {
-      copy16(ws + r * wstr + n, src, in);
-    } else {
-      copy4(ws + r * wstr + n, src, in);
-    }
-  }
-  __pipeline_commit();
-}
-
-__global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs a) {
+__global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
   extern __shared__ float smem[];
+  const GateConv& a = ga.conv;
   const int tiles_x = (a.W + T - 1) / T;
   const int tx0 = (blockIdx.y % tiles_x) * T;
   const int ty0 = (blockIdx.y / tiles_x) * T;
   const int j0 = blockIdx.x * a.gpb;
   const int ng = min(a.gpb, (a.F + 7) / 8 - j0);
   const int b = blockIdx.z;
-  const int ceff = a.has_state ? a.cin + a.F : a.cin;
-  const int wstr = gates_ws(a.gpb);
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x >> 2) & 7;
   const int t = threadIdx.x & 3;
 
   float acc[2][kGroups][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int jj = 0; jj < kGroups; ++jj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] = 0.f;
-
-  ring(
-      smem, gates_stage(a.gpb), (ceff + 7) / 8,
-      [&](int s, float* buf) {
-        gates_load(a, buf, 8 * s, ceff, b, ty0, tx0, j0);
-      },
-      [&](const float* patch) {
-        const float* ws = patch + P * P * PS;
-#pragma unroll 3
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-          FragA fa[2];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
-          const float* wt = ws + (tap * 8 + t) * wstr + g;
-#pragma unroll
-          for (int jj = 0; jj < kGroups; ++jj) {
-            if (jj >= ng) continue;
-            FragB fb[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              fb[q].set(0, wt[(jj * 4 + q) * 8]);
-              fb[q].set(1, wt[4 * wstr + (jj * 4 + q) * 8]);
-            }
-            // this k8 step of 8 tiles, summed from zero, then rounded
-            // into the FP32 accumulators
-            float d[2][4][4];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-#pragma unroll
-                for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];
-          }
-        }
-      });
+  gate_mainloop(a, smem, b, ty0, tx0, j0, ng, acc);
 
   // epilogue: thread (g, t) holds, for tile rows 2*warp + mi, pixels g and
   // g + 8 (fragment halves h) of channels f0 = 8*(j0+jj) + 2t and f0 + 1,
@@ -364,7 +147,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs a) {
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        bias[q][e] = a.bias[q * a.F + min(f0 + e, a.F - 1)];
+        bias[q][e] = ga.bias[q * a.F + min(f0 + e, a.F - 1)];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int y = ty0 + 2 * warp + mi;
@@ -376,18 +159,18 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs a) {
         const long long at = pix * a.F + f0;  // (pixel, f0) in dh, dc
         float dh[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
         if (pair && ne == 2) {
-          const float2 v = *reinterpret_cast<const float2*>(a.dh + at);
+          const float2 v = *reinterpret_cast<const float2*>(ga.dh + at);
           dh[0] = v.x;
           dh[1] = v.y;
-          if (a.dc) {
-            const float2 w = *reinterpret_cast<const float2*>(a.dc + at);
+          if (ga.dc) {
+            const float2 w = *reinterpret_cast<const float2*>(ga.dc + at);
             dc[0] = w.x;
             dc[1] = w.y;
           }
         } else {
           for (int e = 0; e < ne; ++e) {
-            dh[e] = a.dh[at + e];
-            dc[e] = a.dc ? a.dc[at + e] : 0.f;
+            dh[e] = ga.dh[at + e];
+            dc[e] = ga.dc ? ga.dc[at + e] : 0.f;
           }
         }
         float out[5][2];  // dz_i, dz_f, dz_g, dz_o, dc_{e-1}
@@ -401,7 +184,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs a) {
           const float go = sigmoid(acc[mi][jj][3][r] + bias[3][e]);
           const float cp =
               a.has_state && e < ne
-                  ? a.c_prev[((long long)b * a.F + f0 + e) * hw +
+                  ? ga.c_prev[((long long)b * a.F + f0 + e) * hw +
                              (long long)y * a.W + xx]
                   : 0.f;
           const float cn = gf * cp + gi * gg;
@@ -412,20 +195,20 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs a) {
           out[3][e] = dh[e] * leaky_relu(cn) * go * (1.f - go);
           out[4][e] = dct * gf;
         }
-        float* dg = a.dgates + pix * 4 * a.F + f0;
+        float* dg = ga.dgates + pix * 4 * a.F + f0;
         if (pair && ne == 2) {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             *reinterpret_cast<float2*>(dg + q * a.F) =
                 make_float2(out[q][0], out[q][1]);
-          if (a.dc_prev)
-            *reinterpret_cast<float2*>(a.dc_prev + at) =
+          if (ga.dc_prev)
+            *reinterpret_cast<float2*>(ga.dc_prev + at) =
                 make_float2(out[4][0], out[4][1]);
         } else {
           for (int e = 0; e < ne; ++e) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) dg[q * a.F + e] = out[q][e];
-            if (a.dc_prev) a.dc_prev[at + e] = out[4][e];
+            if (ga.dc_prev) ga.dc_prev[at + e] = out[4][e];
           }
         }
       }
@@ -765,21 +548,6 @@ __global__ void sum_slots(const float* part, const float* part_b, float* dk,
   }
 }
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// groups of 8 hidden channels per gates block: at most kGroups, spread
-// evenly over the blocks
-int gates_gpb(int F) {
-  const int groups = (F + 7) / 8;
-  const int chunks = (groups + kGroups - 1) / kGroups;
-  return (groups + chunks - 1) / chunks;
-}
-
 // output channels per dinp block: octets, at most kCols, spread evenly
 int dinp_cpb(int nco) {
   const int oct = (nco + 7) / 8;
@@ -791,7 +559,7 @@ int dinp_cpb(int nco) {
 
 // Largest shared memory any block of the backward needs at (cin, F).
 extern "C" long long convlstm_bwd_smem_bytes(int cin, int F) {
-  const size_t a = 2 * (size_t)gates_stage(gates_gpb(F)) * sizeof(float);
+  const size_t a = gates_smem_bytes(gates_gpb(F));
   const size_t b = 2 * (size_t)dinp_stage(dinp_cpb(cin + F)) * sizeof(float);
   const size_t c = 2 * (size_t)kDkStage * sizeof(float);
   return (long long)(a > b ? (a > c ? a : c) : (b > c ? b : c));
@@ -817,10 +585,9 @@ extern "C" int convlstm_echo_bwd(
   const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);
 
   const int gpb = gates_gpb(F);
-  GatesArgs ga{x,      x_b,     k,       bias, h_prev, c_prev,   dh,
-               dc,     dgates,  dc_prev, cin,  F,      H,        W,
-               has_state, gpb};
-  size_t bytes = 2 * (size_t)gates_stage(gpb) * sizeof(float);
+  GatesArgs ga{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
+               bias, c_prev, dh, dc, dgates, dc_prev};
+  size_t bytes = gates_smem_bytes(gpb);
   err = allow_smem(gates_mma, bytes);
   if (err != cudaSuccess) return (int)err;
   // channel chunks fastest: the blocks that stage one tile's input patch

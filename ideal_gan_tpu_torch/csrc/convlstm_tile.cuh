@@ -1,49 +1,47 @@
-// The gate convolution of one ConvLSTM echo over a pixel tile, shared by the
-// forward kernel (convlstm_fwd.cu) and the backward's gate recompute
-// (convlstm_bwd.cu):
+// The gate convolution of one ConvLSTM echo over a 16x16 pixel tile, as an
+// implicit GEMM on the tensor cores in split TF32 (3xTF32), shared by the
+// forward kernel (convlstm_fwd.cu) and the backward's stage (a)
+// (convlstm_bwd.cu::gates_mma):
 //
-//   gates = conv3x3_SAME(concat(x_e, h_{e-1}), k)            (4F channels)
+//   z = conv3x3_SAME(concat(x_e, h_{e-1}), k)            (4F channels)
 //
-// without the bias. Design (see convlstm_fwd.cu for the reasoning):
-//  - A block owns a TH x TW pixel tile of one image (blockIdx.x, blockIdx.z)
-//    and a chunk of fc hidden channels (blockIdx.y). It stages the
-//    (TH+2) x (TW+2) x C input patch (x_e and h_{e-1}, zero outside the
-//    image, which gives SAME padding) in shared memory with cp.async.
-//  - Thread (row, f) computes the four gates of channel f for the TW pixels
-//    of one tile row: 4*TW accumulators in registers.
-//  - Weights are staged in shared memory CC input channels at a time,
-//    double-buffered with cp.async.
-//  - State is float32 NCHW (nb, F, H, W). Without state (echo 0) only the
-//    Cin input channels are convolved.
+// without the bias. M = the tile's 256 pixels, N = 4 gates x 8 hidden
+// channels per group of the block, K = 9 taps x C input channels (C = Cin
+// + F, padded to channel octets; Cin alone at echo 0, whose state is
+// zero). Each of the block's 8 warps owns two tile rows (two m16 tiles);
+// its four n8 tiles per group are the gates i, f, g, o of the same 8
+// hidden channels, so every thread ends with all four gates of its pixels
+// and channels in registers, which is what both epilogues need.
+//
+// Precision: every f32 operand is split into hi = tf32(x) and lo = tf32(x -
+// hi), and a tile sums lo*hi + hi*lo + hi*hi (lo*lo, below f32's rounding,
+// is dropped). The tensor core's FP32 accumulation truncates, so each k8
+// step (one tap of one channel octet) is summed on the tensor core from
+// zero and added into FP32 registers with a rounded add: the gate values
+// stay as close to float64 as an FP32 FMA chain, which matters because
+// they decide leaky_relu's branches.
+//
+// Staging: the block walks K one channel octet at a time. A stage holds the
+// octet's (16+2) x (16+2) input patch (x_e and h_{e-1}, zero outside the
+// image, which gives SAME padding; [pixel][PS] with 4 floats of padding so
+// that fragment loads are free of bank conflicts) and its 9 x 8 rows of
+// weights for the block's gate columns; stages are loaded with cp.async in
+// a ring of two, so the next octet streams in while this one is used.
+// State is float32 NCHW (nb, F, H, W); x is the echo's slice of (nb, ne, H,
+// W, Cin).
 #pragma once
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace convlstm {
 
-constexpr int TH = 8;   // tile rows (one per thread row)
-constexpr int TW = 16;  // tile columns (pixels per thread)
-constexpr int PH = TH + 2;
-constexpr int PW = TW + 2;
-constexpr int CC = 4;   // input channels per weight stage
-constexpr int kMaxThreads = 256;
-
-struct LstmArgs {
-  const float* x;  // echo e of x (nb, ne, H, W, Cin): x + e*H*W*Cin
-  long long x_b;   // batch stride of x (elements)
-  const float* k;  // (3, 3, Cin+F, 4F)
-  const float* bias;
-  const float* h_prev;  // (nb, F, H, W), unused when !has_state
-  const float* c_prev;
-  float* h_next;   // forward outputs
-  float* c_next;   // may be null (last echo)
-  const float* dh;  // backward: dL/dh_e (nb, F, H, W)
-  const float* dc;  // backward: dL/dc_e, null at the last echo
-  float* dgates;    // backward: dL/dgates (nb, 4F, H, W)
-  float* dc_prev;   // backward: dL/dc_{e-1}, null at echo 0
-  int cin, F, H, W, fc, has_state;
-};
+constexpr int T = 16;       // pixel tile side (ops/convlstm.py: _TILE)
+constexpr int P = T + 2;    // patch side with the SAME halo
+constexpr int PS = 12;      // patch stride per pixel: 8 channels + 4 pad
+constexpr int kWarps = 8;   // warp w owns tile rows 2w, 2w+1
+constexpr int kGroups = 2;  // at most 2 x 8 hidden channels a gate block
 
 // the reference's cell activation: tf.nn.leaky_relu, slope 0.2
 __device__ __forceinline__ float leaky_relu(float v) {
@@ -59,148 +57,260 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// Channel chunking shared by the host and the kernels: at most 32 channels a
-// block, so a block has at most TH*32 threads.
-__host__ __device__ inline int chunk_width(int F) {
-  const int nfc = (F + 31) / 32;
-  return (F + nfc - 1) / nfc;
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// Shared memory a block needs for `ceff` convolved channels and chunk fc.
-inline size_t tile_smem_bytes(int ceff, int fc) {
-  const size_t patch = (size_t)((ceff + CC - 1) / CC * CC) * PH * PW;
-  return (patch + 2 * (size_t)CC * 36 * fc) * sizeof(float);
+// d += a*b on the tensor core (not volatile: the compiler may interleave
+// independent tiles' MMAs)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Stage the weights of input channels [c0, c0 + CC) for the block's channel
-// chunk into ws[cc][tap][gate][fl]; channels past `ceff` and hidden channels
-// past F are zero. Thread (j, fl) of the block's fc x TH threads copies the
-// entries of its channel fl, rows q = j, j + TH, ... of the CC*36 (channel,
-// tap, gate) rows: coalesced across fl in device memory and in shared memory.
-__device__ __forceinline__ void stage_weights(const LstmArgs& a, float* ws,
-                                              int c0, int ceff, int f, int fl,
-                                              int j) {
-  const int C = a.cin + a.F;
-  for (int q = j; q < CC * 36; q += TH) {
-    const int cc = q / 36;
-    const int tg = q - cc * 36;  // tap * 4 + gate
-    const int c = c0 + cc;
-    float* dst = ws + q * a.fc + fl;
-    if (c < ceff && f < a.F) {
-      __pipeline_memcpy_async(
-          dst, a.k + (((long long)(tg >> 2) * C + c) * 4 + (tg & 3)) * a.F + f,
-          sizeof(float));
-    } else {
-      *dst = 0.f;
-    }
+// d = a*b on the tensor core, summed from zero
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// Fragments with each f32 element split: x = hi + lo, both TF32.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(int i, float v) {
+    hi[i] = to_tf32(v);
+    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
   }
-  __pipeline_commit();
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(int i, float v) {
+    hi[i] = to_tf32(v);
+    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
+  }
+};
+
+// The A fragment of an m16 tile whose rows are the 16 pixels of patch row
+// `pr` starting at column `pc` (tap offset included), k = channels 0..7 of
+// a [pixel][PS] patch: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+__device__ __forceinline__ void load_a_patch(const float* patch, int pr,
+                                             int pc, int g, int t,
+                                             FragA& a) {
+  const float* p = patch + (pr * P + pc + g) * PS + t;
+  a.set(0, p[0]);
+  a.set(1, p[8 * PS]);
+  a.set(2, p[4]);
+  a.set(3, p[8 * PS + 4]);
 }
 
-// The tile's gate sums: acc[gate][p] for channel f = blockIdx.y*fc +
-// threadIdx.x % fc and pixel p of tile row threadIdx.x / fc. Every thread of
-// the block must call it (it synchronises the block).
-__device__ __forceinline__ void gate_sums(const LstmArgs& a,
-                                          float (&acc)[4][TW]) {
-  extern __shared__ float smem[];
-  const int tiles_x = (a.W + TW - 1) / TW;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int f0 = blockIdx.y * a.fc;
-  const int b = blockIdx.z;
-  const int ceff = a.has_state ? a.cin + a.F : a.cin;
-  const int n_stages = (ceff + CC - 1) / CC;
-  const long long hw = (long long)a.H * a.W;
-  float* patch = smem;                           // [n_stages*CC][PH][PW]
-  float* wbuf = smem + n_stages * CC * PH * PW;  // 2 x [CC][9][4][fc]
-  const int wstage = CC * 36 * a.fc;
-
-  const int row = threadIdx.x / a.fc;  // blockDim.x == fc * TH
-  const int fl = threadIdx.x % a.fc;
-  const int f = f0 + fl;
-  stage_weights(a, wbuf, 0, ceff, f, fl, row);
-  for (int i = threadIdx.x; i < n_stages * CC * PH * PW; i += blockDim.x) {
-    const int c = i / (PH * PW);
-    const int r = i - c * (PH * PW);
-    const int py = r / PW;
-    const int y = ty0 + py - 1;
-    const int xx = tx0 + (r - py * PW) - 1;
-    if (c < ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W) {
-      const float* src =
-          c < a.cin ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
-                    : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
-                          (long long)y * a.W + xx;
-      __pipeline_memcpy_async(patch + i, src, sizeof(float));
-    } else {
-      patch[i] = 0.f;  // SAME padding ring, and channels past ceff
-    }
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool valid) {
+  if (valid) {
+    __pipeline_memcpy_async(dst, src, sizeof(float));
+  } else {
+    *dst = 0.f;
   }
-  __pipeline_commit();
+}
 
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int p = 0; p < TW; ++p) acc[g][p] = 0.f;
+// four floats, both addresses 16-byte aligned
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  if (valid) {
+    __pipeline_memcpy_async(dst, src, 4 * sizeof(float));
+  } else {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
 
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) {
-      stage_weights(a, wbuf + ((s + 1) & 1) * wstage, (s + 1) * CC, ceff, f,
-                    fl, row);
+// A K loop: `n` stages of `stage` floats, loaded by load(s, buf) (cp.async,
+// one commit group each) into a ring of two buffers and consumed by
+// compute(buf); stage s + 1 is in flight while stage s is computed. Shared
+// memory: 2 * stage floats.
+template <class Load, class Compute>
+__device__ __forceinline__ void ring(float* smem, int stage, int n, Load load,
+                                     Compute compute) {
+  if (n > 0) load(0, smem);
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) {
+      load(s + 1, smem + ((s + 1) & 1) * stage);
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    const float* ws = wbuf + (s & 1) * wstage + fl;
-#pragma unroll 1
-    for (int cc = 0; cc < CC; ++cc) {
-      const float* prow = patch + ((s * CC + cc) * PH + row) * PW;
-      const float* wc = ws + cc * 36 * a.fc;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float v[PW];
-#pragma unroll
-        for (int j = 0; j < PW; ++j) v[j] = prow[dy * PW + j];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float* wp = wc + (dy * 3 + dx) * 4 * a.fc;
-          const float w0 = wp[0];
-          const float w1 = wp[a.fc];
-          const float w2 = wp[2 * a.fc];
-          const float w3 = wp[3 * a.fc];
-#pragma unroll
-          for (int p = 0; p < TW; ++p) {
-            const float xv = v[p + dx];
-            acc[0][p] = fmaf(w0, xv, acc[0][p]);
-            acc[1][p] = fmaf(w1, xv, acc[1][p]);
-            acc[2][p] = fmaf(w2, xv, acc[2][p]);
-            acc[3][p] = fmaf(w3, xv, acc[3][p]);
-          }
-        }
-      }
-    }
+    compute(smem + (s & 1) * stage);
     __syncthreads();  // this buffer is refilled two stages on
   }
 }
 
-// Launch geometry of a gate-tile kernel: (tiles, channel chunks, nb) blocks
-// of fc*TH threads, and its dynamic shared memory (raising the kernel's
-// limit above 48 KB when needed).
-template <class Kernel>
-cudaError_t launch_gate_tiles(Kernel kernel, const LstmArgs& a, int nb,
-                              cudaStream_t stream) {
-  const int nfc = (a.F + a.fc - 1) / a.fc;
-  const size_t bytes =
-      tile_smem_bytes(a.has_state ? a.cin + a.F : a.cin, a.fc);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
+// The operands of an echo's gate convolution.
+struct GateConv {
+  const float* x;  // echo e of x (nb, ne, H, W, Cin): x + e*H*W*Cin
+  long long x_b;   // batch stride of x (elements)
+  const float* k;  // (3, 3, Cin+F, 4F)
+  const float* h_prev;  // (nb, F, H, W), unused without state
+  int cin, F, H, W, has_state, gpb;  // gpb: groups of 8 channels a block
+};
+
+// column stride of the staged weights: 4 gates x 8 channels per group, plus
+// 8 so that k-rows t and t+4 fall in other banks
+__host__ __device__ inline int gates_ws(int gpb) { return gpb * 32 + 8; }
+
+__host__ __device__ inline int gates_stage(int gpb) {
+  return P * P * PS + 9 * 8 * gates_ws(gpb);
+}
+
+// groups of 8 hidden channels per gate block: at most kGroups, spread
+// evenly over the blocks
+inline int gates_gpb(int F) {
+  const int groups = (F + 7) / 8;
+  const int chunks = (groups + kGroups - 1) / kGroups;
+  return (groups + chunks - 1) / chunks;
+}
+
+// Dynamic shared memory of a gate block (two stages).
+inline size_t gates_smem_bytes(int gpb) {
+  return 2 * (size_t)gates_stage(gpb) * sizeof(float);
+}
+
+// Stage input channels [c0, c0 + 8) of the patch and their weights for the
+// block's channel groups.
+__device__ __forceinline__ void gates_load(const GateConv& a, float* buf,
+                                           int c0, int ceff, int b, int ty0,
+                                           int tx0, int j0) {
+  const int C = a.cin + a.F;
+  const long long hw = (long long)a.H * a.W;
+  float* patch = buf;
+  float* ws = buf + P * P * PS;
+  for (int i = threadIdx.x; i < 8 * P * P; i += blockDim.x) {
+    const int cc = i / (P * P);
+    const int pix = i - cc * (P * P);
+    const int py = pix / P;
+    const int y = ty0 + py - 1;
+    const int xx = tx0 + (pix - py * P) - 1;
+    const int c = c0 + cc;
+    const bool in = c < ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+    const float* src =
+        !in ? nullptr
+        : c < a.cin
+            ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
+            : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
+                  (long long)y * a.W + xx;
+    copy4(patch + pix * PS + cc, src, in);
   }
-  const int tiles = ((a.W + TW - 1) / TW) * ((a.H + TH - 1) / TH);
-  const dim3 grid(tiles, nfc, nb);
-  kernel<<<grid, a.fc * TH, bytes, stream>>>(a);
-  return cudaGetLastError();
+  const int cols = a.gpb * 32;
+  const int wstr = gates_ws(a.gpb);
+  // 4 consecutive channels f of one gate are contiguous in k; 16-byte
+  // aligned when F is a multiple of 4
+  const int vec = a.F % 4 == 0 ? 4 : 1;
+  for (int i = threadIdx.x * vec; i < 72 * cols; i += blockDim.x * vec) {
+    const int r = i / cols;  // tap * 8 + channel
+    const int n = i - r * cols;
+    const int tap = r >> 3;
+    const int c = c0 + (r & 7);
+    const int q = (n >> 3) & 3;  // gate
+    const int f = (j0 + (n >> 5)) * 8 + (n & 7);
+    const bool in = c < ceff && f < a.F;
+    const float* src =
+        in ? a.k + ((long long)tap * C + c) * 4 * a.F + q * a.F + f : nullptr;
+    if (vec == 4) {
+      copy16(ws + r * wstr + n, src, in);
+    } else {
+      copy4(ws + r * wstr + n, src, in);
+    }
+  }
+  __pipeline_commit();
+}
+
+// The block's gate sums, without the bias: acc[mi][jj][q][r] is gate q of
+// tile row ty0 + 2*warp + mi, pixel tx0 + g + 8*(r >> 1) (g = lane / 4),
+// channel 8*(j0 + jj) + 2*t + (r & 1) (t = lane % 4), for the block's
+// groups jj < ng. The block is 8 warps; every thread must call it (it
+// synchronises the block). `smem` holds gates_smem_bytes(a.gpb).
+__device__ __forceinline__ void gate_mainloop(
+    const GateConv& a, float* smem, int b, int ty0, int tx0, int j0, int ng,
+    float (&acc)[2][kGroups][4][4]) {
+  const int ceff = a.has_state ? a.cin + a.F : a.cin;
+  const int wstr = gates_ws(a.gpb);
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int jj = 0; jj < kGroups; ++jj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] = 0.f;
+
+  ring(
+      smem, gates_stage(a.gpb), (ceff + 7) / 8,
+      [&](int s, float* buf) {
+        gates_load(a, buf, 8 * s, ceff, b, ty0, tx0, j0);
+      },
+      [&](const float* patch) {
+        const float* ws = patch + P * P * PS;
+#pragma unroll 3
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+          FragA fa[2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
+          const float* wt = ws + (tap * 8 + t) * wstr + g;
+#pragma unroll
+          for (int jj = 0; jj < kGroups; ++jj) {
+            if (jj >= ng) continue;
+            FragB fb[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              fb[q].set(0, wt[(jj * 4 + q) * 8]);
+              fb[q].set(1, wt[4 * wstr + (jj * 4 + q) * 8]);
+            }
+            // this k8 step of 8 tiles, summed from zero, then rounded
+            // into the FP32 accumulators
+            float d[2][4][4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];
+          }
+        }
+      });
+}
+
+// Allow a kernel more than the default 48 KB of dynamic shared memory.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace convlstm

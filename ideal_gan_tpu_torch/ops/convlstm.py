@@ -4,9 +4,11 @@
 `convlstm_fused` is the differentiable entry point, a
 `torch.autograd.Function` that saves only (x, k_merged, bias), as the JAX
 package's custom VJP does. Its forward is `convlstm_forward`, which launches
-the hand-written kernel `csrc/convlstm_fwd.cu` once per echo for CUDA
+the hand-written kernel `csrc/convlstm_fwd.cu` (a 3xTF32 implicit GEMM on
+the tensor cores with the cell in its epilogue) once per echo for CUDA
 tensors; its backward is `convlstm_backward`, which recomputes the per-echo
-states with that kernel and runs the reverse sweep of `csrc/convlstm_bwd.cu`.
+states with that kernel and runs the reverse sweep of `csrc/convlstm_bwd.cu`
+(whose gate stage shares the forward's mainloop, `csrc/convlstm_tile.cuh`).
 CPU tensors take the plain versions, `convlstm_reference` and
 `convlstm_backward_reference`; a CUDA tensor the kernels cannot take
 raises. Layouts follow the JAX package at this boundary: x (nb, ne, H, W,
@@ -17,7 +19,9 @@ uses.
 
 The TPU kernels' block search (9 MiB VMEM budget, halo efficiency floor),
 taint fronts, dx overlap-add, routing switch and viability gate have no
-counterpart: the per-echo kernels take any H, W.
+counterpart: the per-echo kernels take any Cin and F, and any nb, H, W up
+to the launch grid's limits (at most 65535 images, and 65535 16×16 pixel
+tiles an image).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ _L = ctypes.c_longlong
 CONVLSTM_KERNEL = Kernel("convlstm_fwd", {
     "convlstm_echo_fwd": (_I, [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _P]),
-    "convlstm_smem_bytes": (_L, [_I, _I]),
+    "convlstm_smem_bytes": (_L, [_I]),
 })
 CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
     "convlstm_echo_bwd": (_I, [_P, _L] + [_P] * 10 + [_L, _P, _P]
@@ -46,8 +50,15 @@ CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
     "convlstm_bwd_smem_bytes": (_L, [_I, _I]),
 })
 _MAX_SMEM = 227 * 1024
+# the kernels' grids: 16×16 pixel tiles in y, images in z (_TILE must equal
+# T in csrc/convlstm_tile.cuh)
+_TILE = 16
+_MAX_GRID_YZ = 65535
 # the profiler range around the backward's state recompute (forward kernel)
 RECOMPUTE_RANGE = "convlstm backward state recompute"
+# `kink_masked_gradient`'s margin around leaky_relu's kink: the float32
+# versions put the values near it within ~4e-7 of float64's
+KINK_TOL = 1e-6
 
 
 def _echo_step(x_e, h_prev, c_prev, weight, bias, act, rec_act):
@@ -129,6 +140,42 @@ def convlstm_backward_reference(x, k_merged, bias, g,
     return torch.stack(dx, dim=1) if need_dx else None, dk, db
 
 
+def kink_masked_gradient(x, k_merged, bias, g, tol=KINK_TOL):
+    """g = dL/dh_final (nb, H, W, F) with zeros wherever the backward's
+    result could depend on which side of leaky_relu's kink a value within
+    `tol` of it lies. The backward takes leaky_relu's derivative (1 or 0.2)
+    at every cell c_e and g-gate pre-activation z_g,e; a float32 result
+    can put a value within its rounding of 0 on the other side than
+    float64 does, and so move dx, dk and db by up to a few % of their
+    scale. Here the recurrence runs in float64; at echo e a pixel with such
+    a value in any channel zeroes g within (ne-1-e) pixels (Chebyshev) of
+    it, its receptive field in the reverse sweep: dh_e and dc_e there are
+    then exact zeros, so the derivative taken there multiplies nothing.
+    Leaky_relu / sigmoid gates, as the kernels compute."""
+    act = get_activation("leaky_relu")
+    rec_act = get_activation("sigmoid")
+    x64 = x.double()
+    weight = k_merged.double().permute(3, 2, 0, 1)
+    b64 = bias.double()[:, None, None]
+    nb, ne, h, w, _ = x.shape
+    f = k_merged.shape[-1] // 4
+    hidden = x64.new_zeros((nb, f, h, w))
+    cell = x64.new_zeros((nb, f, h, w))
+    near_any = torch.zeros((nb, 1, h, w), dtype=torch.bool, device=x.device)
+    for e in range(ne):
+        gates = F.conv2d(torch.cat([x64[:, e].permute(0, 3, 1, 2), hidden],
+                                   dim=1), weight, padding=1) + b64
+        i, fg, gg, o = torch.split(gates, f, dim=1)
+        cell = rec_act(fg) * cell + rec_act(i) * act(gg)
+        hidden = rec_act(o) * act(cell)
+        near = ((gg.abs() < tol) | (cell.abs() < tol)).any(1, keepdim=True)
+        r = ne - 1 - e
+        if r:
+            near = F.max_pool2d(near.double(), 2 * r + 1, 1, r) > 0
+        near_any |= near
+    return g * ~near_any.permute(0, 2, 3, 1)
+
+
 def _check(x, k_merged, bias, activation, recurrent_activation):
     if x.ndim != 5:
         raise ValueError(f"convlstm kernel: x must be (nb, ne, H, W, Cin), "
@@ -158,11 +205,21 @@ def _check(x, k_merged, bias, activation, recurrent_activation):
         raise ValueError(f"convlstm kernel: computes leaky_relu / sigmoid "
                          f"gates, not {activation!r} / "
                          f"{recurrent_activation!r}")
-    smem = CONVLSTM_KERNEL.fn("convlstm_smem_bytes")(cin, f)
+    tiles = -(-h // _TILE) * -(-w // _TILE)
+    if tiles > _MAX_GRID_YZ or nb > _MAX_GRID_YZ:
+        raise ValueError(f"convlstm kernel: {nb} images of {tiles} pixel "
+                         f"tiles exceed the launch grid's {_MAX_GRID_YZ}")
+    smem = CONVLSTM_KERNEL.fn("convlstm_smem_bytes")(f)
     if smem > _MAX_SMEM:
-        raise ValueError(f"convlstm kernel: Cin+F={cin + f} needs {smem} B "
-                         f"of shared memory, more than a block has")
+        raise ValueError(f"convlstm kernel: F={f} needs {smem} B of shared "
+                         f"memory, more than a block has")
     return nb, ne, h, w, cin, f
+
+
+def _aligned(k_merged):
+    """k_merged, copied if its address is not 16-byte aligned: the kernels
+    stage its rows of 4 gates' channels 16 bytes at a time."""
+    return k_merged.clone() if k_merged.data_ptr() % 16 else k_merged
 
 
 def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
@@ -177,6 +234,7 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
                                   recurrent_activation)
     nb, ne, h, w, cin, f = _check(x, k_merged, bias, activation,
                                   recurrent_activation)
+    k_merged = _aligned(k_merged)
     # ping-pong state, separate buffers so the returned hidden state keeps
     # only its own alive
     h_buf, c_buf = [[torch.empty((nb, f, h, w), dtype=torch.float32,
@@ -228,32 +286,49 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
     if smem > _MAX_SMEM:
         raise ValueError(f"convlstm backward: Cin+F={cin + f} needs {smem} B "
                          f"of shared memory, more than a block has")
-    if k_merged.data_ptr() % 16:  # the sweep copies k in 16-byte pieces
-        k_merged = k_merged.clone()
+    k_merged = _aligned(k_merged)
+    # the per-echo states the reverse sweep linearises around
+    with torch.profiler.record_function(RECOMPUTE_RANGE):
+        hs, cs = _kernel_states(x, k_merged, bias, ne - 1)
+    return _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx)
+
+
+def _kernel_states(x, k_merged, bias, n_echoes):
+    """The forward kernel's h_e, c_e for e < n_echoes, as two (max(n_echoes,
+    1), nb, F, H, W) stacks. The caller has checked x, k_merged (16-byte
+    aligned) and bias."""
+    nb, ne, h, w, cin = x.shape
+    f = k_merged.shape[3] // 4
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    echo_stride = h * w * cin
+    hs = torch.empty((max(n_echoes, 1), nb, f, h, w), dtype=torch.float32,
+                     device=dev)
+    cs = torch.empty_like(hs)
+    fwd = CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
+    for e in range(n_echoes):
+        rc = fwd(x.data_ptr() + 4 * e * echo_stride, ne * echo_stride,
+                 k_merged.data_ptr(), bias.data_ptr(),
+                 hs[e - 1].data_ptr() if e else None,
+                 cs[e - 1].data_ptr() if e else None,
+                 hs[e].data_ptr(), cs[e].data_ptr(), nb, cin, f, h, w,
+                 int(e > 0), dev.index, stream)
+        CONVLSTM_KERNEL.launches += 1
+        check_launch(CONVLSTM_KERNEL, rc)
+    return hs, cs
+
+
+def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
+    """The reverse sweep of `csrc/convlstm_bwd.cu` around the state stacks
+    hs, cs (echoes 0 .. ne-2, (≥1, nb, F, H, W) float32): (dx or None, dk,
+    db). The caller has checked every argument."""
+    nb, ne, h, w, cin = x.shape
+    f = k_merged.shape[3] // 4
     dev = x.device
     c = cin + f
     stream = torch.cuda.current_stream(dev).cuda_stream
     echo_stride = h * w * cin
     x_b = ne * echo_stride
-
-    def x_at(e):
-        return x.data_ptr() + 4 * e * echo_stride
-
-    # the per-echo states the reverse sweep linearises around
-    hs = torch.empty((max(ne - 1, 1), nb, f, h, w), dtype=torch.float32,
-                     device=dev)
-    cs = torch.empty_like(hs)
-    fwd = CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
-    with torch.profiler.record_function(RECOMPUTE_RANGE):
-        for e in range(ne - 1):
-            rc = fwd(x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
-                     hs[e - 1].data_ptr() if e else None,
-                     cs[e - 1].data_ptr() if e else None,
-                     hs[e].data_ptr(), cs[e].data_ptr(), nb, cin, f, h, w,
-                     int(e > 0), dev.index, stream)
-            CONVLSTM_KERNEL.launches += 1
-            check_launch(CONVLSTM_KERNEL, rc)
-
     dgates = torch.empty((nb, h, w, 4 * f), dtype=torch.float32, device=dev)
     dh_in = g.contiguous()
     dh_bufs = [torch.empty_like(dh_in) for _ in range(2)]
@@ -269,7 +344,8 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
         has_state = e > 0
         dh_out, dc_out = dh_bufs[e % 2], dc_bufs[e % 2]
         rc = step(
-            x_at(e), x_b, k_merged.data_ptr(), bias.data_ptr(),
+            x.data_ptr() + 4 * e * echo_stride, x_b, k_merged.data_ptr(),
+            bias.data_ptr(),
             hs[e - 1].data_ptr() if has_state else None,
             cs[e - 1].data_ptr() if has_state else None,
             dh_in.data_ptr(), None if dc_in is None else dc_in.data_ptr(),

@@ -13,8 +13,9 @@ tolerance), 2e-5 + 2e-4·|plain| for the cycle's uniform-TE recurrence,
 1e-3 / atol 5e-4 for its kernel (voxels on the fit's thresholds, and
 ill-conditioned eigenvectors, move under another summation order), with
 at most 0.1 % of the elements beyond 1e-5 + 1e-4·|plain|; bf16 ρ stores to 2^-8 relative; the ConvLSTM
-forward to 1e-4 of the output scale (f32 sums over K = 9·(Cin+F) in another
-order than cuDNN's, carried through the recurrence) and its backward's dx,
+forward to 1e-4 of the output scale of the plain version in float32 and in
+float64 (3xTF32 sums over K = 9·(Cin+F) in another order than cuDNN's,
+carried through the recurrence) and its backward's dx,
 dk and db each to 1e-4 of the plain version's max |·| (sums over all pixels
 of the batch, in another order); the gradients of the physics Functions to
 rtol 1e-3 / atol 1e-5 (the JAX package's gradient tolerance, since the
@@ -149,28 +150,114 @@ def test_fit_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,f,ne", [(1, 6, 3), (2, 8, 6), (2, 36, 6),
-                                      (1, 36, 6), (2, 72, 2), (2, 72, 6)])
-def test_convlstm_kernel_matches_plain(cuda, cin, f, ne):
-    x, k, b = _lstm_case(ne=ne, cin=cin, f=f, seed=cin + f, device=cuda)
+@pytest.mark.parametrize("cin,f,ne,nb,h,w", [
+    (1, 6, 3, 2, 20, 36), (2, 8, 6, 2, 20, 36), (2, 36, 6, 2, 20, 36),
+    (1, 36, 6, 2, 20, 36), (2, 72, 2, 2, 20, 36), (2, 72, 6, 2, 20, 36),
+    # ne 1; H and W not multiples of the 16-pixel tile; nb 1; C = Cin+F
+    # not a multiple of 8 and F not of 8 (padded octets) or of 4
+    (2, 36, 1, 2, 20, 36), (2, 36, 6, 2, 37, 53), (2, 36, 3, 1, 33, 17),
+    (1, 4, 4, 2, 11, 19), (3, 6, 3, 1, 15, 23), (2, 72, 6, 1, 37, 53),
+    # Cin+F = 408: the shared memory no longer grows with C
+    (400, 8, 2, 1, 8, 8)])
+def test_convlstm_kernel_matches_plain(cuda, cin, f, ne, nb, h, w):
+    """The 3xTF32 kernel against the plain version in float32 and in
+    float64, each to 1e-4 of its output scale."""
+    x, k, b = _lstm_case(nb=nb, ne=ne, h=h, w=w, cin=cin, f=f, seed=cin + f,
+                         device=cuda)
     n0 = ops.CONVLSTM_KERNEL.launches
     got = ops.convlstm_forward(x, k, b)
     assert ops.CONVLSTM_KERNEL.launches == n0 + ne
+    assert tuple(got.shape) == (nb, h, w, f)
     ref = ops.convlstm_reference(x, k, b)
+    ref64 = ops.convlstm_reference(x.double(), k.double(), b.double())
     torch.cuda.synchronize()
     scale = max(float(ref.abs().max()), 1.0)
     assert float((got - ref).abs().max()) <= 1e-4 * scale
+    err64 = float((got.double() - ref64).abs().max())
+    assert err64 <= 1e-4 * float(ref64.abs().max()), err64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,f", [(2, 36), (1, 36), (2, 72)])
+def test_convlstm_kernel_is_deterministic(cuda, cin, f):
+    """Two launches on the same inputs give a bit-identical hidden state:
+    each output is one thread's fixed sequence of k8 steps, no atomics."""
+    x, k, b = _lstm_case(nb=2, ne=4, h=40, w=52, cin=cin, f=f, device=cuda)
+    first = ops.convlstm_forward(x, k, b)
+    assert torch.equal(first, ops.convlstm_forward(x, k, b))
 
 
 @pytest.mark.cuda
 def test_convlstm_kernel_rejects_what_it_cannot_take(cuda):
+    """A CUDA tensor the kernel cannot take raises, with no launch counted:
+    a wrong dtype, kernel shape or activation, and 65536 images, more than
+    the launch grid's 65535 (the kernel's limit now that a block needs
+    72,576 B of shared memory at any Cin+F)."""
     x, k, b = _lstm_case(f=8, device=cuda)
+    before = {kn.name: kn.launches for kn in ops.KERNELS}
     with pytest.raises(TypeError):
         ops.convlstm_forward(x.double(), k, b)
     with pytest.raises(ValueError):
         ops.convlstm_forward(x, k[:, :, :-1], b)
     with pytest.raises(ValueError):
         ops.convlstm_forward(x, k, b, activation="gelu")
+    x, k, b = _lstm_case(nb=65536, ne=2, h=1, w=1, f=8, device=cuda)
+    with pytest.raises(ValueError, match="grid"):
+        ops.convlstm_forward(x, k, b)
+    assert {kn.name: kn.launches for kn in ops.KERNELS} == before
+
+
+def test_kink_masked_gradient_leaves_no_gradient_at_the_kink():
+    """`ops.kink_masked_gradient` zeroes g so that the gradient reaching
+    every cell c_e and g-gate pre-activation z_g,e within `tol` of
+    leaky_relu's kink is exactly 0 (so the derivative taken there cannot
+    matter), and leaves g as it is elsewhere."""
+    import torch.nn.functional as F
+    x, k, b = _lstm_case(nb=2, ne=4, h=20, w=24, cin=2, f=6, seed=3)
+    x, k, b = x.double(), k.double(), b.double()
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 20, 24, 6)))
+    tol = 1e-4
+    gm = ops.kink_masked_gradient(x, k, b, g, tol)
+    zeroed = (gm == 0).all(-1)
+    assert 0.05 < float(zeroed.double().mean()) < 0.95
+    assert torch.equal(gm[~zeroed], g[~zeroed])
+    # the recurrence with the cells and g-gates kept for their gradients
+    f = 6
+    w = k.permute(3, 2, 0, 1).requires_grad_()
+    hid = x.new_zeros((2, f, 20, 24))
+    cell = x.new_zeros((2, f, 20, 24))
+    kept = []
+    for e in range(4):
+        z = F.conv2d(torch.cat([x[:, e].permute(0, 3, 1, 2), hid], 1), w,
+                     padding=1) + b[:, None, None]
+        i, fg, gg, o = torch.split(z, f, 1)
+        gg.retain_grad()
+        cell = torch.sigmoid(fg) * cell \
+            + torch.sigmoid(i) * F.leaky_relu(gg, 0.2)
+        cell.retain_grad()
+        hid = torch.sigmoid(o) * F.leaky_relu(cell, 0.2)
+        kept += [gg, cell]
+    hid.backward(gm.permute(0, 3, 1, 2))
+    near = [(v.abs() < tol) for v in kept]
+    assert sum(int(n.sum()) for n in near) > 0
+    for v, n in zip(kept, near):
+        assert not bool(v.grad[n].any())
+    assert float(kept[-1].grad.abs().max()) > 0.0
+
+
+def test_convlstm_ablation_reports_edits_that_no_longer_apply():
+    """`cli.ablate_convlstm` makes a variant's edits, or reports the variant
+    as stale when the text it edits is not in the source (checked here,
+    where nothing is built)."""
+    from ideal_gan_tpu_torch.cli import ablate_convlstm
+    text = "a = 1;\nb = 2;\n"
+    assert ablate_convlstm._edit(text, ()) == text
+    assert ablate_convlstm._edit(text, (("a = 1", "a = 3"),
+                                        ("b = 2", "b = 4"))) \
+        == "a = 3;\nb = 4;\n"
+    assert ablate_convlstm._edit(text, (("a = 1", "a = 3"),
+                                        ("c = 5", ""))) is None
 
 
 def _cycle_case(ne=6, uniform=True, h=24, w=40, seed=0, device="cpu"):
@@ -260,7 +347,9 @@ def _bwd_grad(shape, seed, device):
     # tile, ne 1 and 2
     (1, 4, 2, 11, 19, False), (3, 6, 1, 15, 23, False),
     (3, 6, 4, 17, 35, True), (2, 72, 1, 19, 17, False),
-    (1, 36, 6, 33, 31, False)])
+    (1, 36, 6, 33, 31, False),
+    # large C = Cin+F: 408, and 156 (five channel octets short of 160)
+    (400, 8, 2, 8, 8, False), (120, 36, 3, 13, 21, False)])
 def test_convlstm_bwd_kernel_matches_plain(cuda, cin, f, ne, h, w,
                                            zero_region):
     """dx, dk, db of the 3xTF32 tensor-core sweep against the plain version
@@ -304,13 +393,16 @@ def test_convlstm_bwd_kernel_is_deterministic(cuda, cin, f, need_dx):
 @pytest.mark.cuda
 def test_convlstm_bwd_kernel_rejects_what_it_cannot_take(cuda):
     """A CUDA tensor the kernels cannot take raises; nothing falls back to
-    the plain version (no launch is counted). Cin+F = 408 needs more shared
-    memory than a block has (the state recompute's input patch)."""
-    x, k, b = _lstm_case(nb=1, ne=2, h=8, w=8, cin=400, f=8, device=cuda)
-    g = _bwd_grad((1, 8, 8, 8), 0, cuda)
+    the plain version (no launch is counted). 65536 images exceed the
+    launch grid's 65535: the limit now that no block's shared memory grows
+    with Cin+F (at most 190,208 B, stage (c); the state recompute's 72,576
+    B), so Cin+F = 408, which used to raise, is taken."""
+    x, k, b = _lstm_case(nb=65536, ne=2, h=1, w=1, cin=2, f=8, device=cuda)
+    g = _bwd_grad((65536, 1, 1, 8), 0, cuda)
     before = {kn.name: kn.launches for kn in ops.KERNELS}
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="grid"):
         ops.convlstm_backward(x, k, b, g)
+    g = _bwd_grad((1, 8, 8, 8), 0, cuda)
     x, k, b = _lstm_case(nb=1, ne=2, h=8, w=8, cin=2, f=8, device=cuda)
     with pytest.raises(TypeError):
         ops.convlstm_backward(x.double(), k, b, g)

@@ -134,6 +134,19 @@ def test_convlstm_forward_matches_pallas(cin, f, ne):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("cin,f,ne", [(1, 6, 1), (3, 6, 3)])
+def test_convlstm_forward_matches_pallas_odd_channels(cin, f, ne):
+    """The plain version (what `convlstm_forward` takes for CPU tensors)
+    against the Pallas kernel at the shapes the CUDA kernel pads: C =
+    Cin+F not a multiple of 8 and F not a multiple of 4, at ne 1 (no state
+    ever) and 3. The card tests hold the kernel itself at such shapes."""
+    x, k, b = _lstm_inputs(ne=ne, cin=cin, f=f, seed=cin * 10 + ne)
+    got = ops.convlstm_forward(*map(torch.from_numpy, (x, k, b)))
+    ref = jpc.convlstm_pallas(*map(jnp.asarray, (x, k, b)), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_convlstm_reference_tanh_cell():
     x, k, b = _lstm_inputs(seed=5)
     got = ops.convlstm_reference(*map(torch.from_numpy, (x, k, b)),

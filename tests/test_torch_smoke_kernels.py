@@ -54,9 +54,12 @@ def test_physics_kernel_entries_rehearse_on_cpu(chip_smoke):
 
 
 def test_convlstm_kernel_entries_rehearse_on_cpu(chip_smoke):
-    """The ConvLSTM forward and backward entries: the backward's float64
-    gate, its pair gate on random inputs, its determinism check, and its
-    recompute / sweep split and HMMA count (None here: no card, no build)."""
+    """The ConvLSTM forward and backward entries: the forward's float64
+    distance, determinism check and 3xTF32 / FP32 bounds; the backward's
+    float64 gate, its pair gates on random inputs (the kink-masked first
+    pair against float64 among them), its determinism check, and
+    its recompute / sweep split; the HMMA counts of both (None here: no
+    card, no build)."""
     cpu = torch.device("cpu")
     lstm = chip_smoke.convlstm_entry(cpu, size=16, shapes=SHAPES)
     bwd = chip_smoke.convlstm_bwd_entry(cpu, size=12, shapes=SHAPES)
@@ -68,6 +71,19 @@ def test_convlstm_kernel_entries_rehearse_on_cpu(chip_smoke):
     for entry in (lstm, bwd):
         assert entry["wide"]["F"] == 8 and entry["wide"]["cin"] == 2
     assert lstm["max_abs_err"] == 0.0  # plain vs plain here
+    # the forward against float64: here the plain f32 version's distance
+    assert lstm["hmma"] is None and lstm["device_ms"] is None
+    assert lstm["deterministic"] is True
+    for c in lstm["cases"]:
+        assert c["deterministic"] and c["device_ms"] is None
+        assert 0.0 < c["max_abs_err_vs_f64"] < 1e-5 * c["f64_max_abs"]
+        assert c["max_abs_err_vs_f64"] == c["plain_f32_vs_f64"]
+        # 3xTF32 on the tensor cores: 495/3 TFLOP/s against FP32's 67
+        assert c["bound_by"] == "operations"
+        assert c["bound_ms"] == pytest.approx(c["bound_fp32_ms"] * 67 / 165)
+        assert c["cudnn_one_echo_gate_conv_tf32_ms_partial"] > 0.0
+    assert lstm["max_abs_err_vs_f64"] == max(
+        c["max_abs_err_vs_f64"] for c in lstm["cases"])
     # the backward is held to the plain version in float64 too
     assert bwd["max_abs_err"] < 1e-5
     assert all(c[n]["max_abs_err"] == 0.0 for c in bwd["cases"]
@@ -84,6 +100,8 @@ def test_convlstm_kernel_entries_rehearse_on_cpu(chip_smoke):
         assert c["sweep"]["bound_ms"] == pytest.approx(
             c["sweep"]["bound_fp32_ms"] * 67 / 165)
         assert c["bound_ms"] == c["sweep"]["bound_ms"]
+        assert c["recompute"]["bound_ms"] == pytest.approx(
+            c["recompute"]["bound_fp32_ms"] * 67 / 165)
         assert c["recompute"]["bound_ms"] > 0.0
     assert bwd["wide"]["sweep"] == random[-1]["sweep"]
     # random inputs: the launch against its launches on pairs of samples
@@ -92,6 +110,15 @@ def test_convlstm_kernel_entries_rehearse_on_cpu(chip_smoke):
              if c["inputs"] == "random" for n in ("dx", "dk", "db")]
     assert len(pairs) == 12
     assert all(p["vs_pairs"] <= 1e-6 * p["scale"] for p in pairs)
+    # the first pair against float64, g zeroed around the kink (plain vs
+    # plain here)
+    for c in random:
+        assert 0.0 <= c["kink_masked_share"] < 1.0
+        for n in ("dx", "dk", "db"):
+            assert c[n]["kink_masked_vs_f64"] \
+                == c[n]["kink_masked_plain_f32_vs_f64"]
+            assert c[n]["kink_masked_vs_f64"] \
+                < 1e-5 * c[n]["kink_masked_scale"]
 
 
 def test_hmma_count_reads_cuobjdump(chip_smoke, monkeypatch, tmp_path):

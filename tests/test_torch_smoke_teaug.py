@@ -38,6 +38,11 @@ def test_teaug_phase_rehearses_on_cpu(chip_smoke, tmp_path):
     # the float64 witness: the same step on both sides here, f32 rounding
     vs64 = teaug["parity"]["vs_cpu_float64"]
     assert vs64["card"] == vs64["cpu"] and 0.0 < vs64["cpu"] < 1e-3
+    assert vs64["card_plain_convlstm"] == vs64["cpu"]
+    # the plain ConvLSTM's output perturbed by 1e-7 of its scale, 4 seeds
+    assert len(vs64["card_plain_convlstm_perturbed_1e_7"]) == 4
+    assert all(0.0 < v < 1e-3
+               for v in vs64["card_plain_convlstm_perturbed_1e_7"])
     assert teaug["parity"]["first_gradient_over_1e_2"] is None
     assert teaug["parity"]["relu_flips"] == {}
     assert teaug["parity"]["relu_outputs"] > 0
