@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's AI-DEAL training, TE-augmentation training,
-AI-DEAL serving, magnitude training and Mag serving paths on one NVIDIA
-card.
+AI-DEAL serving, magnitude training, Mag serving and VET-Net serving paths
+on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -101,12 +101,26 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             (fails unless the magnitude fit and ConvLSTM forward kernels
             ran once a chunk), and its first slices on the card (TF32 off)
             and on the CPU, maps compared.
+8. vetnet_serve
+            `ideal_gan_tpu_torch.cli.train_teaug.main` for one epoch (F=72,
+            16 synthetic 384² slices, batch 8: 2 steps), then
+            `ideal_gan_tpu_torch.cli.infer.main --model_sel VET-Net
+            --experiment_dir` on that run at batch 8, with every launch
+            counter set to 0 just before and read just after the serving
+            call; fails unless the ConvLSTM forward ran once an echo of
+            every chunk (18 launches), the checkpoint restored is the one
+            of step 2, and its maps differ from those of the seeded initial
+            weights. Then the first 2 slices on the card (TF32 off), on the
+            CPU, on the card with the plain ConvLSTM, and on the CPU with
+            the net in float64 (see `vetnet_serve_phase`): the net's (φ,
+            R2*) held to the CPU's, and the phase-constrained fit on the
+            card's (φ, R2*) held to the CPU's fit of them.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` summary (launches from the path that runs each kernel:
 the train phase for the cycle and the ConvLSTM backward, teaug for the
 synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
-the magnitude fit) and `{"ok": true,
+the magnitude fit; vetnet_serve prints its own) and `{"ok": true,
 "device": {...}}`.
 """
 
@@ -1366,7 +1380,8 @@ def e2e_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     with np.load(out_dir / "infer" / "maps_pred.npz") as npz:
         slices_per_s = float(npz["slices_per_s"])
 
-    cfg = dict(infer.DEFAULTS, seed=0, synthetic=n, data_size=size)
+    cfg = dict(infer.DEFAULTS, model_sel="AI-DEAL", seed=0, synthetic=n,
+               data_size=size)
     acqs, _, te = load_cohorts(cfg)
     a, t = acqs[:batch], te[:batch]
     set_tf32(False)
@@ -1656,6 +1671,176 @@ def check_mag(mag: dict) -> None:
         raise AssertionError(f"card and CPU Mag maps disagree: {serve}")
 
 
+def vetnet_serve_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+                       batch: int = NB_SERVE, f: int = F_TEAUG,
+                       compared: int = 2) -> dict:
+    """VET-Net trained on the card for one epoch by the TE-augmentation CLI,
+    then served from its experiment directory by the serving CLI with the
+    launch counters read around the serving call; the step of the
+    checkpoint it restored; its first `compared` slices served again on
+    the card and on the CPU (TF32 off), and, as witnesses, on the card with
+    the plain ConvLSTM and on the CPU with the net in float64 (the fit
+    stays float32); the phase-constrained fit of the card's (φ, R2*) on
+    the CPU, against the card's fit of them; and the served maps' distance
+    from those of the seeded initial weights at the experiment's settings
+    (its `settings.json` without its checkpoints), which shows the
+    checkpoint was read."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch.cli import infer, roi_analysis, train_teaug
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import teaug
+
+    argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+            str(batch), "--epochs", "1", "--n_G_filters", str(f), "--seed",
+            "0", "--device", str(dev), "--output_base", str(out_dir / "t")]
+    t0 = time.perf_counter()
+    steps_trained = train_teaug.main(argv)["state"].step
+    train_s = time.perf_counter() - t0
+    exp = out_dir / "t" / teaug.DEFAULTS["dataset"]
+    argv = ["--model_sel", "VET-Net", "--experiment_dir", str(exp),
+            "--synthetic", str(n), "--data_size", str(size), "--infer_batch",
+            str(batch), "--export", "npz", "--seed", "0", "--device",
+            str(dev), "--output_base", str(out_dir / "s")]
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    maps = infer.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    if maps.shape != (n, 3, size, size, 2) or not np.isfinite(maps).all():
+        raise AssertionError(f"VET-Net maps shape {maps.shape} or not finite")
+    with np.load(out_dir / "s" / "infer" / "maps_pred.npz") as npz:
+        slices_per_s = float(npz["slices_per_s"])
+
+    cfg = dict(infer.DEFAULTS, experiment_dir=str(exp), seed=0, synthetic=n,
+               data_size=size)
+    step = roi_analysis.restore_checkpoint(cfg)["step"]
+    acqs, _, te = load_cohorts(cfg)
+    a, t = acqs[:compared], te[:compared]
+
+    def serve(c, where):
+        return roi_analysis._per_slice(roi_analysis.make_infer_run(c, a,
+                                                                   where),
+                                       a, t, compared, where)[0]
+
+    set_tf32(False)
+    dev_maps = serve(cfg, dev)
+    t_cpu = time.perf_counter()
+    cpu_maps = serve(cfg, "cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    with plain_convlstm():
+        plain_maps = serve(cfg, dev)
+    net64 = roi_analysis.load_vetnet(cfg, "cpu")[0].double()
+    with torch.inference_mode():
+        f64_maps = roi_analysis.vetnet_maps(
+            net64, torch.from_numpy(a), torch.from_numpy(t),
+            cfg["field"])[0].numpy()
+        # the fit alone on the CPU, from the card's (φ, R2*)
+        cpu_fit = physics.fit_rho(
+            torch.from_numpy(a), torch.from_numpy(dev_maps[:, 2:3]),
+            torch.from_numpy(t), field=cfg["field"],
+            phase_constraint=True).numpy()
+    seeded = out_dir / "seeded"
+    seeded.mkdir()
+    shutil.copy(exp / "settings.json", seeded)
+    seeded_maps = serve(dict(cfg, experiment_dir=str(seeded)), dev)
+
+    # PDFF = |F|/|W+F| is ill-conditioned where the fitted water and fat
+    # cancel: compared where |W+F| > 0.2, as the AI-DEAL serving phase.
+    # The shared phase is ill-conditioned where its sum is ≈ 0: ρ there is
+    # reported apart
+    def masks(maps):
+        w_f = maps[:, 0] + maps[:, 1]
+        sums = phase_sum(a, maps[:, 2:3], t, cfg["field"])
+        return (np.abs(w_f[..., 0] + 1j * w_f[..., 1]) > 0.2,
+                sums > 1e-3 * sums.max())
+
+    def dist(x, y, stable, phase_ok):
+        d_rho = np.abs(x[:, :2] - y[:, :2]).max(axis=(1, 4))
+        d_pdff = np.abs(infer.maps_to_display(x)[0]
+                        - infer.maps_to_display(y)[0])
+        return dict(pm=float(np.abs(x[:, 2] - y[:, 2]).max()),
+                    rho=float(d_rho.max()),
+                    rho_phase_well_posed=float(d_rho[phase_ok].max()),
+                    pdff=float(d_pdff[stable].max()),
+                    pdff_phase_well_posed=float(
+                        d_pdff[stable & phase_ok].max()))
+
+    stable, phase_ok = masks(f64_maps)
+    fit_only = dist(dev_maps, np.concatenate([cpu_fit, dev_maps[:, 2:3]], 1),
+                    *masks(dev_maps))
+    return dict(launches=launches, chunks=-(-n // batch),
+                steps_trained=steps_trained, checkpoint_step=step,
+                train_s=train_s, slices_per_s=slices_per_s,
+                ms_per_slice=1e3 / slices_per_s, wall_s=wall,
+                compared_slices=compared, cpu_s=cpu_s,
+                pdff_compared_share=float(stable.mean()),
+                phase_well_posed_share=float(phase_ok.mean()),
+                vs_cpu=dist(dev_maps, cpu_maps, stable, phase_ok),
+                fit_on_card_maps_vs_cpu=fit_only,
+                vs_cpu_float64={
+                    name: dist(m, f64_maps, stable, phase_ok)
+                    for name, m in (("card", dev_maps), ("cpu", cpu_maps),
+                                    ("card_plain_convlstm", plain_maps))},
+                maps_max_abs_diff_vs_seeded_init=float(
+                    np.abs(dev_maps - seeded_maps).max()),
+                serving_tf32_maps_max_abs_diff_vs_cpu=float(
+                    np.abs(maps[:compared] - cpu_maps).max()))
+
+
+def phase_sum(a, pm, te, field: float = 1.5):
+    """|Σ_s ρ_s·(H⁺ρ)_s| per voxel (nb, H, W), the sum whose angle the
+    phase-constrained fit takes as twice the shared phase, from the
+    unconstrained LS ρ of the acquisitions `a` at the maps `pm`. Where it
+    is ≈ 0 the phase is ill-conditioned, and any two float32 versions of
+    the fit can differ by up to |ρ| there."""
+    import torch
+    from ideal_gan_tpu_torch import physics
+    from ideal_gan_tpu_torch.physics import matrix as mx
+
+    a, pm, te = (torch.as_tensor(x) for x in (a, pm, te))
+    rho = physics.fit_rho(a, pm, te, field=field)
+    c = torch.complex(rho[..., 0], rho[..., 1]).flatten(2)
+    m = mx.model_matrix(te, field)
+    h = mx.phase_constraint_matrix(m, mx.pinv_normal(m))
+    return (c * (h @ c)).sum(1).abs().reshape(rho.shape[:1]
+                                              + rho.shape[2:4]).numpy()
+
+
+def check_vetnet_serve(vet: dict) -> None:
+    """The vetnet_serve phase's gates: the ConvLSTM forward launched once
+    an echo of every served chunk (the warm-up chunk included); the
+    checkpoint of the training run's last step restored and read; the
+    net's (φ, R2*) on the card against the CPU at the AI-DEAL serving gate
+    (5e-3); and the plain phase-constrained fit on the card against the
+    CPU on the card's (φ, R2*): ρ where the shared phase is well posed,
+    PDFF there and where |W+F| > 0.2, each ≤ 5e-3.
+
+    The served ρ and PDFF are reported, not gated: the fit turns the
+    net's (φ, R2*) difference into up to ~15–22× that in ρ, and PDFF ~5×
+    more, so float32 residue alone takes them past 5e-3 (the CPU's own
+    float32 run lies that far from its float64 witness; PERF.md §6)."""
+    need = (vet["chunks"] + 1) * NE
+    if vet["launches"]["convlstm_fwd"] < need:
+        raise AssertionError(f"VET-Net serving skipped the ConvLSTM forward "
+                             f"kernel ({need} launches needed): "
+                             f"{vet['launches']}")
+    if vet["checkpoint_step"] != vet["steps_trained"] \
+            or not vet["maps_max_abs_diff_vs_seeded_init"] > 0:
+        raise AssertionError(f"VET-Net serving did not read the trained "
+                             f"checkpoint: step {vet['checkpoint_step']}, "
+                             f"distance from the seeded init "
+                             f"{vet['maps_max_abs_diff_vs_seeded_init']}")
+    fit = vet["fit_on_card_maps_vs_cpu"]
+    if vet["vs_cpu"]["pm"] > 5e-3 or fit["rho_phase_well_posed"] > 5e-3 \
+            or fit["pdff_phase_well_posed"] > 5e-3:
+        raise AssertionError(f"card and CPU VET-Net maps disagree: {vet}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1743,6 +1928,11 @@ def main() -> int:
         mag = mag_phase(dev, Path(tmp))
     emit("mag", card=smi, **mag)
     check_mag(mag)
+    set_tf32(True)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        vet = vetnet_serve_phase(dev, Path(tmp))
+    emit("vetnet_serve", card=smi, **vet)
+    check_vetnet_serve(vet)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag}

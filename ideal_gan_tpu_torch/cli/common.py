@@ -1,14 +1,15 @@
 """Shared CLI machinery of the port: flag parsing (argparse, settings written
-as JSON), device resolution and the synthetic cohort.
+as JSON and read back), device resolution, and the cohorts: the HDF5 files
+of `--dataset_dir` or `--synthetic N` slices.
 
-Counterpart of `ideal_gan_tpu/cli/common.py`. HDF5 cohorts are not ported
-yet: `load_cohorts` serves `--synthetic N` only.
+Counterpart of `ideal_gan_tpu/cli/common.py`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -44,14 +45,20 @@ def setup_experiment(defaults: dict, argv=None,
                      settings_name: str = "settings.json") -> dict:
     """Parse flags over the shared base settings, create
     <output_base>/<dataset>/ and write the settings there as JSON."""
-    base = {"data_size": 192, "synthetic": 0, "output_base": "output",
-            "device": "cuda", "seed": 0}
+    base = {"data_size": 192, "synthetic": 0, "dataset_dir": "../datasets/",
+            "output_base": "output", "device": "cuda", "seed": 0}
     cfg = parse_flags({**base, **defaults}, argv)
     out_dir = Path(cfg["output_base"]) / cfg["dataset"]
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / settings_name).write_text(json.dumps(cfg, indent=1))
     cfg["output_dir"] = str(out_dir)
     return cfg
+
+
+def load_settings(experiment_dir) -> dict:
+    """The settings a past run wrote into `experiment_dir`
+    (`settings.json`); FileNotFoundError where there are none."""
+    return json.loads((Path(experiment_dir) / "settings.json").read_text())
 
 
 def resolve_device(device) -> torch.device:
@@ -104,13 +111,38 @@ def synthetic_dataset(n: int, h: int = 192, w: int = 192, ne: int = 6,
     return acqs.numpy(), maps, te.numpy()
 
 
-def load_cohorts(cfg):
-    """The cohort for `cfg`: `--synthetic N` slices of `--data_size`²."""
-    if not cfg.get("synthetic", 0):
-        raise SystemExit("HDF5 cohorts are not ported yet (ROADMAP Queue 1); "
-                         "use --synthetic N")
-    return synthetic_dataset(int(cfg["synthetic"]),
-                             h=cfg.get("data_size", 192),
-                             w=cfg.get("data_size", 192),
-                             ne=cfg.get("n_echoes", 6),
-                             field=cfg.get("field", 1.5))
+COHORTS = ("INTArest", "Volunteers", "Attilio")
+
+
+def load_cohorts(cfg, mebcrn: bool = True, mag_and_phase: bool = False):
+    """The cohort for `cfg` as numpy (acqs, maps, te): `--synthetic N`
+    slices of `--data_size`², or else the HDF5 cohorts
+    `<dataset_dir>/<name>_GC_<data_size>_complex_2D.hdf5` that exist, in
+    the order of `COHORTS`, concatenated (FileNotFoundError if none does).
+    Every HDF5 slice gets the 1.5 T TE train, as the JAX package gives it
+    whatever `--field` says."""
+    if cfg.get("synthetic", 0):
+        return synthetic_dataset(int(cfg["synthetic"]),
+                                 h=cfg.get("data_size", 192),
+                                 w=cfg.get("data_size", 192),
+                                 ne=cfg.get("n_echoes", 6),
+                                 field=cfg.get("field", 1.5))
+    from ..data import load_hdf5
+    ne = cfg.get("n_echoes", 6)
+    acqs_list, maps_list = [], []
+    for name in COHORTS:
+        path = os.path.join(cfg["dataset_dir"],
+                            f"{name}_GC_{cfg.get('data_size', 192)}"
+                            "_complex_2D.hdf5")
+        if not os.path.exists(path):
+            continue
+        d = load_hdf5(path, ech_idx=2 * ne, mebcrn=mebcrn,
+                      mag_and_phase=mag_and_phase)
+        acqs_list.append(d.acqs)
+        maps_list.append(d.maps)
+    if not acqs_list:
+        raise FileNotFoundError(
+            f"no cohorts found under {cfg['dataset_dir']}; use --synthetic N")
+    acqs = np.concatenate(acqs_list)
+    te = physics.te_train(ne, bs=len(acqs)).numpy()
+    return acqs, np.concatenate(maps_list), te

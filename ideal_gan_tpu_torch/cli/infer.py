@@ -1,18 +1,28 @@
 """CLI: bulk inference on the card — cohort in, quantitative maps out (port of
-`ideal_gan_tpu/cli/infer.py`, AI-DEAL and Mag, npz export).
+`ideal_gan_tpu/cli/infer.py`, VET-Net, AI-DEAL and Mag, npz export).
 
-    python -m ideal_gan_tpu_torch.cli.infer --model_sel AI-DEAL \\
-        --synthetic 16 --data_size 384 --infer_batch 8 --export npz \\
-        --seed 0 --output_base output [--weights flax_params.npz] \\
-        [--device cuda]
+    python -m ideal_gan_tpu_torch.cli.infer [--model_sel VET-Net] \\
+        [--experiment_dir output/TEaug-300] [--synthetic 16] \\
+        [--dataset_dir ../datasets/] --data_size 384 --infer_batch 8 \\
+        --export npz --seed 0 --output_base output \\
+        [--weights flax_params.npz] [--device cuda]
 
-Runs the selected model family (`--model_sel AI-DEAL`: the field-map
-generators and the map fit; `--model_sel Mag`: the magnitude R2* UNet and
-the magnitude fit) in fixed-shape chunks of `--infer_batch` slices on
-`--device` (default `cuda`; `cpu` runs the plain PyTorch versions of the
-kernels), writes <output_base>/<dataset>/maps_pred.npz (maps MEBCRN +
-pdff/r2s/field planes) and prints the steady-state throughput measured
-after a warm-up chunk. PNG and DICOM export are not ported yet.
+Runs the selected model family in fixed-shape chunks of `--infer_batch`
+slices on `--device` (default `cuda`; `cpu` runs the plain PyTorch versions
+of the kernels):
+- `--model_sel VET-Net` (the default, as in the JAX package): the
+  TE-conditioned net on the echoes and the TE vector, then the
+  phase-constrained map fit;
+- `--model_sel AI-DEAL`: the field-map generators and the map fit;
+- `--model_sel Mag`: the magnitude R2* UNet and the magnitude fit.
+Weights come from `--weights` (Flax parameters), or from the experiment a
+port trainer wrote (`--experiment_dir`: its settings and newest
+checkpoint), or else from a seeded random initialization (`--seed`, with a
+printed line). The cohort is `--synthetic N` slices, or else the HDF5
+cohorts under `--dataset_dir`. Writes <output_base>/<dataset>/maps_pred.npz
+(maps MEBCRN + pdff/r2s/field planes) and prints the steady-state
+throughput measured after a warm-up chunk. `--map` PDFF, R2s and Water
+serve the same maps; PDFF-var, PNG and DICOM export are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ from .roi_analysis import _per_slice, make_infer_run
 EXPORT_FORMATS = ("npz",)
 
 DEFAULTS = dict(
-    dataset="infer", model_sel="AI-DEAL", map="PDFF",
+    dataset="infer", experiment_dir="", model_sel="VET-Net", map="PDFF",
     n_echoes=6, field=1.5, infer_batch=8, export="npz", weights="",
 )
 

@@ -1,15 +1,17 @@
-"""Device-time breakdown of the AI-DEAL serving path on the card.
+"""Device-time breakdown of the serving path on the card.
 
-    python -m ideal_gan_tpu_torch.cli.profile_infer [--data_size 384]
-        [--infer_batch 8] [--chunks 3] [--seed 0]
+    python -m ideal_gan_tpu_torch.cli.profile_infer [--model_sel VET-Net]
+        [--experiment_dir DIR] [--data_size 384] [--infer_batch 8]
+        [--chunks 3] [--seed 0]
 
 Runs `--chunks` chunks of `--infer_batch` synthetic slices through the same
-closure `cli.infer` serves (`roi_analysis._per_slice` with host→card and
-card→host copies) under `torch.profiler`, after one warm-up chunk, and
-prints one JSON line: the card's name and power limit, the wall time per
-chunk, the device time per chunk in each kernel category (the two
-hand-written kernels, cuDNN convolutions, matmuls, copies, the rest) and the
-share of the window the card was idle.
+closure `cli.infer` serves for `--model_sel` (VET-Net by default, as in
+`cli.infer`; `roi_analysis._per_slice` with host→card and card→host
+copies) under `torch.profiler`, after one warm-up chunk, and prints one
+JSON line: the card's name and power limit, the wall time per chunk, the
+device time per chunk in each kernel category (the hand-written kernels,
+cuDNN convolutions, matmuls, copies, the rest) and the share of the window
+the card was idle.
 """
 
 from __future__ import annotations

@@ -1,20 +1,32 @@
-"""Per-chunk model inference for the serving CLI (port of the AI-DEAL and
-Mag branches of `ideal_gan_tpu/cli/roi_analysis.py`'s `make_infer_run`,
-and of `_per_slice`).
+"""Per-chunk model inference for the serving CLI (port of the AI-DEAL,
+VET-Net and Mag branches of `ideal_gan_tpu/cli/roi_analysis.py`'s
+`make_infer_run`, of its `_restore`, and of `_per_slice`).
 
-The other model families (VET-Net, U-Net, MDWF, 2D-Net), the PDFF-var map
-and the ROI evaluation are not ported yet (ROADMAP Queue 1).
+Weights come from `--weights` (an `.npz` of Flax parameters), or else from
+the experiment directory a port trainer wrote (`--experiment_dir`: its
+`settings.json` overlaid on the family's `DEFAULTS`, and its newest
+`checkpoints/ckpt-*.pt`), or else, with a printed line, from a seeded
+random initialization, as the JAX package serves its initial weights where
+the experiment has no checkpoint.
+
+The other model families (U-Net, MDWF, 2D-Net), the PDFF-var map and the
+ROI evaluation are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from .. import convert, ops
+from .. import convert, ops, physics
 from ..prob import Rician
-from ..train import mag, unsup
-from .common import resolve_device
+from ..train import mag, teaug, unsup
+from ..utils import Checkpoint
+from .common import load_settings, resolve_device
+
+FAMILIES = ("AI-DEAL", "VET-Net", "Mag")
 
 
 def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
@@ -37,16 +49,56 @@ def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
     return tuple(np.concatenate(xs) for xs in zip(*outs))
 
 
+def experiment_settings(cfg, defaults: dict) -> dict:
+    """The family's `defaults` overlaid with the settings the experiment of
+    `cfg["experiment_dir"]` was trained with, on the keys of `defaults`
+    only (so `device` or `output_dir` never come from the file)."""
+    fcfg = dict(defaults)
+    if cfg.get("experiment_dir"):
+        try:
+            saved = load_settings(cfg["experiment_dir"])
+        except FileNotFoundError:
+            saved = {}
+        fcfg.update({k: v for k, v in saved.items() if k in fcfg})
+    return fcfg
+
+
+def restore_checkpoint(cfg) -> dict | None:
+    """The newest checkpoint of `cfg["experiment_dir"]` (the trainer's state
+    dict, tensors on the CPU), or None where there is none. Creates no
+    directory."""
+    exp = cfg.get("experiment_dir")
+    if not exp or not (Path(exp) / "checkpoints").is_dir():
+        return None
+    ckpt = Checkpoint(Path(exp) / "checkpoints")
+    step = ckpt.latest_step()
+    if step is None:
+        return None
+    print(f"serving the epoch-{step} checkpoint of {exp}")
+    return ckpt.restore(step)
+
+
+def _seeded(cfg, *nets) -> None:
+    """Seeded random weights (`cfg["seed"]`) for `nets`, with a printed
+    line: the JAX package serves its initial weights here too."""
+    print(f"no checkpoint under --experiment_dir "
+          f"{cfg.get('experiment_dir') or '(none)'}: serving seeded random "
+          f"weights (--seed {int(cfg.get('seed', 0))})")
+    gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    for net in nets:
+        net.init_params(gen)
+
+
 def load_models(cfg, device="cuda"):
     """The AI-DEAL generators on `device`, in eval mode, and the global FM
     offset. Weights come from `cfg["weights"]`, an `.npz` of the Flax state's
     `params_fm/...`, `params_r2/...` (and optional `fm_offset`) paths, whose
-    shapes also give the width and the attention flags; or else from a
-    seeded random initialization (`cfg["seed"]`) at `unsup.DEFAULTS`."""
+    shapes also give the width and the attention flags; or else from the
+    experiment's checkpoint (`g_fm`, `g_r2`, `fm_offset`) at its settings;
+    or else from a seeded random initialization."""
     dev = resolve_device(device)
-    ucfg = dict(unsup.DEFAULTS)
-    fm_offset = 0.0
     if cfg.get("weights"):
+        ucfg = dict(unsup.DEFAULTS)
         tree = convert.load_npz(cfg["weights"])
         lstm = tree["params_fm"]["ConvLSTM_0"]["input_conv"]["kernel"]
         ucfg.update(n_G_filters=int(lstm.shape[-1]) // 4,
@@ -57,11 +109,46 @@ def load_models(cfg, device="cuda"):
         g_r2.load_state_dict(convert.unet(tree["params_r2"]))
         fm_offset = float(tree.get("fm_offset", 0.0))
     else:
-        g_fm, g_r2 = unsup.build_models(ucfg)
-        gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-        g_fm.init_params(gen)
-        g_r2.init_params(gen)
+        g_fm, g_r2 = unsup.build_models(experiment_settings(cfg,
+                                                            unsup.DEFAULTS))
+        state = restore_checkpoint(cfg)
+        if state is None:
+            _seeded(cfg, g_fm, g_r2)
+            fm_offset = 0.0
+        else:
+            g_fm.load_state_dict(state["g_fm"])
+            g_r2.load_state_dict(state["g_r2"])
+            fm_offset = float(state["fm_offset"])
     return g_fm.to(dev).eval(), g_r2.to(dev).eval(), fm_offset
+
+
+def load_vetnet(cfg, device="cuda"):
+    """VET-Net on `device`, in eval mode, and its `train.teaug` settings.
+    Weights come from `cfg["weights"]`, an `.npz` of the Flax state's
+    `params/...` paths, whose shapes also give the width, the TE input and
+    the attention flags; or else from the experiment's checkpoint
+    (`model`) at its settings; or else from a seeded random
+    initialization."""
+    dev = resolve_device(device)
+    if cfg.get("weights"):
+        tcfg = dict(teaug.DEFAULTS)
+        p = convert.load_npz(cfg["weights"])["params"]
+        lstm = p["ConvLSTM_0"]["input_conv"]["kernel"]
+        tcfg.update(n_G_filters=int(lstm.shape[-1]) // 4,
+                    te_input="TEEncoder_0" in p["_SharedEncoder_0"],
+                    R2_SelfAttention="SelfAttention_0" in p["dec_r2"],
+                    FM_SelfAttention="SelfAttention_0" in p["dec_fm"])
+        model = teaug.build_model(tcfg)
+        model.load_state_dict(convert.vetnet(p))
+    else:
+        tcfg = experiment_settings(cfg, teaug.DEFAULTS)
+        model = teaug.build_model(tcfg)
+        state = restore_checkpoint(cfg)
+        if state is None:
+            _seeded(cfg, model)
+        else:
+            model.load_state_dict(state["model"])
+    return model.to(dev).eval(), tcfg
 
 
 def load_mag_model(cfg, device="cuda"):
@@ -69,11 +156,11 @@ def load_mag_model(cfg, device="cuda"):
     settings. Weights come from `cfg["weights"]`, an `.npz` of the Flax
     state's `params/...` paths, whose shapes also give the width, the
     attention flag, the TE input (supervised training) and the Rician head
-    (main_loss="Rice"); or else from a seeded random initialization
-    (`cfg["seed"]`) at `mag.DEFAULTS`."""
+    (main_loss="Rice"); or else from the experiment's checkpoint (`model`)
+    at its settings; or else from a seeded random initialization."""
     dev = resolve_device(device)
-    mcfg = dict(mag.DEFAULTS)
     if cfg.get("weights"):
+        mcfg = dict(mag.DEFAULTS)
         p = convert.load_npz(cfg["weights"])["params"]
         lstm = p["ConvLSTM_0"]["input_conv"]["kernel"]
         mcfg.update(n_G_filters=int(lstm.shape[-1]) // 4,
@@ -84,9 +171,13 @@ def load_mag_model(cfg, device="cuda"):
         model = mag.build_model(mcfg)
         model.load_state_dict(convert.unet(p))
     else:
+        mcfg = experiment_settings(cfg, mag.DEFAULTS)
         model = mag.build_model(mcfg)
-        model.init_params(torch.Generator().manual_seed(int(cfg.get("seed",
-                                                                    0))))
+        state = restore_checkpoint(cfg)
+        if state is None:
+            _seeded(cfg, model)
+        else:
+            model.load_state_dict(state["model"])
     return model.to(dev).eval(), mcfg
 
 
@@ -94,17 +185,20 @@ def make_infer_run(cfg, acqs, device="cuda"):
     """Model dispatch → the per-chunk inference closure run(a, te_b) ->
     (maps (nb, 3, H, W, 2), rho_var (nb, 4, H, W, 1)). Builds the models
     once; callers reuse the closure across chunks. `acqs` is accepted for
-    parity with the JAX signature and not read."""
+    parity with the JAX signature and not read. `--map` PDFF, R2s and Water
+    serve the same maps, as in the JAX package; PDFF-var is not ported."""
     del acqs
     sel = cfg["model_sel"]
-    if sel not in ("AI-DEAL", "Mag"):
+    if sel not in FAMILIES:
         raise SystemExit(f"model_sel {sel!r} is not ported yet (ROADMAP "
-                         "Queue 1); the port serves AI-DEAL and Mag")
-    if cfg.get("map", "PDFF") != "PDFF":
-        raise SystemExit(f"map {cfg['map']!r} is not ported yet (ROADMAP "
-                         "Queue 1)")
+                         f"Queue 1); the port serves {', '.join(FAMILIES)}")
+    if cfg.get("map", "PDFF") == "PDFF-var":
+        raise SystemExit("map 'PDFF-var' is not ported yet (ROADMAP Queue 1 "
+                         "item 6)")
     if sel == "Mag":
         return _mag_run(cfg, device)
+    if sel == "VET-Net":
+        return _vetnet_run(cfg, device)
     g_fm, g_r2, fm_offset = load_models(cfg, device)
     field = cfg["field"]
 
@@ -115,8 +209,33 @@ def make_infer_run(cfg, acqs, device="cuda"):
         r2_mean = g_r2(a_abs)
         pm = torch.cat([fm_mean, r2_mean], dim=-1)
         rho = ops.fit_rho_fused(a, pm, te_b, field=field)
-        rho_var = rho.new_zeros(rho.shape[:1] + (4,) + rho.shape[2:4] + (1,))
-        return torch.cat([rho, pm], dim=1), rho_var
+        return torch.cat([rho, pm], dim=1), _zero_var(rho)
+
+    return run
+
+
+def _zero_var(rho):
+    """The all-zero rho_var (nb, 4, H, W, 1) of the deterministic heads."""
+    return rho.new_zeros(rho.shape[:1] + (4,) + rho.shape[2:4] + (1,))
+
+
+def vetnet_maps(model, a, te_b, field: float):
+    """The VET-Net branch on one chunk: (φ, R2*) from the net on the echoes
+    and the TE vector (as float32, whatever the net's dtype), then the plain
+    phase-constrained fit; maps [ρ_w, ρ_f, (φ, R2*)] and a zero rho_var."""
+    pm = model(a, te_b[..., 0]).float()
+    rho = physics.fit_rho(a, pm, te_b, field=field, phase_constraint=True)
+    return torch.cat([rho, pm], dim=1), _zero_var(rho)
+
+
+def _vetnet_run(cfg, device):
+    """The VET-Net branch (`vetnet_maps` on each chunk)."""
+    model, _ = load_vetnet(cfg, device)
+    field = cfg["field"]
+
+    @torch.inference_mode()
+    def run(a, te_b):
+        return vetnet_maps(model, a, te_b, field)
 
     return run
 

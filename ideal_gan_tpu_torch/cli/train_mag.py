@@ -7,8 +7,9 @@
 
 Trains the magnitude UNet (`--n_G_filters 36`, self-attention; the TE
 input in the default supervised mode) from seeded random weights
-(`--seed`) on the ground-truth maps of the cohort and its TE trains: one
-step per shuffled batch (acquisitions synthesized from the maps, the
+(`--seed`) on the ground-truth maps of the cohort and its TE trains
+(`--synthetic N` slices, or else the HDF5 cohorts under `--dataset_dir`):
+one step per shuffled batch (acquisitions synthesized from the maps, the
 magnitude fit, the loss of `train.mag.make_loss_fn`). Checkpoints every
 `--epoch_ckpt` epochs and at the end under
 <output_base>/<dataset>/checkpoints/, and resumes from the latest one.
@@ -16,9 +17,9 @@ Prints one `G_loss` line per epoch. `--device` defaults to `cuda` and
 raises without a card; `cpu` runs the plain PyTorch versions of the
 kernels.
 
-Not ported yet (ROADMAP Queue 1 item 8): HDF5 cohorts (SystemExit), bf16
-and remat (NotImplementedError); tensorboardX summaries and the preemption
-guard are skipped with a printed note.
+Not ported yet (ROADMAP Queue 1 item 8): bf16 and remat
+(NotImplementedError); tensorboardX summaries and the preemption guard are
+skipped with a printed note.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@
         --output_base output
 
 Trains VET-Net (`--n_G_filters 72`, TE input, FM self-attention) from
-seeded random weights (`--seed`) on the ground-truth maps of the cohort:
+seeded random weights (`--seed`) on the ground-truth maps of the cohort
+(`--synthetic N` slices, or else the HDF5 cohorts under `--dataset_dir`):
 per batch `data_aug_p` geometric augmentation (with `--FM_aug`, a random
 field-map scale), with `--bip_grad` a bipolar phase row, one TE train from
 `train.teaug.sample_te`, then one generator step on acquisitions
@@ -16,8 +17,8 @@ resumes from the latest one. Prints one `PM_loss` line per epoch.
 `--device` defaults to `cuda` and raises without a card; `cpu` runs the
 plain PyTorch versions of the kernels.
 
-Not ported yet (ROADMAP Queue 1 item 7): HDF5 cohorts (SystemExit), the
-U-Net, 2U-Net and MDWF-Net generators, `--out_vars WF`, `--microbatch`,
+Not ported yet (ROADMAP Queue 1 item 7): the U-Net, 2U-Net and MDWF-Net
+generators, `--out_vars WF`, `--microbatch`,
 bf16 and remat (NotImplementedError); tensorboardX summaries, the sample
 PNGs and the preemption guard are skipped with a printed note.
 """

@@ -6,15 +6,17 @@
         --device cuda --output_base output
 
 Trains g_fm on the cycle loss (and, with `--out_vars PM`, g_r2 in a second
-step per batch with g_fm frozen) from seeded random weights (`--seed`),
-with the k-fold split, `data_aug_p`, `remove_ech1` and `rand_ne` of the
-JAX CLI; checkpoints every `--epoch_ckpt` epochs and at the end under
-<output_base>/<dataset>/checkpoints/, and resumes from the latest one.
+step per batch with g_fm frozen) from seeded random weights (`--seed`) on
+the cohort (`--synthetic N` slices, or else the HDF5 cohorts under
+`--dataset_dir`), with the k-fold split, `data_aug_p`, `remove_ech1` and
+`rand_ne` of the JAX CLI; checkpoints every `--epoch_ckpt` epochs and
+at the end under <output_base>/<dataset>/checkpoints/, and resumes from
+the latest one.
 Prints one `cycle_loss` line per epoch. `--device` defaults to `cuda` and
 raises without a card; `cpu` runs the plain PyTorch versions of the kernels.
 
-Not ported yet (ROADMAP Queue 1 item 6): DICOM/NIfTI folders and HDF5
-cohorts (SystemExit), UQ and the calibration stage (NotImplementedError);
+Not ported yet (ROADMAP Queue 1 items 6 and 12): DICOM/NIfTI folders
+(SystemExit), UQ and the calibration stage (NotImplementedError);
 tensorboardX summaries, the sample PNGs and the preemption guard are
 skipped with a printed note.
 """

@@ -5,7 +5,7 @@ from .constants import (DTE_1p5T, DTE_3T, FATTY_ACID_9PEAK, FM_SC,
                         GYRO_HZ_PER_T, R2_SC, RHO_SC, TE1_1p5T, TE1_3T,
                         WATER_FAT_7PEAK, SpeciesModel)
 from .matrix import (eigenvals_2x2, mag_design_matrix, model_matrix,
-                     pinv_normal, small_inv)
+                     phase_constraint_matrix, pinv_normal, small_inv)
 from .ops import (CSEMagResult, cse_mag_fit, cycle, cycle_full, fit_rho,
                   mag_cycle, mag_demod, synthesize)
 from .te import sample_te_train, te_train, te_train_for_field
@@ -15,6 +15,7 @@ __all__ = [
     "R2_SC", "RHO_SC", "TE1_1p5T", "TE1_3T", "WATER_FAT_7PEAK",
     "CSEMagResult", "SpeciesModel", "cse_mag_fit", "cycle", "cycle_full",
     "eigenvals_2x2", "fit_rho", "mag_cycle", "mag_demod",
-    "mag_design_matrix", "model_matrix", "pinv_normal", "sample_te_train",
+    "mag_design_matrix", "model_matrix", "phase_constraint_matrix",
+    "pinv_normal", "sample_te_train",
     "small_inv", "synthesize", "te_train", "te_train_for_field",
 ]

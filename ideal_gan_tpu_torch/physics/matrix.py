@@ -65,6 +65,16 @@ def pinv_normal(m: torch.Tensor) -> torch.Tensor:
     return small_inv(mh @ m) @ mh
 
 
+def phase_constraint_matrix(m: torch.Tensor,
+                            m_pinv: torch.Tensor) -> torch.Tensor:
+    """H⁺ = inv(sym(Re(M⁺M))), used by the shared-phase constraint of the
+    map fit. For full-rank M this is numerically ≈ identity; computed
+    exactly for parity. m (nb, ne, ns), m_pinv (nb, ns, ne) → (nb, ns, ns)
+    in m's complex dtype."""
+    h = (m_pinv @ m).real
+    return small_inv(0.5 * (h + h.transpose(-1, -2))).to(m.dtype)
+
+
 def model_matrix(te: torch.Tensor, field: float = 1.5,
                  species: SpeciesModel = WATER_FAT_7PEAK) -> torch.Tensor:
     """Chemical-shift modeling matrix M, shape (nb, ne, ns) complex64.

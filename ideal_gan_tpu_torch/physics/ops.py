@@ -14,9 +14,8 @@ water/fat as ρ/rho_sc.
 `cse_mag_fit` is the magnitude-domain fit, the plain version of the
 magnitude fit kernel (`ops.ideal.cse_mag_fused`) and its backward.
 
-Not ported yet: the bipolar readout phase, the shared-phase constraint and
-the demodulated-echo output of `fit_rho`, `synthesize_mag` and
-`synthesize_mag_phase`.
+Not ported yet: the bipolar readout phase and the demodulated-echo output
+of `fit_rho`, `synthesize_mag` and `synthesize_mag_phase`.
 """
 
 from __future__ import annotations
@@ -89,20 +88,32 @@ def fit_rho(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
 
     acqs (nb, ne, H, W, 2); param_maps (nb, ≥1, H, W, 2) with row 0 =
     (φ, R2*); te (nb, ne, 1). Returns ρ maps (nb, ns, H, W, 2) float32.
-    The plain version of the fit kernel (`ops.ideal`).
+    With `phase_constraint`, water and fat share one phase, estimated from
+    the LS solution as ½·angle(Σ_s ρ_s·(H⁺ρ)_s) (no conjugate, as the
+    reference has it), and their magnitudes are |H⁺|·Re(ρ·e^{−iφ}). The
+    plain version of the fit kernel (`ops.ideal`), which has no phase
+    constraint.
     """
-    if phase_constraint or acq_demod or param_maps.shape[1] > 3:
+    if acq_demod or param_maps.shape[1] > 3:
         raise NotImplementedError(
-            "fit_rho: the phase-constraint, acq_demod and bipolar branches "
-            "are not ported yet (ROADMAP Queue 1)")
+            "fit_rho: the acq_demod and bipolar branches are not ported yet "
+            "(ROADMAP Queue 1 item 9)")
     nb, ne, hgt, wdt, _ = acqs.shape
     ns = species.n_species
-    m_pinv = mx.pinv_normal(mx.model_matrix(te, field, species))
+    m = mx.model_matrix(te, field, species)
+    m_pinv = mx.pinv_normal(m)
     smtx = _to_complex(acqs).reshape(nb, ne, -1)
     phi = param_maps[:, 0, ..., 0] * fm_sc
     r2s = param_maps[:, 0, ..., 1] * r2_sc
     wm = _phasor(te, _xi(phi, r2s), -1.0)
     mwms = m_pinv @ (wm * smtx)  # (nb, ns, nv)
+    if phase_constraint:
+        h_pinv = mx.phase_constraint_matrix(m, m_pinv)  # (nb, ns, ns)
+        mhmwms = torch.sum(mwms * (h_pinv @ mwms), dim=1, keepdim=True)
+        rho_pha = 0.5 * torch.angle(mhmwms)  # (nb, 1, nv)
+        phasor = torch.polar(torch.ones_like(rho_pha), rho_pha)
+        rho_mag = h_pinv.abs() @ (mwms * phasor.conj()).real
+        mwms = rho_mag * phasor
     return _from_complex(mwms.reshape(nb, ns, hgt, wdt) / rho_sc)
 
 

@@ -54,7 +54,7 @@ def test_aideal_slice_matches_jax(tmp_path):
 
     weights = tmp_path / "aideal.npz"
     np.savez(weights, **_flat(p_fm, "params_fm/"), **_flat(p_r2, "params_r2/"))
-    cfg = dict(infer.DEFAULTS, weights=str(weights))
+    cfg = dict(infer.DEFAULTS, model_sel="AI-DEAL", weights=str(weights))
     run = roi_analysis.make_infer_run(cfg, acqs, device="cpu")
     # batch 2 over 3 slices: the last chunk is padded, then trimmed
     maps, rho_var = roi_analysis._per_slice(run, acqs, te, 2, device="cpu")
@@ -93,7 +93,7 @@ def test_cli_writes_npz(tmp_path, capsys):
 def test_cli_rejects_unported_paths(tmp_path):
     base = ["--device", "cpu", "--synthetic", "1", "--data_size", "32",
             "--output_base", str(tmp_path)]
-    for extra in (["--export", "png"], ["--model_sel", "VET-Net"],
+    for extra in (["--export", "png"], ["--model_sel", "U-Net"],
                   ["--map", "PDFF-var"]):
         with pytest.raises(SystemExit):
             infer.main(base + extra)
@@ -118,7 +118,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "ideal_gan_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "ideal_gan_tpu",
+                                    "h5py"))
 assert not bad, bad
 for n in ("ideal_gan_tpu_torch.cli.train_unsup",
           "ideal_gan_tpu_torch.cli.train_teaug",
@@ -132,6 +133,9 @@ for n in ("ideal_gan_tpu_torch.cli.train_unsup",
           "ideal_gan_tpu_torch.train.common",
           "ideal_gan_tpu_torch.losses.regs",
           "ideal_gan_tpu_torch.data.augment",
+          "ideal_gan_tpu_torch.data.hdf5",
+          "ideal_gan_tpu_torch.data.layouts",
+          "ideal_gan_tpu_torch.data.unwrap",
           "ideal_gan_tpu_torch.utils.checkpoint"):
     assert n in names, n
 print(len(names))

@@ -123,6 +123,10 @@ def test_fit_rho_unported_branches_raise():
     te = torch.from_numpy(uniform_te(6, 2))
     acqs = tph.synthesize(torch.from_numpy(maps), te)
     pm = torch.from_numpy(maps[:, 2:3])
-    for kw in (dict(phase_constraint=True), dict(acq_demod=True)):
-        with pytest.raises(NotImplementedError):
-            tph.fit_rho(acqs, pm, te, **kw)
+    # the shared-phase branch is ported (tests/test_torch_serve.py); the
+    # demodulated echoes and the bipolar phase row are not
+    with pytest.raises(NotImplementedError):
+        tph.fit_rho(acqs, pm, te, acq_demod=True)
+    bipolar = torch.cat([pm, pm, pm, pm], dim=1)
+    with pytest.raises(NotImplementedError):
+        tph.fit_rho(acqs, bipolar, te, phase_constraint=True)
