@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's AI-DEAL training, TE-augmentation training,
-AI-DEAL serving, magnitude training, Mag serving and VET-Net serving paths
-on one NVIDIA card.
+AI-DEAL serving, magnitude training, Mag serving, VET-Net serving,
+supervised training with 2D-Net serving, and the other TE-augmentation
+generators' paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -23,15 +24,16 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
               echoes with bf16 rho; accuracy guard against the synthetic
               ground truth (max err < 5e-2) and the bf16 PDFF gate (< 3e-3);
             - ConvLSTM forward (3xTF32 on the tensor cores): Cin=2 and
-              Cin=1, F=36, and VET-Net's width Cin=2, F=72, each at ne=6,
+              Cin=1, F=36, VET-Net's width Cin=2, F=72, and the 2U-Net R2*
+              net's Cin=1, F=72, each at ne=6,
               nb=8, against the plain version in float32 and float64, two
               launches bit for bit, device time beside the 3xTF32 and FP32
               bounds, and its HMMA instruction count (see
               `convlstm_entry`);
             - IDEAL cycle: the training call (MEBCRN, nb=8, 384², ne=6) with
               the per-row TE test and with the forced uniform recurrence;
-            - ConvLSTM backward: Cin=2 and Cin=1, F=36, and Cin=2, F=72,
-              each at ne=6, nb=8, dx, dk and db against
+            - ConvLSTM backward: Cin=2 and Cin=1, F=36, Cin=2, F=72 and
+              Cin=1, F=72, each at ne=6, nb=8, dx, dk and db against
               `convlstm_backward_reference` in float64 and float32, on
               inputs that keep clear of leaky_relu's kink on either side of
               it and on random ones, two launches bit for bit, the call
@@ -115,13 +117,42 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             the net in float64 (see `vetnet_serve_phase`): the net's (φ,
             R2*) held to the CPU's, and the phase-constrained fit on the
             card's (φ, R2*) held to the CPU's fit of them.
+9. sup      `ideal_gan_tpu_torch.cli.train_sup.main` for one epoch (F=72,
+            16 synthetic 384² slices, batch 8: 2 steps) at the JAX
+            `DEFAULTS` (multi-decod, out_vars WF), then with `--G_model
+            U-Net --out_vars PM --TE1 0.0014 --dTE 0.0022` (resynthesis),
+            and `cli.infer.main --model_sel 2D-Net --experiment_dir` on the
+            second run, each with every launch counter set to 0 just before
+            and read just after; fails unless the second run launched the
+            synthesis and fit kernels once a step, the serving run the fit
+            once a chunk (3 with the warm-up), every loss is finite, the
+            checkpoint restored is the run's last and its maps differ from
+            the seeded initial weights'. Then one step of multi-decod WF,
+            U-Net PM with resynthesis and multi-decod WF-PM (MDWF-Net) on
+            the card (TF32 off) and on the CPU (96², batch 2, 1e-3 noise,
+            float64 witness; see `sup_step_parity`), and the 2D-Net's first
+            2 slices on the card and on the CPU: its (R2*, FM) compared, and
+            the map fit of the card's (R2*, FM) on the CPU held to the card's.
+10. teaug_gens
+            `ideal_gan_tpu_torch.cli.train_teaug.main --G_model` U-Net,
+            2U-Net and MDWF-Net, each for one epoch (F=72, 16 synthetic 384²
+            slices, batch 8: 2 steps) with the counters read around it;
+            fails unless the synthesis kernel ran once a step (twice for the
+            2U-Net: its R2* step too), the ConvLSTM forward and backward and
+            the fit at least once a step (U-Net, 2U-Net), every loss is
+            finite and every ConvLSTM and TE parameter of the trained nets
+            has a non-zero gradient. Then one step of each on the card (TF32
+            off) and on the CPU (96², batch 2, float64 witness; both 2U-Net
+            steps; see `teaug_gens_parity`), and one G_A2R2 step on the card,
+            which must change G_A2R2 and leave G_A2B as it was.
 
-The last three lines are the card's `nvidia-smi` name and power limit, the
-`{"kernels": [...]}` summary (launches from the path that runs each kernel:
+Each phase line carries its seconds. The last three lines are the card's
+`nvidia-smi` name and power limit, the `{"kernels": [...]}` summary (launches from the path that runs each kernel:
 the train phase for the cycle and the ConvLSTM backward, teaug for the
 synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
-the magnitude fit; vetnet_serve prints its own) and `{"ok": true,
-"device": {...}}`.
+the magnitude fit; vetnet_serve prints its own; `launches_on_new_paths`
+the counts of the sup and teaug_gens runs) and `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -417,8 +448,10 @@ def _fit_teaug_case(maps, pm, nb: int, dev, bound_ms: float,
         bound_ms=bound_ms, bound_by=bound_by)
 
 
+# Cin=1, F=72: the 2U-Net's R2* net on the echo magnitudes (last, so that
+# the wide case stays VET-Net's Cin=2)
 LSTM_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
-               (2, F_TEAUG, NB_SERVE))
+               (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE))
 # the ConvLSTM forward kernel's symbol holds this (it is also the
 # backward's state recompute)
 LSTM_FWD = "convlstm_echo"
@@ -1199,19 +1232,13 @@ def train_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     it, then the card-vs-CPU step parity."""
     import math
 
-    from ideal_gan_tpu_torch import ops
     from ideal_gan_tpu_torch.cli import train_unsup
 
     argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
             str(batch), "--epochs", "2", "--out_vars", "PM", "--n_G_filters",
             str(f), "--seed", "0", "--device", str(dev), "--output_base",
             str(out_dir)]
-    for k in ops.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    result = train_unsup.main(argv)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in ops.KERNELS}
+    result, wall, launches = counted(dev, lambda: train_unsup.main(argv))
     losses = [v for ep in result["epochs"] for k, v in ep.items()
               if k.endswith("loss")]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1322,18 +1349,12 @@ def teaug_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     counters read around it, then the card-vs-CPU generator step."""
     import math
 
-    from ideal_gan_tpu_torch import ops
     from ideal_gan_tpu_torch.cli import train_teaug
 
     argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
             str(batch), "--epochs", "2", "--n_G_filters", str(f), "--seed",
             "0", "--device", str(dev), "--output_base", str(out_dir)]
-    for k in ops.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    result = train_teaug.main(argv)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in ops.KERNELS}
+    result, wall, launches = counted(dev, lambda: train_teaug.main(argv))
     losses = [v for ep in result["epochs"] for k, v in ep.items()
               if k.endswith("loss")]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1360,8 +1381,6 @@ def e2e_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     """The serving CLI on the card with the launch counters read around it,
     then the first chunk on the card and on the CPU, compared."""
     import numpy as np
-    import torch
-    from ideal_gan_tpu_torch import ops
     from ideal_gan_tpu_torch.cli import infer, roi_analysis
     from ideal_gan_tpu_torch.cli.common import load_cohorts
 
@@ -1369,12 +1388,7 @@ def e2e_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
             str(size), "--infer_batch", str(batch), "--export", "npz",
             "--seed", "0", "--device", str(dev), "--output_base",
             str(out_dir)]
-    for k in ops.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    maps = infer.main(argv)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in ops.KERNELS}
+    maps, wall, launches = counted(dev, lambda: infer.main(argv))
     if maps.shape != (n, 3, size, size, 2) or not np.isfinite(maps).all():
         raise AssertionError(f"e2e maps shape {maps.shape} or not finite")
     with np.load(out_dir / "infer" / "maps_pred.npz") as npz:
@@ -1428,7 +1442,9 @@ class _Float32Out:
         self.net = net
 
     def __call__(self, *args):
-        return self.net(*args).float()
+        dtype = next(self.net.parameters()).dtype
+        return self.net(*(a.to(dtype) if a.is_floating_point() else a
+                          for a in args)).float()
 
 
 def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
@@ -1542,25 +1558,15 @@ def mag_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
 
     import numpy as np
     import torch
-    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch import physics
     from ideal_gan_tpu_torch.cli import infer, roi_analysis, train_mag
     from ideal_gan_tpu_torch.cli.common import load_cohorts
     from ideal_gan_tpu_torch.train import mag
 
-    def counted(fn):
-        for k in ops.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        result = fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return result, time.perf_counter() - t0, {k.name: k.launches
-                                                  for k in ops.KERNELS}
-
     argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
             str(batch), "--epochs", "2", "--n_G_filters", str(f), "--seed",
             "0", "--device", str(dev), "--output_base", str(out_dir / "t")]
-    result, wall, launches = counted(lambda: train_mag.main(argv))
+    result, wall, launches = counted(dev, lambda: train_mag.main(argv))
     state = result["state"]
     losses = [ep["G_loss"] for ep in result["epochs"]]
     no_grad = [n_ for n_, p in state.model.lstm.named_parameters()
@@ -1582,7 +1588,8 @@ def mag_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     bt = (torch.from_numpy(maps[:batch]).to(dev),
           torch.from_numpy(te[:batch]).to(dev))
     step_u(state_u, bt)  # warm-up
-    (_, metrics_u), unsup_s, launches_u = counted(lambda: step_u(state_u, bt))
+    (_, metrics_u), unsup_s, launches_u = counted(
+        dev, lambda: step_u(state_u, bt))
     unsup = dict(launches=launches_u, ms_per_step=unsup_s * 1e3,
                  metrics={k: float(v) for k, v in metrics_u.items()})
     if not all(math.isfinite(v) for v in unsup["metrics"].values()):
@@ -1596,7 +1603,7 @@ def mag_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
             str(size), "--infer_batch", str(batch), "--export", "npz",
             "--seed", "0", "--device", str(dev), "--output_base",
             str(out_dir / "s")]
-    served, serve_wall, launches_s = counted(lambda: infer.main(argv))
+    served, serve_wall, launches_s = counted(dev, lambda: infer.main(argv))
     if served.shape != (n, 3, size, size, 2) or not np.isfinite(served).all():
         raise AssertionError(f"Mag maps shape {served.shape} or not finite")
     with np.load(out_dir / "s" / "infer" / "maps_pred.npz") as npz:
@@ -1689,7 +1696,7 @@ def vetnet_serve_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
 
     import numpy as np
     import torch
-    from ideal_gan_tpu_torch import ops, physics
+    from ideal_gan_tpu_torch import physics
     from ideal_gan_tpu_torch.cli import infer, roi_analysis, train_teaug
     from ideal_gan_tpu_torch.cli.common import load_cohorts
     from ideal_gan_tpu_torch.train import teaug
@@ -1705,12 +1712,7 @@ def vetnet_serve_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
             "--synthetic", str(n), "--data_size", str(size), "--infer_batch",
             str(batch), "--export", "npz", "--seed", "0", "--device",
             str(dev), "--output_base", str(out_dir / "s")]
-    for k in ops.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    maps = infer.main(argv)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in ops.KERNELS}
+    maps, wall, launches = counted(dev, lambda: infer.main(argv))
     if maps.shape != (n, 3, size, size, 2) or not np.isfinite(maps).all():
         raise AssertionError(f"VET-Net maps shape {maps.shape} or not finite")
     with np.load(out_dir / "s" / "infer" / "maps_pred.npz") as npz:
@@ -1841,6 +1843,426 @@ def check_vetnet_serve(vet: dict) -> None:
         raise AssertionError(f"card and CPU VET-Net maps disagree: {vet}")
 
 
+def counted(dev, fn):
+    """`fn()` with every launch counter set to 0 just before and read just
+    after: (its result, its seconds to a synchronisation, the launches)."""
+    import torch
+    from ideal_gan_tpu_torch import ops
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return result, time.perf_counter() - t0, {k.name: k.launches
+                                              for k in ops.KERNELS}
+
+
+def steady_step(dev, fn, batch: int, iters: int = 3) -> dict:
+    """A trainer's step `fn` after the CLI's run (one more warm-up, then
+    `iters` steps timed with CUDA events): its ms, slices/s and the peak
+    device memory of those steps (None on the CPU). The CLI's own epoch
+    of two steps includes the first step's set-up."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ms = time_ms(fn, dev, iters=iters, warmup=1)
+    return dict(ms_per_step=ms, slices_per_s=batch * 1e3 / ms,
+                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None)
+
+
+def _finite_losses(epochs) -> bool:
+    import math
+    return bool(epochs) and all(
+        math.isfinite(v) for ep in epochs for k, v in ep.items()
+        if k.endswith("loss") and isinstance(v, float))
+
+
+def _no_gradient(net, prefixes) -> list:
+    """The trainable parameters of `net` under `prefixes` without a
+    non-zero gradient."""
+    return [n for n, p in net.named_parameters()
+            if p.requires_grad and n.startswith(prefixes)
+            and (p.grad is None or not bool(p.grad.abs().max() > 0))]
+
+
+def _step_run(make_loss, model, args, where, dtype=None, extra=()):
+    """One loss's value, metrics and `model`'s gradient leaves on `where`
+    from copies of `model` (and of the nets in `extra`, which the loss
+    takes after it); with `dtype` float64 the nets run in float64 and their
+    outputs are cast back to float32 (`_Float32Out`), the physics and the
+    loss staying float32."""
+    import copy
+
+    nets = [copy.deepcopy(m).to(where) for m in (model, *extra)]
+    calls = nets
+    if dtype is not None:
+        nets = [n.to(dtype) for n in nets]
+        calls = [_Float32Out(n) for n in nets]
+    loss, metrics = make_loss(*calls)(*(a.to(where) for a in args))
+    loss.backward()
+    return dict(loss=float(loss.detach()), grads=_grads(nets[0]),
+                metrics={k: float(v.detach()) for k, v in metrics.items()})
+
+
+def _parity(make_loss, model, args, dev, extra=()) -> dict:
+    """`_step_run` on `dev` and on the CPU compared (loss, metrics, every
+    gradient leaf), with both against the CPU's float64 witness."""
+    import torch
+    cpu = torch.device("cpu")
+    card = _step_run(make_loss, model, args, dev, extra=extra)
+    ref = _step_run(make_loss, model, args, cpu, extra=extra)
+    ref64 = _step_run(make_loss, model, args, cpu, torch.float64, extra)
+    res = _compare(card, ref)
+    res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
+    res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
+                               for k, v in card["metrics"].items()}
+    res["vs_cpu_float64"] = {"card": _compare(card, ref64)["grad_max_rel"],
+                             "cpu": _compare(ref, ref64)["grad_max_rel"]}
+    return res
+
+
+def _parity_failures(parity: dict) -> dict:
+    """The card-vs-CPU steps past MODEL_PARITY.json's tolerances: loss and
+    metrics 2e-5 relative, every gradient leaf 2e-2 of the global scale."""
+    return {name: (v["loss_rel_diff"], v["grad_max_rel"],
+                   max(v["metrics_rel_diff"].values()))
+            for name, v in parity.items()
+            if v["loss_rel_diff"] > 2e-5 or v["grad_max_rel"] > 2e-2
+            or max(v["metrics_rel_diff"].values()) > 2e-5}
+
+
+# the sup phase's card-vs-CPU steps: the JAX DEFAULTS (multi-decod, out_vars
+# WF), the 2D-Net's U-Net PM with resynthesis at another TE protocol, and
+# MDWF-Net (multi-decod WF-PM)
+SUP_PARITY_CONFIGS = {
+    "multi-decod-WF": {},
+    "U-Net-PM-resynthesis": dict(G_model="U-Net", out_vars="PM",
+                                 TE1=0.0014, dTE=0.0022),
+    "multi-decod-WF-PM": dict(out_vars="WF-PM"),
+}
+
+
+def sup_step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """For each of `SUP_PARITY_CONFIGS`, one supervised step's loss,
+    metrics and gradients on `dev` and on the CPU from the same weights
+    and batch (TF32 off on the card), with a float64 witness. The
+    acquisitions and maps carry N(0, 1e-3²) noise, so that neither the
+    nets' input nor the loss's `B != 0` masks have an exactly zero
+    background (PERF.md §7)."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import sup
+
+    acqs, maps, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    rng = np.random.default_rng(2)
+    args = tuple(torch.from_numpy((x + 1e-3 * rng.normal(size=x.shape))
+                                  .astype(np.float32)) for x in (acqs, maps))
+    args += (torch.from_numpy(te),)
+    out = {}
+    for name, over in SUP_PARITY_CONFIGS.items():
+        cfg = dict(sup.DEFAULTS, n_G_filters=f, **over)
+        model = sup.build_model(cfg)
+        model.init_params(torch.Generator().manual_seed(4))
+        out[name] = _parity(lambda m: sup.make_loss_fn(cfg, m), model, args,
+                            dev)
+    return out
+
+
+def sup_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+              batch: int = NB_SERVE, f: int = F_TEAUG, parity_size: int = 96,
+              parity_batch: int = 2, compared: int = 2) -> dict:
+    """The supervised trainer's CLI twice (the JAX DEFAULTS; the U-Net in
+    PM mode with resynthesis at another TE protocol), each with its steady
+    step's time and peak memory (`steady_step`), and the 2D-Net serving
+    CLI on the second run, each with the launch counters read around it;
+    the card-vs-CPU steps; the 2D-Net's first `compared` slices served on
+    the card and on the CPU (TF32 off) and, as a witness, on the CPU with
+    the net in float64; the map fit of the card's (R2*, FM) on the CPU
+    against the card's; and the served maps' distance from those of the
+    seeded initial weights, which shows the checkpoint was read."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import physics
+    from ideal_gan_tpu_torch.cli import infer, roi_analysis, train_sup
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import sup
+
+    base = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+            str(batch), "--epochs", "1", "--n_G_filters", str(f), "--seed",
+            "0", "--device", str(dev)]
+    runs = {}
+    for name, over in (("defaults", {}),
+                       ("U-Net-PM-resynthesis",
+                        dict(G_model="U-Net", out_vars="PM", TE1=0.0014,
+                             dTE=0.0022))):
+        extra = [str(x) for k, v in over.items() for x in (f"--{k}", v)]
+        result, wall, launches = counted(dev, lambda: train_sup.main(
+            base + extra + ["--output_base", str(out_dir / name)]))
+        if not _finite_losses(result["epochs"]):
+            raise AssertionError(f"sup {name} losses not finite: "
+                                 f"{result['epochs']}")
+        state = result["state"]
+        runs[name] = dict(launches=launches, steps=state.step, wall_s=wall,
+                          epochs=result["epochs"])
+        cfg = dict(sup.DEFAULTS, n_G_filters=f, **over)
+        step_fn, _ = sup.make_train_step(cfg, state.model)
+        acqs, maps, te = load_cohorts(dict(cfg, synthetic=n,
+                                           data_size=size))
+        bt = tuple(torch.from_numpy(x[:batch]).to(dev)
+                   for x in (acqs, maps, te))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        runs[name].update(steady_step(
+            dev, lambda: step_fn(state, bt, gen), batch))
+
+    exp = out_dir / "U-Net-PM-resynthesis" / sup.DEFAULTS["dataset"]
+    argv = ["--model_sel", "2D-Net", "--experiment_dir", str(exp),
+            "--synthetic", str(n), "--data_size", str(size), "--infer_batch",
+            str(batch), "--export", "npz", "--seed", "0", "--device",
+            str(dev), "--output_base", str(out_dir / "s")]
+    maps, wall, launches = counted(dev, lambda: infer.main(argv))
+    if maps.shape != (n, 3, size, size, 2) or not np.isfinite(maps).all():
+        raise AssertionError(f"2D-Net maps shape {maps.shape} or not finite")
+    with np.load(out_dir / "s" / "infer" / "maps_pred.npz") as npz:
+        slices_per_s = float(npz["slices_per_s"])
+    cfg = dict(infer.DEFAULTS, model_sel="2D-Net", experiment_dir=str(exp),
+               seed=0, synthetic=n, data_size=size)
+    step = roi_analysis.restore_checkpoint(cfg)["step"]
+    acqs, _, te = load_cohorts(cfg)
+    a, t = acqs[:compared], te[:compared]
+
+    def serve(c, where):
+        return roi_analysis._per_slice(roi_analysis.make_infer_run(c, a,
+                                                                   where),
+                                       a, t, compared, where)[0]
+
+    set_tf32(False)
+    dev_maps = serve(cfg, dev)
+    cpu_maps = serve(cfg, "cpu")
+    net64 = roi_analysis.load_sup_model(cfg, "cpu")[0].double()
+    with torch.inference_mode():
+        f64_maps = roi_analysis.twod_net_maps(
+            _Float32Out(net64), torch.from_numpy(a), torch.from_numpy(t),
+            cfg["field"])[0].numpy()
+        # the fit alone on the CPU, from the card's (φ, R2*)
+        cpu_fit = physics.fit_rho(torch.from_numpy(a),
+                                  torch.from_numpy(dev_maps[:, 2:3]),
+                                  torch.from_numpy(t),
+                                  field=cfg["field"]).numpy()
+    seeded = out_dir / "seeded"
+    seeded.mkdir()
+    shutil.copy(exp / "settings.json", seeded)
+    seeded_maps = serve(dict(cfg, experiment_dir=str(seeded)), dev)
+
+    # PDFF = |F|/|W+F| where |W+F| > 0.2, as the other serving phases; ρ
+    # relative to max(1, |ρ|): the fit multiplies the net's (φ, R2*)
+    # residue by up to e^{R2*·r2_sc·te}
+    w_f = f64_maps[:, 0] + f64_maps[:, 1]
+    stable = np.abs(w_f[..., 0] + 1j * w_f[..., 1]) > 0.2
+
+    def dist(x, y):
+        d_rho = np.abs(x[:, :2] - y[:, :2]) / np.maximum(1.0,
+                                                          np.abs(y[:, :2]))
+        d_pdff = np.abs(infer.maps_to_display(x)[0]
+                        - infer.maps_to_display(y)[0])
+        return dict(pm=float(np.abs(x[:, 2] - y[:, 2]).max()),
+                    rho_rel=float(d_rho.max()),
+                    pdff=float(d_pdff[stable].max()))
+
+    parity = sup_step_parity(dev, parity_size, parity_batch, f)
+    serving = dict(
+        launches=launches, chunks=-(-n // batch),
+        steps_trained=runs["U-Net-PM-resynthesis"]["steps"],
+        checkpoint_step=step, slices_per_s=slices_per_s,
+        ms_per_slice=1e3 / slices_per_s, wall_s=wall,
+        compared_slices=compared, pdff_compared_share=float(stable.mean()),
+        vs_cpu=dist(dev_maps, cpu_maps),
+        fit_on_card_maps_vs_cpu=dist(
+            dev_maps, np.concatenate([cpu_fit, dev_maps[:, 2:3]], 1)),
+        vs_cpu_float64={name: dist(m, f64_maps) for name, m in
+                        (("card", dev_maps), ("cpu", cpu_maps))},
+        maps_max_abs_diff_vs_seeded_init=float(
+            np.abs(dev_maps - seeded_maps).max()),
+        serving_tf32_maps_max_abs_diff_vs_cpu=float(
+            np.abs(maps[:compared] - cpu_maps).max()))
+    return dict(runs=runs, serving_2d_net=serving, parity=parity,
+                parity_shape=dict(size=parity_size, batch=parity_batch, F=f))
+
+
+def check_sup(s: dict) -> None:
+    """The sup phase's gates: the synthesis and fit kernels once a step of
+    the resynthesizing PM run, the fit once a served chunk (the warm-up
+    chunk included); the checkpoint of the run's last step restored and
+    read; the card-vs-CPU steps (`_parity_failures`); and the 2D-Net's
+    (R2*, FM) card vs CPU and the fit on identical inputs at the serving
+    gate, 5e-3 (ρ relative to max(1, |ρ|), PDFF where |W+F| > 0.2)."""
+    pm = s["runs"]["U-Net-PM-resynthesis"]
+    if pm["launches"]["ideal_forward"] != pm["steps"] \
+            or pm["launches"]["ideal_fit"] != pm["steps"]:
+        raise AssertionError(f"sup PM training skipped kernels in "
+                             f"{pm['steps']} steps: {pm['launches']}")
+    srv = s["serving_2d_net"]
+    if srv["launches"]["ideal_fit"] != srv["chunks"] + 1:
+        raise AssertionError(f"2D-Net serving skipped the fit kernel: "
+                             f"{srv['launches']}")
+    if srv["checkpoint_step"] != srv["steps_trained"] \
+            or not srv["maps_max_abs_diff_vs_seeded_init"] > 0:
+        raise AssertionError(f"2D-Net serving did not read the trained "
+                             f"checkpoint: {srv}")
+    bad = _parity_failures(s["parity"])
+    if bad:
+        raise AssertionError(f"card and CPU sup steps disagree (loss, "
+                             f"gradients, metrics): {bad}")
+    fit = srv["fit_on_card_maps_vs_cpu"]
+    if srv["vs_cpu"]["pm"] > 5e-3 or fit["rho_rel"] > 5e-3 \
+            or fit["pdff"] > 5e-3:
+        raise AssertionError(f"card and CPU 2D-Net maps disagree: {srv}")
+
+
+TEAUG_GENS = ("U-Net", "2U-Net", "MDWF-Net")
+
+
+def teaug_gens_parity(dev, g_model: str, size: int, batch: int,
+                      f: int) -> dict:
+    """One step of the generator `g_model` on `dev` and on the CPU from the
+    same weights, maps, TE train and noise (TF32 off on the card), with a
+    float64 witness; for the 2U-Net also G_A2R2's step, and on the card one
+    G_A2R2 optimizer step, which must change G_A2R2 and leave G_A2B as it
+    was. The synthesized acquisitions carry N(0, 0.1²) noise, as in
+    `teaug_step_parity`; each TEEncoder's Dense bias is spread over [0, 1]
+    (`mag_step_parity`)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import physics
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import teaug
+
+    cfg = dict(teaug.DEFAULTS, G_model=g_model, n_G_filters=f)
+    _, maps, _ = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    te = physics.sample_te_train(torch.Generator().manual_seed(2), NE, batch)
+    noise = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(batch, NE, size, size, 2)).astype(np.float32))
+    args = (torch.from_numpy(maps), te, noise)
+    nets = [teaug.build_model(cfg)]
+    if g_model == "2U-Net":
+        nets.append(teaug.build_r2_model(cfg))
+    gen = torch.Generator().manual_seed(4)
+    for net in nets:
+        net.init_params(gen)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, torch.nn.Linear) and m.bias is not None:
+                    m.bias += torch.linspace(0.0, 1.0, m.bias.numel())
+    out = {"generator": _parity(
+        lambda m, *r2: teaug.make_loss_fn(cfg, m, *r2), nets[0], args, dev,
+        nets[1:])}
+    if g_model != "2U-Net":
+        return out
+    out["r2"] = _parity(lambda r2, m: teaug.make_r2_loss_fn(cfg, m, r2),
+                        nets[1], args, dev, nets[:1])
+    model, r2 = (copy.deepcopy(n).to(dev) for n in nets)
+    _, tx = teaug.make_train_step(dict(cfg, epochs=1), model, r2)
+    state = teaug.TEAugState(model, tx(list(model.parameters())),
+                             r2_model=r2, opt_r2=tx(list(r2.parameters())))
+    before = [{k: v.clone() for k, v in n.state_dict().items()}
+              for n in (model, r2)]
+    teaug.make_r2_train_step(cfg, model, r2, tx)(
+        state, tuple(a.to(dev) for a in args[:2]),
+        torch.Generator(device=dev).manual_seed(5))
+    out["r2_step_changes"] = {
+        name: sorted(k for k, v in net.state_dict().items()
+                     if not torch.equal(v, old[k]))
+        for name, net, old in (("G_A2B", model, before[0]),
+                               ("G_A2R2", r2, before[1]))}
+    return out
+
+
+def teaug_gens_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+                     batch: int = NB_SERVE, f: int = F_TEAUG,
+                     parity_size: int = 96, parity_batch: int = 2) -> dict:
+    """The TE-augmentation CLI with each of `TEAUG_GENS` for one epoch,
+    with the launch counters read around each run, the trained nets'
+    ConvLSTM and TE parameters' gradients, the steady step's time and
+    peak memory (`steady_step`), and the card-vs-CPU steps."""
+    import torch
+    from ideal_gan_tpu_torch.cli import train_teaug
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import teaug
+
+    out = {}
+    for g in TEAUG_GENS:
+        argv = ["--G_model", g, "--synthetic", str(n), "--data_size",
+                str(size), "--batch_size", str(batch), "--epochs", "1",
+                "--n_G_filters", str(f), "--seed", "0", "--device", str(dev),
+                "--output_base", str(out_dir / g)]
+        result, wall, launches = counted(dev, lambda: train_teaug.main(argv))
+        if not _finite_losses(result["epochs"]):
+            raise AssertionError(f"teaug {g} losses not finite: "
+                                 f"{result['epochs']}")
+        state = result["state"]
+        # the ConvLSTM and TE conditioning of every net that was trained
+        no_grad = _no_gradient(state.model, ("lstm.", "te.", "encoder.te"))
+        if state.r2_model is not None:
+            no_grad += ["G_A2R2 " + k for k in
+                        _no_gradient(state.r2_model, ("lstm.", "te."))]
+        if no_grad:
+            raise AssertionError(f"teaug {g}: ConvLSTM / TE parameters "
+                                 f"without a gradient: {no_grad}")
+        out[g] = dict(launches=launches, steps=state.step, wall_s=wall,
+                      epochs=result["epochs"])
+        # the steady step (the 2U-Net: G_A2B's step and G_A2R2's)
+        cfg = dict(teaug.DEFAULTS, G_model=g, n_G_filters=f)
+        step_fn, tx = teaug.make_train_step(cfg, state.model, state.r2_model)
+        steps = [step_fn] if state.r2_model is None else [
+            step_fn, teaug.make_r2_train_step(cfg, state.model,
+                                              state.r2_model, tx)]
+        _, maps, _ = load_cohorts(dict(cfg, synthetic=n, data_size=size))
+        gen = torch.Generator().manual_seed(0)
+        bt = (torch.from_numpy(maps[:batch]).to(dev),
+              teaug.sample_te(gen, cfg, batch).to(dev))
+        noise_gen = torch.Generator(device=dev).manual_seed(0)
+        out[g].update(steady_step(
+            dev, lambda: [s(state, bt, noise_gen) for s in steps], batch))
+        set_tf32(False)
+        out[g]["parity"] = teaug_gens_parity(dev, g, parity_size,
+                                             parity_batch, f)
+        set_tf32(True)
+    out["parity_shape"] = dict(size=parity_size, batch=parity_batch, F=f)
+    return out
+
+
+def check_teaug_gens(gens: dict) -> None:
+    """The teaug_gens phase's gates: the synthesis kernel once a step (and
+    once an R2* step for the 2U-Net), the ConvLSTM forward and backward
+    and the fit at least once a step for the ME nets; the card-vs-CPU
+    steps (`_parity_failures`); and G_A2R2's step changing G_A2R2 only."""
+    for g in TEAUG_GENS:
+        run = gens[g]
+        k, launches = run["steps"], run["launches"]
+        synth = 2 * k if g == "2U-Net" else k
+        short = launches["ideal_forward"] != synth or (
+            g != "MDWF-Net" and any(launches[name] < k for name in (
+                "convlstm_fwd", "convlstm_bwd", "ideal_fit")))
+        if short:
+            raise AssertionError(f"teaug {g} skipped kernels in {k} steps: "
+                                 f"{launches}")
+        bad = _parity_failures({f"{g} {step}": v for step, v in
+                                run["parity"].items() if step != "r2_step_changes"})
+        if bad:
+            raise AssertionError(f"card and CPU teaug steps disagree (loss, "
+                                 f"gradients, metrics): {bad}")
+    changes = gens["2U-Net"]["parity"]["r2_step_changes"]
+    if changes["G_A2B"] or not changes["G_A2R2"]:
+        raise AssertionError(f"the 2U-Net's R2* step: {changes}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1864,13 +2286,16 @@ def main() -> int:
     t_start = time.perf_counter()
     build_phase()
     set_tf32(False)
+    t0 = time.perf_counter()
     kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
                convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev)]
-    emit("kernels", card=smi, kernels=kernels)
+    emit("kernels", card=smi, seconds=time.perf_counter() - t0,
+         kernels=kernels)
     set_tf32(True)  # the runs at PyTorch's defaults
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         train = train_phase(dev, Path(tmp))
-    emit("train", card=smi, **train)
+    emit("train", card=smi, seconds=time.perf_counter() - t0, **train)
     need = {"ideal_cycle": 8, "convlstm_bwd": 8, "convlstm_fwd": 96}
     short = {k: v for k, v in train["launches"].items()
              if v < need.get(k, 0)}
@@ -1892,9 +2317,10 @@ def main() -> int:
                              f"{witness['card_vs_cpu']}, module outputs "
                              f"{worst_fwd}")
     set_tf32(True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         teaug = teaug_phase(dev, Path(tmp))
-    emit("teaug", card=smi, **teaug)
+    emit("teaug", card=smi, seconds=time.perf_counter() - t0, **teaug)
     steps = teaug["steps"]
     if teaug["launches"]["ideal_forward"] != steps or any(
             teaug["launches"][k] < steps
@@ -1909,9 +2335,10 @@ def main() -> int:
             f"{par['loss_rel_diff']}, gradients {par['grad_max_rel']}, "
             f"metrics {par['metrics_rel_diff']}")
     set_tf32(True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         e2e = e2e_phase(dev, Path(tmp))
-    emit("e2e", card=smi, **e2e)
+    emit("e2e", card=smi, seconds=time.perf_counter() - t0, **e2e)
     need = {"ideal_fit": 2, "convlstm_fwd": 24}
     short = {k: v for k, v in e2e["launches"].items() if v < need.get(k, 0)}
     if short:
@@ -1924,20 +2351,39 @@ def main() -> int:
             or e2e["pdff_max_abs_err_vs_cpu"] > 5e-3:
         raise AssertionError(f"card and CPU maps disagree: {e2e}")
     set_tf32(True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         mag = mag_phase(dev, Path(tmp))
-    emit("mag", card=smi, **mag)
+    emit("mag", card=smi, seconds=time.perf_counter() - t0, **mag)
     check_mag(mag)
     set_tf32(True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         vet = vetnet_serve_phase(dev, Path(tmp))
-    emit("vetnet_serve", card=smi, **vet)
+    emit("vetnet_serve", card=smi, seconds=time.perf_counter() - t0, **vet)
     check_vetnet_serve(vet)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        sup = sup_phase(dev, Path(tmp))
+    emit("sup", card=smi, seconds=time.perf_counter() - t0, **sup)
+    check_sup(sup)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        gens = teaug_gens_phase(dev, Path(tmp))
+    emit("teaug_gens", card=smi, seconds=time.perf_counter() - t0, **gens)
+    check_teaug_gens(gens)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag}
+    new_paths = {"sup_pm_resynthesis": sup["runs"]["U-Net-PM-resynthesis"],
+                 "sup_2d_net_serving": sup["serving_2d_net"],
+                 **{f"teaug_{g}": gens[g] for g in TEAUG_GENS}}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
+        k["launches_on_new_paths"] = {p: run["launches"][k["name"]]
+                                      for p, run in new_paths.items()}
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """CLI: bulk inference on the card — cohort in, quantitative maps out (port of
-`ideal_gan_tpu/cli/infer.py`, VET-Net, AI-DEAL and Mag, npz export).
+`ideal_gan_tpu/cli/infer.py`, VET-Net, AI-DEAL, Mag and the supervised
+nets, npz export).
 
     python -m ideal_gan_tpu_torch.cli.infer [--model_sel VET-Net] \\
         [--experiment_dir output/TEaug-300] [--synthetic 16] \\
@@ -14,7 +15,11 @@ of the kernels):
   TE-conditioned net on the echoes and the TE vector, then the
   phase-constrained map fit;
 - `--model_sel AI-DEAL`: the field-map generators and the map fit;
-- `--model_sel Mag`: the magnitude R2* UNet and the magnitude fit.
+- `--model_sel Mag`: the magnitude R2* UNet and the magnitude fit;
+- `--model_sel 2D-Net`: the supervised PM U-Net on the legacy echoes, its
+  (R2*, (FM − 0.5)·2), then the map fit;
+- `--model_sel U-Net` or `MDWF`: the supervised net's |W|, |F| (and with
+  four channels R2*, FM) as maps, no fit.
 Weights come from `--weights` (Flax parameters), or from the experiment a
 port trainer wrote (`--experiment_dir`: its settings and newest
 checkpoint), or else from a seeded random initialization (`--seed`, with a

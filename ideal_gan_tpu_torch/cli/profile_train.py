@@ -5,16 +5,23 @@
         [--seed 0]
     python -m ideal_gan_tpu_torch.cli.profile_train --trainer teaug
         [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 72]
+        [--G_model VET-Net|U-Net|2U-Net|MDWF-Net]
+    python -m ideal_gan_tpu_torch.cli.profile_train --trainer sup
+        [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 72]
+        [--G_model multi-decod|U-Net] [--out_vars WF|WFc|PM|WF-PM]
+        [--TE1 0.0014 --dTE 0.0022]
     python -m ideal_gan_tpu_torch.cli.profile_train --trainer mag
         [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 36]
         [--training_mode supervised]
 
 `--trainer unsup` (the default) runs `--steps` AI-DEAL PM-mode step pairs
 (the FM step, then the R2 step with g_fm frozen, as `cli.train_unsup` runs
-them); `--trainer teaug` runs `--steps` VET-Net generator steps (as
-`cli.train_teaug` runs them, at one sampled TE train); `--trainer mag`
-runs `--steps` magnitude R2* steps (as `cli.train_mag` runs them, at the
-cohort's TE train). Each runs on one synthetic batch under `torch.profiler`, after one warm-up step, and print
+them); `--trainer teaug` runs `--steps` generator steps of `--G_model` (as
+`cli.train_teaug` runs them, at one sampled TE train; the 2U-Net's step is
+G_A2B's step, then G_A2R2's); `--trainer mag` runs `--steps` magnitude R2*
+steps (as `cli.train_mag` runs them, at the cohort's TE train);
+`--trainer sup` runs `--steps` supervised steps (as `cli.train_sup` runs
+them, at the cohort's TE train). Each runs on one synthetic batch under `torch.profiler`, after one warm-up step, and print
 one JSON line: the card's name and power limit, the wall time per step, the
 device time per step in each kernel category (the hand-written kernels,
 the ConvLSTM backward's sweep by stage, cuDNN convolutions, cuDNN's RNN
@@ -38,7 +45,7 @@ from torch.autograd import DeviceType
 
 from ..ops.convlstm import RECOMPUTE_RANGE
 from ..ops.ideal import BACKWARD_RANGE
-from ..train import mag, teaug, unsup
+from ..train import mag, sup, teaug, unsup
 from ..train.common import STEP_RANGE
 from .common import parse_flags, resolve_device, synthetic_dataset
 from .profile_infer import category
@@ -95,7 +102,8 @@ def _unsup_step(argv):
 
 
 def _teaug_step(argv):
-    """(cfg, device, step): one VET-Net generator step on one synthetic batch."""
+    """(cfg, device, step): one generator step (the 2U-Net: G_A2B's and
+    G_A2R2's) on one synthetic batch."""
     cfg = parse_flags(dict(teaug.DEFAULTS, data_size=384, steps=3, seed=0,
                            device="cuda"), argv)
     dev = resolve_device(cfg["device"])
@@ -106,13 +114,38 @@ def _teaug_step(argv):
     batch = (torch.from_numpy(maps).to(dev),
              teaug.sample_te(gen, cfg, bs).to(dev))
     model = teaug.build_model(cfg)
-    step_fn, tx = teaug.make_train_step(cfg, model)
-    state = teaug.init_state(cfg, model, tx, gen, dev)
+    r2_model = (teaug.build_r2_model(cfg) if cfg["G_model"] == "2U-Net"
+                else None)
+    step_fn, tx = teaug.make_train_step(cfg, model, r2_model)
+    steps = [step_fn] if r2_model is None else [
+        step_fn, teaug.make_r2_train_step(cfg, model, r2_model, tx)]
+    state = teaug.init_state(cfg, model, tx, gen, dev, r2_model)
     noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 
     def step():
-        nonlocal state
-        state, _ = step_fn(state, batch, noise_gen)
+        for fn in steps:
+            fn(state, batch, noise_gen)
+
+    return cfg, dev, step
+
+
+def _sup_step(argv):
+    """(cfg, device, step): one supervised step on one synthetic batch."""
+    cfg = parse_flags(dict(sup.DEFAULTS, data_size=384, steps=3, seed=0,
+                           device="cuda"), argv)
+    dev = resolve_device(cfg["device"])
+    bs, size = cfg["batch_size"], cfg["data_size"]
+    data = synthetic_dataset(bs, h=size, w=size, ne=cfg["n_echoes"],
+                             field=cfg["field"])
+    batch = tuple(torch.from_numpy(x).to(dev) for x in data)
+    model = sup.build_model(cfg)
+    step_fn, tx = sup.make_train_step(cfg, model)
+    state = sup.init_state(cfg, model, tx,
+                           torch.Generator().manual_seed(cfg["seed"]), dev)
+    noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
+
+    def step():
+        step_fn(state, batch, noise_gen)
 
     return cfg, dev, step
 
@@ -140,11 +173,11 @@ def _mag_step(argv):
 
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--trainer", choices=("unsup", "teaug", "mag"),
+    pre.add_argument("--trainer", choices=("unsup", "teaug", "mag", "sup"),
                      default="unsup")
     known, argv = pre.parse_known_args(argv)
     cfg, dev, step = {"unsup": _unsup_step, "teaug": _teaug_step,
-                      "mag": _mag_step}[known.trainer](argv)
+                      "mag": _mag_step, "sup": _sup_step}[known.trainer](argv)
     if dev.type != "cuda":
         raise SystemExit("profile_train measures the card: --device cuda")
     step()
@@ -190,7 +223,9 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     unit = "step_pair" if known.trainer == "unsup" else "step"
     print(json.dumps({
-        "card": smi, "trainer": known.trainer, "batch": bs,
+        "card": smi, "trainer": known.trainer,
+        "G_model": cfg.get("G_model"), "out_vars": cfg.get("out_vars"),
+        "batch": bs,
         "size": cfg["data_size"], "F": cfg["n_G_filters"], f"{unit}s": n,
         f"wall_ms_per_{unit}": wall_ms / n,
         "slices_per_s": bs * n * 1e3 / wall_ms,

@@ -1,6 +1,7 @@
 """Per-chunk model inference for the serving CLI (port of the AI-DEAL,
-VET-Net and Mag branches of `ideal_gan_tpu/cli/roi_analysis.py`'s
-`make_infer_run`, of its `_restore`, and of `_per_slice`).
+VET-Net, Mag, 2D-Net, U-Net and MDWF branches of
+`ideal_gan_tpu/cli/roi_analysis.py`'s `make_infer_run`, of its `_restore`,
+and of `_per_slice`).
 
 Weights come from `--weights` (an `.npz` of Flax parameters), or else from
 the experiment directory a port trainer wrote (`--experiment_dir`: its
@@ -9,8 +10,9 @@ the experiment directory a port trainer wrote (`--experiment_dir`: its
 random initialization, as the JAX package serves its initial weights where
 the experiment has no checkpoint.
 
-The other model families (U-Net, MDWF, 2D-Net), the PDFF-var map and the
-ROI evaluation are not ported yet (ROADMAP Queue 1).
+`GraphCuts` consumes precomputed maps and raises SystemExit, as in the JAX
+package. The PDFF-var map and the ROI evaluation are not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import torch
 
 from .. import convert, ops, physics
 from ..prob import Rician
-from ..train import mag, teaug, unsup
+from ..data import layouts
+from ..train import mag, sup, teaug, unsup
 from ..utils import Checkpoint
 from .common import load_settings, resolve_device
 
-FAMILIES = ("AI-DEAL", "VET-Net", "Mag")
+FAMILIES = ("AI-DEAL", "VET-Net", "Mag", "2D-Net", "U-Net", "MDWF")
 
 
 def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
@@ -181,6 +184,61 @@ def load_mag_model(cfg, device="cuda"):
     return model.to(dev).eval(), mcfg
 
 
+def _sup_settings(sel: str, scfg: dict) -> dict:
+    """The supervised net a selector serves: 2D-Net the PM-mode U-Net
+    (pinned before the experiment's settings are overlaid, as the JAX
+    package does), U-Net a U-Net and MDWF the WF-PM multi-decod net
+    (pinned after them)."""
+    if sel == "U-Net":
+        return dict(scfg, G_model="U-Net")
+    if sel == "MDWF":
+        return dict(scfg, G_model="multi-decod", out_vars="WF-PM")
+    return scfg
+
+
+def load_sup_model(cfg, device="cuda"):
+    """The supervised net of `cfg["model_sel"]` (2D-Net, U-Net or MDWF) on
+    `device`, in eval mode, and its `train.sup` settings. Weights come from
+    `cfg["weights"]`, an `.npz` of the Flax state's `params/...` paths,
+    whose shapes also give the width, the echo count, the attention flags
+    and, for a U-Net with a 4-channel head, out_vars WF-PM (a WFc net is
+    served from its experiment directory, where its settings name it); or
+    else from the experiment's checkpoint (`model`) at its settings; or
+    else from a seeded random initialization."""
+    dev = resolve_device(device)
+    sel = cfg["model_sel"]
+    pinned = (dict(sup.DEFAULTS, G_model="U-Net", out_vars="PM")
+              if sel == "2D-Net" else sup.DEFAULTS)
+    if cfg.get("weights"):
+        scfg = dict(pinned)
+        p = convert.load_npz(cfg["weights"])["params"]
+        if sel == "MDWF":
+            k = p["_SharedEncoder_0"]["ConvBlock_0"]["Conv_0"]["kernel"]
+            scfg.update({f"D{i}_SelfAttention": "SelfAttention_0" in p[d]
+                         for i, d in ((1, "dec_wf"), (2, "dec_r2"),
+                                      (3, "dec_fm"))})
+        else:
+            k = p["ConvBlock_0"]["Conv_0"]["kernel"]
+            scfg["D1_SelfAttention"] = "SelfAttention_0" in p
+            if sel == "U-Net" and p["Conv_0"]["kernel"].shape[-1] == 4:
+                scfg["out_vars"] = "WF-PM"
+        scfg.update(n_G_filters=int(k.shape[-1]),
+                    n_echoes=int(k.shape[2]) // 2)
+        scfg = _sup_settings(sel, scfg)
+        model = sup.build_model(scfg)
+        model.load_state_dict(convert.mdwfnet(p) if sel == "MDWF"
+                              else convert.unet(p))
+    else:
+        scfg = _sup_settings(sel, experiment_settings(cfg, pinned))
+        model = sup.build_model(scfg)
+        state = restore_checkpoint(cfg)
+        if state is None:
+            _seeded(cfg, model)
+        else:
+            model.load_state_dict(state["model"])
+    return model.to(dev).eval(), scfg
+
+
 def make_infer_run(cfg, acqs, device="cuda"):
     """Model dispatch → the per-chunk inference closure run(a, te_b) ->
     (maps (nb, 3, H, W, 2), rho_var (nb, 4, H, W, 1)). Builds the models
@@ -189,6 +247,9 @@ def make_infer_run(cfg, acqs, device="cuda"):
     serve the same maps, as in the JAX package; PDFF-var is not ported."""
     del acqs
     sel = cfg["model_sel"]
+    if sel == "GraphCuts":
+        raise SystemExit("GraphCuts mode consumes precomputed maps; "
+                         "use the library API (eval.roi) directly")
     if sel not in FAMILIES:
         raise SystemExit(f"model_sel {sel!r} is not ported yet (ROADMAP "
                          f"Queue 1); the port serves {', '.join(FAMILIES)}")
@@ -199,6 +260,10 @@ def make_infer_run(cfg, acqs, device="cuda"):
         return _mag_run(cfg, device)
     if sel == "VET-Net":
         return _vetnet_run(cfg, device)
+    if sel == "2D-Net":
+        return _twod_net_run(cfg, device)
+    if sel in ("U-Net", "MDWF"):
+        return _sup_run(cfg, device)
     g_fm, g_r2, fm_offset = load_models(cfg, device)
     field = cfg["field"]
 
@@ -259,5 +324,51 @@ def _mag_run(cfg, device):
         pm = torch.cat([torch.zeros_like(r2), r2], dim=-1)
         return (torch.cat([wf, pm], dim=1),
                 torch.cat([res.uncertainty] * 4, dim=1))
+
+    return run
+
+
+def twod_net_maps(model, a, te_b, field: float):
+    """The 2D-Net branch on one chunk: the PM U-Net on the legacy echoes →
+    (R2*, (FM − 0.5)·2) as float32 → the map fit; maps [ρ_w, ρ_f, (φ,
+    R2*)] and a zero rho_var."""
+    out = model(layouts.acqs_from_mebcrn(a)).float()
+    r2, fm = out[..., :1], (out[..., 1:] - 0.5) * 2.0
+    pm = layouts.maps_to_mebcrn(torch.cat([r2, fm], dim=-1), mode="PM")
+    rho = ops.fit_rho_fused(a, pm, te_b, field=field)
+    return torch.cat([rho, pm], dim=1), _zero_var(rho)
+
+
+def _twod_net_run(cfg, device):
+    """The 2D-Net branch (`twod_net_maps` on each chunk)."""
+    model, _ = load_sup_model(cfg, device)
+    field = cfg["field"]
+
+    @torch.inference_mode()
+    def run(a, te_b):
+        return twod_net_maps(model, a, te_b, field)
+
+    return run
+
+
+def _sup_run(cfg, device):
+    """The U-Net and MDWF branches: the net on the legacy echoes, its
+    channels [|W|, |F|(, R2*, FM)] as maps [|W|, 0], [|F|, 0], [FM, R2*]
+    (zero where the net has two channels), no fit."""
+    model, _ = load_sup_model(cfg, device)
+
+    @torch.inference_mode()
+    def run(a, te_b):
+        out = model(layouts.acqs_from_mebcrn(a))
+        wf_abs = out[..., :2]
+        pm = out[..., 2:4] if out.shape[-1] >= 4 else torch.zeros_like(
+            wf_abs)
+        zero = torch.zeros_like(wf_abs[..., 0])
+        w = torch.stack([wf_abs[..., 0], zero], -1)[:, None]
+        f = torch.stack([wf_abs[..., 1], zero], -1)[:, None]
+        pm_row = torch.stack([pm[..., 1], pm[..., 0]], -1)[:, None]
+        maps = torch.cat([w, f, pm_row], dim=1)
+        return maps, maps.new_zeros(maps.shape[:1] + (4,) + maps.shape[2:4]
+                                    + (1,))
 
     return run

@@ -1,26 +1,31 @@
-"""CLI: TE-augmentation training of VET-Net on the card (port of
+"""CLI: TE-augmentation training on the card (port of
 `ideal_gan_tpu/cli/train_teaug.py`).
 
     python -m ideal_gan_tpu_torch.cli.train_teaug --synthetic 16 \\
         --data_size 384 --batch_size 8 --epochs 2 --device cuda \\
         --output_base output
 
-Trains VET-Net (`--n_G_filters 72`, TE input, FM self-attention) from
-seeded random weights (`--seed`) on the ground-truth maps of the cohort
+Trains the generator of `--G_model` (VET-Net by default, `--n_G_filters
+72`, TE input, FM self-attention; U-Net, 2U-Net or MDWF-Net; `--out_vars`
+PM or WF) from seeded random weights (`--seed`) on the ground-truth maps
+of the cohort
 (`--synthetic N` slices, or else the HDF5 cohorts under `--dataset_dir`):
 per batch `data_aug_p` geometric augmentation (with `--FM_aug`, a random
 field-map scale), with `--bip_grad` a bipolar phase row, one TE train from
 `train.teaug.sample_te`, then one generator step on acquisitions
-synthesized at that TE train plus noise. Checkpoints every `--epoch_ckpt`
+synthesized at that TE train plus noise; with the 2U-Net, then one step
+of its R2* net G_A2R2 on the same batch and noise with G_A2B frozen.
+Checkpoints (both nets with the 2U-Net) every `--epoch_ckpt`
 epochs and at the end under <output_base>/<dataset>/checkpoints/, and
 resumes from the latest one. Prints one `PM_loss` line per epoch.
 `--device` defaults to `cuda` and raises without a card; `cpu` runs the
 plain PyTorch versions of the kernels.
 
-Not ported yet (ROADMAP Queue 1 item 7): the U-Net, 2U-Net and MDWF-Net
-generators, `--out_vars WF`, `--microbatch`,
-bf16 and remat (NotImplementedError); tensorboardX summaries, the sample
-PNGs and the preemption guard are skipped with a printed note.
+Not ported yet (ROADMAP Queue 1 item 7): `--microbatch`, bf16 and remat
+(NotImplementedError); tensorboardX summaries, the sample PNGs and the
+preemption guard are skipped with a printed note. The JAX CLI's warning
+about a TPU compiler crash has no counterpart on the card; its data mesh
+(`data_mesh_for_batch`, `shard_batch`) is ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -58,9 +63,13 @@ def main(argv=None) -> dict:
     steps_per_epoch = n // cfg["batch_size"]
     cfg["total_steps"] = steps_per_epoch * cfg["epochs"]
 
-    step_fn, tx = teaug.make_train_step(cfg, model)
+    r2_model = (teaug.build_r2_model(cfg) if cfg["G_model"] == "2U-Net"
+                else None)
+    step_fn, tx = teaug.make_train_step(cfg, model, r2_model)
+    r2_step_fn = (teaug.make_r2_train_step(cfg, model, r2_model, tx)
+                  if r2_model is not None else None)
     gen = torch.Generator().manual_seed(cfg["seed"])
-    state = teaug.init_state(cfg, model, tx, gen, dev)
+    state = teaug.init_state(cfg, model, tx, gen, dev, r2_model)
     noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 
     ckpt = Checkpoint(f"{cfg['output_dir']}/checkpoints")
@@ -83,8 +92,16 @@ def main(argv=None) -> dict:
             if cfg["bip_grad"]:
                 B = bipolar_phase_row(gen, B)
             te = teaug.sample_te(gen, cfg, len(B))
-            state, metrics = step_fn(state, (B.contiguous().to(dev),
-                                             te.to(dev)), noise_gen)
+            batch = (B.contiguous().to(dev), te.to(dev))
+            if r2_step_fn is not None:
+                # 2U-Net: G_A2R2's step on the same batch and noise (the
+                # JAX CLI hands both steps one key), G_A2B frozen
+                replay = torch.Generator(device=dev)
+                replay.set_state(noise_gen.get_state())
+            state, metrics = step_fn(state, batch, noise_gen)
+            if r2_step_fn is not None:
+                state, r2m = r2_step_fn(state, batch, replay)
+                metrics.update(r2m)
         values = {k: float(v) for k, v in metrics.items()}  # synchronises
         epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
                            steps=steps_per_epoch, **values))

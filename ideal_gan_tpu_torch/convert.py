@@ -14,7 +14,9 @@ are the `/`-joined paths). Conversion rules:
   rows; its input bias is 0.
 
 Only arrays cross this boundary; nothing of JAX is imported. Every map is
-linear, so the converters also map gradient trees.
+linear, so the converters also map gradient trees. The whole-net
+converters (`unet`, `vetnet`, `mdwfnet`) check that every Flax leaf was
+mapped.
 """
 
 from __future__ import annotations
@@ -95,13 +97,37 @@ def _conv(p: dict, prefix: str) -> dict:
             f"{prefix}bias": _t(p["bias"])}
 
 
+def _n_leaves(tree) -> int:
+    return sum(_n_leaves(v) for v in tree.values()) \
+        if isinstance(tree, dict) else 1
+
+
+def _checked(p: dict, sd: dict) -> dict:
+    """`sd`, after checking that its entries account for every leaf of the
+    Flax tree `p`: a leaf that no rule maps raises instead of being
+    dropped. An entry stands for one leaf, but the stacked LSTM gates (four
+    Flax kernels or biases each) and the LSTM input bias Flax does not
+    have."""
+    def leaves(key):
+        if key.endswith("lstm.bias_ih_l0"):
+            return 0
+        return 4 if key.endswith(("lstm.weight_ih_l0", "lstm.weight_hh_l0",
+                                  "lstm.bias_hh_l0")) else 1
+
+    mapped = sum(leaves(k) for k in sd)
+    if mapped != _n_leaves(p):
+        raise ValueError(f"conversion maps {mapped} of the {_n_leaves(p)} "
+                         f"Flax leaves")
+    return sd
+
+
 def unet(p: dict, num_layers: int = 4) -> dict:
-    """State dict of `models.UNet(me_layer=True)` from the Flax `UNet`
-    params (ConvBlock_0..L-1 encoder, ConvBlock_L bottom, ConvBlock_L+1..
-    decoder, Upsample_0.., SelfAttention_0, Conv_0 head; with te_input
-    TEEncoder_0..L-1, one per encoder level; with the σ head Conv_1 (to 16)
-    and Conv_2 (to n_out))."""
-    sd = convlstm(p["ConvLSTM_0"], "lstm.")
+    """State dict of `models.UNet` from the Flax `UNet` params (ConvLSTM_0
+    with me_layer; ConvBlock_0..L-1 encoder, ConvBlock_L bottom,
+    ConvBlock_L+1.. decoder, Upsample_0.., SelfAttention_0, Conv_0 head;
+    with te_input TEEncoder_0..L-1, one per encoder level; with the σ head
+    Conv_1 (to 16) and Conv_2 (to n_out))."""
+    sd = convlstm(p["ConvLSTM_0"], "lstm.") if "ConvLSTM_0" in p else {}
     for i in range(num_layers):
         sd.update(conv_block(p[f"ConvBlock_{i}"], f"down.{i}."))
         sd.update(conv_block(p[f"ConvBlock_{num_layers + 1 + i}"],
@@ -116,7 +142,7 @@ def unet(p: dict, num_layers: int = 4) -> dict:
     if "Conv_1" in p:
         sd.update(_conv(p["Conv_1"], "sigma.conv1."))
         sd.update(_conv(p["Conv_2"], "sigma.conv2."))
-    return sd
+    return _checked(p, sd)
 
 
 def te_encoder(p: dict, prefix: str) -> dict:
@@ -147,19 +173,40 @@ def _decoder(p: dict, prefix: str, num_layers: int) -> dict:
     return sd
 
 
-def vetnet(p: dict, num_layers: int = 4) -> dict:
-    """State dict of `models.VETNet` from the Flax `VETNet(me_layer=True)`
-    params (ConvLSTM_0; _SharedEncoder_0 with ConvBlock_0..L-1, the bottom
-    ConvBlock_L and, with te_input, TEEncoder_0..L-1; the dec_r2 and dec_fm
-    decoders with Upsample_i, ConvBlock_i, SelfAttention_0 and the Conv_0
-    head)."""
-    sd = convlstm(p["ConvLSTM_0"], "lstm.")
-    enc = p["_SharedEncoder_0"]
+def _shared_encoder(enc: dict, num_layers: int) -> dict:
+    """The `encoder.` entries from the Flax `_SharedEncoder_0` params
+    (ConvBlock_0..L-1, the bottom ConvBlock_L; TEEncoder_0..L-1 in the
+    "adain" TE mode, Dense_0 in "dense_l1")."""
+    sd = {}
     for i in range(num_layers):
         sd.update(conv_block(enc[f"ConvBlock_{i}"], f"encoder.blocks.{i}."))
         if f"TEEncoder_{i}" in enc:
             sd.update(te_encoder(enc[f"TEEncoder_{i}"], f"encoder.te.{i}."))
     sd.update(conv_block(enc[f"ConvBlock_{num_layers}"], "encoder.bottom."))
+    if "Dense_0" in enc:
+        sd["encoder.te_dense.weight"] = _t(
+            np.asarray(enc["Dense_0"]["kernel"]).T)
+        sd["encoder.te_dense.bias"] = _t(enc["Dense_0"]["bias"])
+    return sd
+
+
+def vetnet(p: dict, num_layers: int = 4) -> dict:
+    """State dict of `models.VETNet` from the Flax `VETNet` params
+    (ConvLSTM_0 with me_layer; _SharedEncoder_0; the dec_r2 and dec_fm
+    decoders with Upsample_i, ConvBlock_i, SelfAttention_0 and the Conv_0
+    head)."""
+    sd = convlstm(p["ConvLSTM_0"], "lstm.") if "ConvLSTM_0" in p else {}
+    sd.update(_shared_encoder(p["_SharedEncoder_0"], num_layers))
     for dec in ("dec_r2", "dec_fm"):
         sd.update(_decoder(p[dec], f"{dec}.", num_layers))
-    return sd
+    return _checked(p, sd)
+
+
+def mdwfnet(p: dict, num_layers: int = 4) -> dict:
+    """State dict of `models.MDWFNet` from the Flax `MDWFNet` params
+    (_SharedEncoder_0, with Dense_0 under te_input; the dec_wf, dec_r2 and
+    dec_fm decoders)."""
+    sd = _shared_encoder(p["_SharedEncoder_0"], num_layers)
+    for dec in ("dec_wf", "dec_r2", "dec_fm"):
+        sd.update(_decoder(p[dec], f"{dec}.", num_layers))
+    return _checked(p, sd)

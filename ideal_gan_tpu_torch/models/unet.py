@@ -1,26 +1,31 @@
-"""U-Net and VET-Net (port of `ideal_gan_tpu/models/unet.py::UNet` and
-`VETNet`).
+"""U-Net, MDWF-Net and VET-Net (port of `ideal_gan_tpu/models/unet.py::UNet`,
+`MDWFNet` and `VETNet`).
 
-`UNet` is ported on the paths `train.unsup.build_models` and
-`train.mag.build_model` use: the multi-echo ConvLSTM front
-(`me_layer=True`), `num_layers` encoder levels with skip connections, with
-`te_input` a TEEncoder and AdaIN after every encoder level's block,
-optional self-attention at the first decoder level, a 1×1 head and its
-activation, and the σ head (`bayesian`, `std_out`). `VETNet` (the
-reference `PM_Generator`) is ported on the path `train.teaug.build_model`
-uses: the ConvLSTM front, the shared encoder with LSTM→AdaIN TE
-conditioning at every level (`te_input`) or none, and two decoders (R2*
-sigmoid, field map tanh). The other options (a `Normal` posterior for a
-Bayesian tanh head, the CSE physics layer, echo folding without the
-ConvLSTM, dropout) raise NotImplementedError; VET-Net is the ConvLSTM-front
-form without dropout, instance norm only, one output channel per decoder
-and no "dense_l1" TE mode (MDWF-Net's). ROADMAP.md queues the rest.
+`UNet` is ported on the paths `train.unsup.build_models`,
+`train.mag.build_model`, `train.teaug.build_model` and `train.sup.build_model`
+use: with `me_layer` the multi-echo ConvLSTM front, without it the legacy
+4-D input (nb, H, W, C) or a 5-D input (nb, ne, H, W, C) folded into nb·ne
+images; `num_layers` encoder levels with skip connections, with `te_input`
+a TEEncoder and AdaIN after every encoder level's block, optional
+self-attention at the first decoder level, a 1×1 head of `n_out` channels
+and its activation, and the σ head (`bayesian`, `std_out`). `VETNet` (the
+reference `PM_Generator`) and `MDWFNet` (the reference `MDWF_Generator`)
+share `_SharedEncoder`: conv blocks with LSTM→AdaIN TE conditioning at
+every level ("adain", VET-Net) or a Dense(TE) + ReLU added at level 1
+("dense_l1", MDWF-Net); VET-Net has two decoders (R2* sigmoid, field map
+tanh), MDWF-Net three (water/fat sigmoid ×2, R2* relu, field map tanh).
+The other options (a `Normal` posterior for a Bayesian tanh head, the CSE
+physics layer, dropout, no skip connections) raise NotImplementedError;
+ROADMAP.md queues them.
 
-Input MEBCRN-like (nb, ne, H, W, Cin); output (nb, 1, H, W, n_out) for the
-UNet (a `prob.Rician` of two such maps with `bayesian`, the pair (out, σ)
-with `std_out`) and (nb, 1, H, W, [FM, R2*]) for VET-Net, the JAX
-package's layouts. Inside, activations are NCHW. H and W must be divisible
-by 2**num_layers.
+Layouts are the JAX package's: the UNet returns (nb, 1, H, W, n_out) with
+`me_layer` (a `prob.Rician` of two such maps with `bayesian`, the pair
+(out, σ) with `std_out`), (nb, H, W, n_out) on a 4-D input and (nb, ne, H,
+W, n_out) on a folded 5-D one; VET-Net returns (nb, 1, H, W, [FM, R2*])
+with `me_layer` and [R2*, FM] channel-last without it (folded as the
+UNet); MDWF-Net takes the legacy 4-D input and returns (nb, H, W, [|W|,
+|F|, R2*, FM]). Inside, activations are NCHW. H and W must be divisible by
+2**num_layers.
 """
 
 from __future__ import annotations
@@ -36,6 +41,32 @@ from .attention import SelfAttention, adain
 from .blocks import (ConvBlock, TEEncoder, Upsample, get_activation,
                      he_normal_, init_params)
 from .convlstm import ConvLSTM
+
+ME = "me"  # the layout tag of the ConvLSTM front's (nb, 1, H, W, C) output
+
+
+def _front(lstm, x):
+    """A net's input as the NCHW input of its first block, and the tag of
+    its output layout: the ConvLSTM's final state (`ME`) with a front; a
+    5-D (nb, ne, H, W, C) folded into nb·ne images, tagged (nb, ne); the
+    legacy 4-D (nb, H, W, C) as it is, tagged None."""
+    if lstm is not None:
+        return lstm(x), ME
+    if x.ndim == 5:
+        nb, ne = x.shape[:2]
+        x = x.reshape(nb * ne, *x.shape[2:])
+        return x.permute(0, 3, 1, 2).contiguous(), (nb, ne)
+    return x.permute(0, 3, 1, 2).contiguous(), None
+
+
+def _back(out, layout):
+    """NCHW head output → the layout `_front` tagged."""
+    out = out.permute(0, 2, 3, 1)
+    if layout == ME:
+        return out[:, None]
+    if layout is not None:
+        return out.reshape(*layout, *out.shape[1:])
+    return out
 
 
 class _SigmaHead(nn.Module):
@@ -71,7 +102,7 @@ class UNet(nn.Module):
         super().__init__()
         unported = {"bayesian with a tanh head (Normal; ROADMAP Queue 1 item "
                     "6)": bayesian and output_activation == "tanh",
-                    "cse_layer": cse_layer, "me_layer=False": not me_layer,
+                    "cse_layer": cse_layer,
                     "skip_con=False": not skip_con, "dropout": dropout > 0}
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -81,10 +112,10 @@ class UNet(nn.Module):
         self.output_activation = output_activation
         self.te_input = te_input
         self.bayesian = bayesian
-        self.lstm = ConvLSTM(in_channels, filters)
+        self.lstm = ConvLSTM(in_channels, filters) if me_layer else None
         self.down = nn.ModuleList()
         self.te = nn.ModuleList() if te_input else None
-        cin, f = filters, filters
+        cin, f = (filters if me_layer else in_channels), filters
         for _ in range(num_layers):
             self.down.append(ConvBlock(cin, f, norm=norm))
             if te_input:
@@ -104,10 +135,11 @@ class UNet(nn.Module):
         self.sigma = _SigmaHead(f, n_out) if bayesian or std_out else None
 
     def forward(self, x, te=None):
-        """x (nb, ne, H, W, Cin); te (nb, ne), needed with `te_input`."""
+        """x (nb, ne, H, W, Cin) with `me_layer`, else (nb, H, W, Cin) or
+        (nb, ne, H, W, Cin); te (nb, ne), needed with `te_input`."""
         if self.te_input and te is None:
             raise ValueError("UNet(te_input=True) needs the TE vector")
-        x = self.lstm(x)
+        x, layout = _front(self.lstm, x)
         skips = []
         for level, block in enumerate(self.down):
             x = block(x)
@@ -121,11 +153,11 @@ class UNet(nn.Module):
             if self.attn is not None and level == 0:
                 x = self.attn(x)
             x = block(x)
-        out = get_activation(self.output_activation)(self.head(x))
-        out = out.permute(0, 2, 3, 1)[:, None]
+        out = _back(get_activation(self.output_activation)(self.head(x)),
+                    layout)
         if self.sigma is None:
             return out
-        sigma = self.sigma(x).permute(0, 2, 3, 1)[:, None]
+        sigma = _back(self.sigma(x), layout)
         return Rician(nu=out, sigma=sigma) if self.bayesian else (out, sigma)
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -134,19 +166,28 @@ class UNet(nn.Module):
 
 class _SharedEncoder(nn.Module):
     """The encoder trunk of the multi-decoder generators: `num_layers`
-    conv blocks, each followed (with `te_input`) by AdaIN towards its own
-    TEEncoder's style and a 2×2 max-pool, then the bottom block. Returns
-    (x, skips)."""
+    conv blocks, each followed by a 2×2 max-pool, then the bottom block.
+    With `te_input`, TE conditioning in one of the JAX package's two
+    modes: "adain", AdaIN after every level's block towards its own
+    TEEncoder's style; "dense_l1", Dense(TE vector of `n_echoes`) + ReLU
+    broadcast over the grid and added after level 1's max-pool (its
+    width, 2·filters). Returns (x, skips)."""
 
     def __init__(self, in_channels: int, filters: int, num_layers: int,
-                 te_input: bool):
+                 te_input: bool, te_mode: str = "adain",
+                 n_echoes: int | None = None):
         super().__init__()
+        if te_mode not in ("adain", "dense_l1"):
+            raise ValueError(f"unknown TE mode {te_mode!r}")
         self.blocks = nn.ModuleList()
-        self.te = nn.ModuleList() if te_input else None
+        adain_te = te_input and te_mode == "adain"
+        self.te = nn.ModuleList() if adain_te else None
+        self.te_dense = (nn.Linear(n_echoes, 2 * filters)
+                         if te_input and te_mode == "dense_l1" else None)
         cin, f = in_channels, filters
         for _ in range(num_layers):
             self.blocks.append(ConvBlock(cin, f))
-            if te_input:
+            if adain_te:
                 self.te.append(TEEncoder(f))
             cin, f = f, 2 * f
         self.bottom = ConvBlock(cin, f)
@@ -159,16 +200,31 @@ class _SharedEncoder(nn.Module):
                 x = adain(x, self.te[level](te))
             skips.append(x)
             x = F.max_pool2d(x, 2)
+            if self.te_dense is not None and level == 1:
+                te_vec = te[..., 0] if te.ndim == 3 else te
+                y = F.relu(self.te_dense(te_vec.to(x.dtype)))
+                x = x + y[:, :, None, None]
         return self.bottom(x), skips
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """`models.init_params` on the blocks and TEEncoders; the Dense's
+        kernel He-uniform (Flax's), its bias 0."""
+        init_params(self, generator)
+        if self.te_dense is not None:
+            with torch.no_grad():
+                bound = math.sqrt(6.0 / self.te_dense.in_features)
+                nn.init.uniform_(self.te_dense.weight, -bound, bound,
+                                 generator=generator)
+                nn.init.zeros_(self.te_dense.bias)
 
 
 class _Decoder(nn.Module):
     """One decoder branch: per level upsample → concat skip →
-    (self-attention at level 0) → conv block; 1×1 head to one channel and
-    its activation. NCHW in, (nb, 1, H, W) out."""
+    (self-attention at level 0) → conv block; 1×1 head to `n_out` channels
+    and its activation. NCHW in and out."""
 
     def __init__(self, filters_top: int, num_layers: int,
-                 head_activation: str, self_attention: bool):
+                 head_activation: str, self_attention: bool, n_out: int = 1):
         super().__init__()
         self.head_activation = head_activation
         self.up = nn.ModuleList()
@@ -181,7 +237,7 @@ class _Decoder(nn.Module):
                 self.attn = SelfAttention(f)
             self.blocks.append(ConvBlock(f, f // 2))
             f //= 2
-        self.head = nn.Conv2d(f, 1, 1)
+        self.head = nn.Conv2d(f, n_out, 1)
 
     def forward(self, x, skips):
         for level, (up, block) in enumerate(zip(self.up, self.blocks)):
@@ -192,31 +248,76 @@ class _Decoder(nn.Module):
         return get_activation(self.head_activation)(self.head(x))
 
 
-class VETNet(nn.Module):
-    """The reference `PM_Generator`, VET-Net with `te_input=True`: ConvLSTM
-    multi-echo front, shared encoder with LSTM→AdaIN TE conditioning, two
-    decoders (R2* sigmoid, field map tanh). `forward(x, te)` takes echoes
-    (nb, ne, H, W, Cin) and the TE vector (nb, ne) and returns (nb, 1, H,
-    W, [FM, R2*])."""
+class MDWFNet(nn.Module):
+    """The reference `MDWF_Generator`: the shared encoder with, under
+    `te_input`, the "dense_l1" TE conditioning, and three decoders.
+    `forward(x, te)` takes the legacy (nb, H, W, Cin) input and the TE
+    vector (nb, ne) and returns (nb, H, W, [|W|, |F| sigmoid, R2* relu,
+    FM tanh])."""
 
-    def __init__(self, in_channels: int, te_input: bool = False,
-                 filters: int = 72, num_layers: int = 4,
+    def __init__(self, in_channels: int, filters: int = 72,
+                 num_layers: int = 4, te_input: bool = False,
+                 n_echoes: int = 6, wf_self_attention: bool = False,
                  r2_self_attention: bool = False,
                  fm_self_attention: bool = True):
         super().__init__()
         self.te_input = te_input
-        self.lstm = ConvLSTM(in_channels, filters)
-        self.encoder = _SharedEncoder(filters, filters, num_layers, te_input)
+        self.encoder = _SharedEncoder(in_channels, filters, num_layers,
+                                      te_input, "dense_l1", n_echoes)
         ftop = filters * 2 ** num_layers
-        self.dec_r2 = _Decoder(ftop, num_layers, "sigmoid", r2_self_attention)
+        self.dec_wf = _Decoder(ftop, num_layers, "sigmoid",
+                               wf_self_attention, n_out=2)
+        self.dec_r2 = _Decoder(ftop, num_layers, "relu", r2_self_attention)
         self.dec_fm = _Decoder(ftop, num_layers, "tanh", fm_self_attention)
+
+    def forward(self, x, te=None):
+        if x.ndim != 4:
+            raise ValueError(f"MDWFNet takes the legacy (nb, H, W, C) "
+                             f"layout, got {tuple(x.shape)}")
+        if self.te_input and te is None:
+            raise ValueError("MDWFNet(te_input=True) needs the TE vector")
+        x, skips = self.encoder(_front(None, x)[0], te)
+        out = torch.cat([dec(x, skips) for dec in
+                         (self.dec_wf, self.dec_r2, self.dec_fm)], dim=1)
+        return _back(out, None)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        init_params(self, generator)
+
+
+class VETNet(nn.Module):
+    """The reference `PM_Generator`, VET-Net with `te_input=True`: with
+    `me_layer` the ConvLSTM multi-echo front, shared encoder with LSTM→AdaIN
+    TE conditioning, two decoders of `n_out` channels (R2* sigmoid, field
+    map tanh). `forward(x, te)` takes echoes (nb, ne, H, W, Cin) and the TE
+    vector (nb, ne) and returns (nb, 1, H, W, [FM, R2*]); without
+    `me_layer` it takes (nb, H, W, Cin) or folds (nb, ne, H, W, Cin) and
+    returns [R2*, FM] channel-last, as the JAX package."""
+
+    def __init__(self, in_channels: int, te_input: bool = False,
+                 filters: int = 72, num_layers: int = 4,
+                 r2_self_attention: bool = False,
+                 fm_self_attention: bool = True, me_layer: bool = True,
+                 n_out: int = 1):
+        super().__init__()
+        self.te_input = te_input
+        self.lstm = ConvLSTM(in_channels, filters) if me_layer else None
+        self.encoder = _SharedEncoder(filters if me_layer else in_channels,
+                                      filters, num_layers, te_input)
+        ftop = filters * 2 ** num_layers
+        self.dec_r2 = _Decoder(ftop, num_layers, "sigmoid", r2_self_attention,
+                               n_out)
+        self.dec_fm = _Decoder(ftop, num_layers, "tanh", fm_self_attention,
+                               n_out)
 
     def forward(self, x, te=None):
         if self.te_input and te is None:
             raise ValueError("VETNet(te_input=True) needs the TE vector")
-        x, skips = self.encoder(self.lstm(x), te)
-        out = torch.cat([self.dec_fm(x, skips), self.dec_r2(x, skips)], dim=1)
-        return out.permute(0, 2, 3, 1)[:, None]
+        x, layout = _front(self.lstm, x)
+        x, skips = self.encoder(x, te)
+        r2, fm = self.dec_r2(x, skips), self.dec_fm(x, skips)
+        out = [fm, r2] if layout == ME else [r2, fm]
+        return _back(torch.cat(out, dim=1), layout)
 
     def init_params(self, generator: torch.Generator) -> None:
         init_params(self, generator)

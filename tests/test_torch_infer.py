@@ -93,7 +93,7 @@ def test_cli_writes_npz(tmp_path, capsys):
 def test_cli_rejects_unported_paths(tmp_path):
     base = ["--device", "cpu", "--synthetic", "1", "--data_size", "32",
             "--output_base", str(tmp_path)]
-    for extra in (["--export", "png"], ["--model_sel", "U-Net"],
+    for extra in (["--export", "png"], ["--model_sel", "GraphCuts"],
                   ["--map", "PDFF-var"]):
         with pytest.raises(SystemExit):
             infer.main(base + extra)
@@ -123,6 +123,11 @@ bad = sorted(n for n in sys.modules
 assert not bad, bad
 for n in ("ideal_gan_tpu_torch.cli.train_unsup",
           "ideal_gan_tpu_torch.cli.train_teaug",
+          "ideal_gan_tpu_torch.cli.train_sup",
+          "ideal_gan_tpu_torch.train.sup",
+          "ideal_gan_tpu_torch.data.records",
+          "ideal_gan_tpu_torch.models.unet",
+          "ideal_gan_tpu_torch.convert",
           "ideal_gan_tpu_torch.train.teaug",
           "ideal_gan_tpu_torch.cli.train_mag",
           "ideal_gan_tpu_torch.train.mag",

@@ -138,6 +138,6 @@ def test_unported_unet_options_raise():
     with pytest.raises(NotImplementedError):
         models.UNet(2, bayesian=True)
     with pytest.raises(NotImplementedError):
-        models.UNet(2, me_layer=False)
+        models.UNet(2, cse_layer=True)
     with pytest.raises(NotImplementedError):
         models.Norm(4, "batch_norm")
