@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's AI-DEAL training, TE-augmentation training,
 AI-DEAL serving, magnitude training, Mag serving, VET-Net serving,
-supervised training with 2D-Net serving, and the other TE-augmentation
-generators' paths on one NVIDIA card.
+supervised training with 2D-Net serving, the other TE-augmentation
+generators, AI-DEAL's uncertainty path (UQ training, σ-calibration,
+PDFF-var serving) and the single-subject trainer on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -25,15 +26,18 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
               ground truth (max err < 5e-2) and the bf16 PDFF gate (< 3e-3);
             - ConvLSTM forward (3xTF32 on the tensor cores): Cin=2 and
               Cin=1, F=36, VET-Net's width Cin=2, F=72, and the 2U-Net R2*
-              net's Cin=1, F=72, each at ne=6,
-              nb=8, against the plain version in float32 and float64, two
+              net's Cin=1, F=72, each at ne=6, nb=8; the single-subject
+              trainer's Cin=1, F=36, nb=3; and the UQ calibration stage's
+              Cin=2 and Cin=1, F=36, nb=6; each against the plain version
+              in float32 and float64, two
               launches bit for bit, device time beside the 3xTF32 and FP32
               bounds, and its HMMA instruction count (see
               `convlstm_entry`);
             - IDEAL cycle: the training call (MEBCRN, nb=8, 384², ne=6) with
               the per-row TE test and with the forced uniform recurrence;
             - ConvLSTM backward: Cin=2 and Cin=1, F=36, Cin=2, F=72 and
-              Cin=1, F=72, each at ne=6, nb=8, dx, dk and db against
+              Cin=1, F=72, each at ne=6, nb=8, and Cin=1, F=36 at the
+              single-subject trainer's nb=3, dx, dk and db against
               `convlstm_backward_reference` in float64 and float32, on
               inputs that keep clear of leaky_relu's kink on either side of
               it and on random ones, two launches bit for bit, the call
@@ -145,14 +149,39 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             off) and on the CPU (96², batch 2, float64 witness; both 2U-Net
             steps; see `teaug_gens_parity`), and one G_A2R2 step on the card,
             which must change G_A2R2 and leave G_A2B as it was.
+11. uq       `ideal_gan_tpu_torch.cli.train_unsup.main --out_vars PM --UQ 1
+            --UQ_R2s 1 --UQ_calib 1` for one epoch (F=36, 24 synthetic 384²
+            slices at batch 8: a calibration split of 8, 2 step pairs, then
+            the calibration stage with its held-out NLL); one more step
+            pair and one calibration step, each counted alone and timed;
+            `cli.infer.main --model_sel AI-DEAL --experiment_dir` on that
+            run with `--map PDFF-var` and with `--map PDFF`, each with the
+            counters read around it; fails unless the cycle and both
+            ConvLSTM kernels ran on the training path, the cycle and the
+            ConvLSTM forward (and not the backward) on the calibration step,
+            the fit once a chunk under `--map PDFF`, the calibrated
+            checkpoint was served and every ConvLSTM parameter has a
+            gradient. Then the UQ FM step, the R2 step and the calibration
+            step on the card (TF32 off) and on the CPU (96², batch 2, 1e-3
+            noise, float64 witness; see `uq_step_parity`), and PDFF-var
+            serving per stage on 2 slices: the heads' mean and variance card
+            vs CPU, and `pdff_uncertainty` on the card's heads on both.
+12. single   `ideal_gan_tpu_torch.cli.train_single.main` at the JAX
+            `DEFAULTS` (F=36, bipolar, 3 slices at 384²) for 4 full-batch
+            steps with the counters read around it, then one step counted
+            alone and three timed; fails unless both ConvLSTM kernels ran
+            every step, every loss is finite and every ConvLSTM parameter of
+            both nets has a gradient. Then one step on the card (TF32 off)
+            and on the CPU (96², 3 slices, 1e-3 noise, float64 witness; see
+            `single_step_parity`).
 
 Each phase line carries its seconds. The last three lines are the card's
 `nvidia-smi` name and power limit, the `{"kernels": [...]}` summary (launches from the path that runs each kernel:
 the train phase for the cycle and the ConvLSTM backward, teaug for the
 synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
 the magnitude fit; vetnet_serve prints its own; `launches_on_new_paths`
-the counts of the sup and teaug_gens runs) and `{"ok": true, "device":
-{...}}`.
+the counts of the sup, teaug_gens, uq and single runs) and `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -448,16 +477,21 @@ def _fit_teaug_case(maps, pm, nb: int, dev, bound_ms: float,
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-# Cin=1, F=72: the 2U-Net's R2* net on the echo magnitudes (last, so that
-# the wide case stays VET-Net's Cin=2)
+# Cin=1, F=72: the 2U-Net's R2* net on the echo magnitudes (after Cin=2, so
+# that the wide case stays VET-Net's); Cin=1, nb=3: the single-subject
+# trainer's G_mag and G_pha on its 3 slices
 LSTM_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
-               (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE))
+               (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE),
+               (1, F_MAIN, 3))
+# the forward also at nb=6, the UQ calibration stage's batch (its 8-slice
+# split less the 2 held out), for the FM (Cin=2) and R2* (Cin=1) nets
+LSTM_FWD_SHAPES = LSTM_SHAPES + ((2, F_MAIN, 6), (1, F_MAIN, 6))
 # the ConvLSTM forward kernel's symbol holds this (it is also the
 # backward's state recompute)
 LSTM_FWD = "convlstm_echo"
 
 
-def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
+def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_FWD_SHAPES) -> dict:
     """The ConvLSTM forward kernel against `convlstm_reference` at each
     (Cin, F, nb) of `shapes`: held to the plain version in float32 (TF32
     off) and in float64, each to 1e-4 of scale; a second launch bit for bit
@@ -1442,9 +1476,18 @@ class _Float32Out:
         self.net = net
 
     def __call__(self, *args):
+        import dataclasses
+
+        import torch
         dtype = next(self.net.parameters()).dtype
-        return self.net(*(a.to(dtype) if a.is_floating_point() else a
-                          for a in args)).float()
+        out = self.net(*(a.to(dtype) if a.is_floating_point() else a
+                         for a in args))
+        if dataclasses.is_dataclass(out):  # a posterior (Normal, Rician)
+            return dataclasses.replace(out, **{
+                f.name: getattr(out, f.name).float()
+                for f in dataclasses.fields(out)
+                if isinstance(getattr(out, f.name), torch.Tensor)})
+        return out.float()
 
 
 def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
@@ -1888,33 +1931,41 @@ def _no_gradient(net, prefixes) -> list:
             and (p.grad is None or not bool(p.grad.abs().max() > 0))]
 
 
-def _step_run(make_loss, model, args, where, dtype=None, extra=()):
-    """One loss's value, metrics and `model`'s gradient leaves on `where`
-    from copies of `model` (and of the nets in `extra`, which the loss
-    takes after it); with `dtype` float64 the nets run in float64 and their
-    outputs are cast back to float32 (`_Float32Out`), the physics and the
-    loss staying float32."""
+def _step_run(make_loss, nets, args, where, dtype=None):
+    """One loss's value, metrics and gradient leaves on `where` from copies
+    of `nets` (which `make_loss` takes in order) and of `args`: every
+    parameter that gets a gradient, as "<i>.<name>" of the i-th net (a net
+    the loss runs without gradient has none), and every argument that
+    requires one, as "arg<i>". With `dtype` float64 the nets run in
+    float64 and their outputs are cast back to float32 (`_Float32Out`), the
+    physics and the loss staying float32."""
     import copy
 
-    nets = [copy.deepcopy(m).to(where) for m in (model, *extra)]
+    nets = [copy.deepcopy(m).to(where) for m in nets]
     calls = nets
     if dtype is not None:
         nets = [n.to(dtype) for n in nets]
         calls = [_Float32Out(n) for n in nets]
-    loss, metrics = make_loss(*calls)(*(a.to(where) for a in args))
+    args = [a.detach().to(where).requires_grad_() if a.requires_grad
+            else a.to(where) for a in args]
+    loss, metrics = make_loss(*calls)(*args)
     loss.backward()
-    return dict(loss=float(loss.detach()), grads=_grads(nets[0]),
+    grads = {f"{i}.{k}": v for i, n in enumerate(nets)
+             for k, v in _grads(n).items()}
+    grads.update({f"arg{i}": a.grad.detach().cpu()
+                  for i, a in enumerate(args) if a.requires_grad})
+    return dict(loss=float(loss.detach()), grads=grads,
                 metrics={k: float(v.detach()) for k, v in metrics.items()})
 
 
-def _parity(make_loss, model, args, dev, extra=()) -> dict:
+def _parity(make_loss, nets, args, dev) -> dict:
     """`_step_run` on `dev` and on the CPU compared (loss, metrics, every
     gradient leaf), with both against the CPU's float64 witness."""
     import torch
     cpu = torch.device("cpu")
-    card = _step_run(make_loss, model, args, dev, extra=extra)
-    ref = _step_run(make_loss, model, args, cpu, extra=extra)
-    ref64 = _step_run(make_loss, model, args, cpu, torch.float64, extra)
+    card = _step_run(make_loss, nets, args, dev)
+    ref = _step_run(make_loss, nets, args, cpu)
+    ref64 = _step_run(make_loss, nets, args, cpu, torch.float64)
     res = _compare(card, ref)
     res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
     res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
@@ -1967,8 +2018,8 @@ def sup_step_parity(dev, size: int, batch: int, f: int) -> dict:
         cfg = dict(sup.DEFAULTS, n_G_filters=f, **over)
         model = sup.build_model(cfg)
         model.init_params(torch.Generator().manual_seed(4))
-        out[name] = _parity(lambda m: sup.make_loss_fn(cfg, m), model, args,
-                            dev)
+        out[name] = _parity(lambda m: sup.make_loss_fn(cfg, m), (model,),
+                            args, dev)
     return out
 
 
@@ -2161,12 +2212,11 @@ def teaug_gens_parity(dev, g_model: str, size: int, batch: int,
                 if isinstance(m, torch.nn.Linear) and m.bias is not None:
                     m.bias += torch.linspace(0.0, 1.0, m.bias.numel())
     out = {"generator": _parity(
-        lambda m, *r2: teaug.make_loss_fn(cfg, m, *r2), nets[0], args, dev,
-        nets[1:])}
+        lambda m, *r2: teaug.make_loss_fn(cfg, m, *r2), nets, args, dev)}
     if g_model != "2U-Net":
         return out
     out["r2"] = _parity(lambda r2, m: teaug.make_r2_loss_fn(cfg, m, r2),
-                        nets[1], args, dev, nets[:1])
+                        nets[::-1], args, dev)
     model, r2 = (copy.deepcopy(n).to(dev) for n in nets)
     _, tx = teaug.make_train_step(dict(cfg, epochs=1), model, r2)
     state = teaug.TEAugState(model, tx(list(model.parameters())),
@@ -2261,6 +2311,313 @@ def check_teaug_gens(gens: dict) -> None:
     changes = gens["2U-Net"]["parity"]["r2_step_changes"]
     if changes["G_A2B"] or not changes["G_A2R2"]:
         raise AssertionError(f"the 2U-Net's R2* step: {changes}")
+
+
+# the uq phase's card-vs-CPU steps: the FM step with both Bayesian heads
+# (the heteroscedastic loss on the propagated variance), the R2 step, and
+# the calibration step, at a calibration away from ones
+UQ_CALIB = (1.0, 0.8, 1.3, 0.5, 1.1, 0.9)
+
+
+def uq_step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """The UQ FM step, the R2 step and the calibration step on `dev` and on
+    the CPU from the same weights and batch (TF32 off on the card), each
+    with a float64 witness (the nets in float64; the physics, the
+    propagated variance and the loss float32): loss, metrics and every
+    gradient leaf (for the calibration step its one leaf, `calib`, as
+    "arg0": the nets are frozen). The batch is the
+    synthetic cohort plus N(0, 1e-3²) noise, as `step_parity`'s."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import unsup
+
+    cfg = dict(unsup.DEFAULTS, n_G_filters=f, out_vars="PM", UQ=True,
+               UQ_R2s=True)
+    clean, _, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    A = torch.from_numpy(clean + 1e-3 * np.random.default_rng(2).normal(
+        size=clean.shape).astype(np.float32))
+    te = torch.from_numpy(te)
+    off = torch.zeros(())
+    g_fm, g_r2 = unsup.build_models(cfg)
+    gen = torch.Generator().manual_seed(3)
+    g_fm.init_params(gen)
+    g_r2.init_params(gen)
+    calib = torch.tensor(UQ_CALIB)
+    return {
+        "fm": _parity(lambda m, r2: unsup.make_loss_fn(cfg, m, r2),
+                      (g_fm, g_r2), (off, A, te, calib), dev),
+        "r2": _parity(lambda r2, m: unsup.make_r2_loss_fn(cfg, m, r2),
+                      (g_r2, g_fm), (off, A, te), dev),
+        "calib": _parity(lambda m, r2: unsup.make_calib_loss_fn(cfg, m, r2),
+                         (g_fm, g_r2),
+                         (calib.clone().requires_grad_(), off, A, te), dev)}
+
+
+def _heads(g_fm, g_r2, fm_offset, a):
+    """`roi_analysis.aideal_heads` as numpy (φ mean, φ var, R2* mean, R2*
+    var), each (nb, 1, H, W, 1)."""
+    import torch
+    from ideal_gan_tpu_torch.cli import roi_analysis
+    with torch.inference_mode():
+        (fm, fm_var), (r2, r2_var) = roi_analysis.aideal_heads(
+            g_fm, g_r2, fm_offset, a)
+    return [x.cpu().numpy() for x in (fm, fm_var, r2, r2_var)]
+
+
+def _gls(heads, a, t, where, field: float):
+    """`physics.pdff_uncertainty` (ρ, rho_var) on `where` from the heads'
+    numpy outputs, as numpy."""
+    import torch
+    from ideal_gan_tpu_torch import physics
+    fm, fm_var, r2, r2_var = (torch.from_numpy(x[:, 0, ..., 0]).to(where)
+                              for x in heads)
+    rho, rho_var = physics.pdff_uncertainty(
+        torch.from_numpy(a).to(where), physics.Posterior(fm, fm_var),
+        physics.Posterior(r2, r2_var), torch.from_numpy(t).to(where),
+        field=field)
+    return rho.cpu().numpy(), rho_var.cpu().numpy()
+
+
+def _scaled(x, ref) -> float:
+    """`_rel` of two numpy arrays."""
+    import torch
+    return _rel(torch.from_numpy(x), torch.from_numpy(ref))
+
+
+def uq_phase(dev, out_dir: Path, size: int = SIZE, n: int = 24,
+             batch: int = NB_SERVE, f: int = F_MAIN, parity_size: int = 96,
+             parity_batch: int = 2, compared: int = 2) -> dict:
+    """AI-DEAL's uncertainty path: the training CLI with `--out_vars PM --UQ
+    1 --UQ_R2s 1 --UQ_calib 1` for one epoch (its calibration split, its
+    calibration stage and the held-out NLL it prints), with the launch
+    counters read around it; one more UQ step pair and one calibration
+    step, each counted alone and then timed (`steady_step`); the serving
+    CLI on that run with `--map PDFF-var` and with `--map PDFF`, each
+    counted; the card-vs-CPU steps (`uq_step_parity`); and PDFF-var
+    serving held stage by stage on the first `compared` slices: the heads'
+    mean and variance card vs CPU, then `pdff_uncertainty` on identical
+    inputs (the card's heads) on the card and on the CPU, beside the
+    spread of two CPU evaluations whose inputs differ by float32's
+    rounding (1 ulp)."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli import infer, roi_analysis, train_unsup
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import unsup
+
+    flags = dict(out_vars="PM", UQ=1, UQ_R2s=1, UQ_calib=1)
+    argv = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+            str(batch), "--epochs", "1", "--n_G_filters", str(f), "--seed",
+            "0", "--device", str(dev), "--output_base", str(out_dir / "t")]
+    argv += [str(x) for k, v in flags.items() for x in (f"--{k}", v)]
+    result, wall, launches = counted(dev, lambda: train_unsup.main(argv))
+    if not _finite_losses(result["epochs"]):
+        raise AssertionError(f"uq losses not finite: {result['epochs']}")
+    state = result["state"]
+    steps_trained = state.step
+    no_grad = [f"{net}.{k}" for net in ("g_fm", "g_r2")
+               for k in _no_gradient(getattr(state, net), ("lstm.",))]
+    cfg = dict(unsup.DEFAULTS, n_G_filters=f, out_vars="PM", UQ=True,
+               UQ_R2s=True, UQ_calib=True)
+    acqs, _, te = load_cohorts(dict(cfg, synthetic=n, data_size=size))
+    bt = (torch.from_numpy(acqs[:batch]).to(dev),
+          torch.from_numpy(te[:batch]).to(dev))
+    step_fn, tx = unsup.make_train_step(cfg, state.g_fm, state.g_r2)
+    r2_fn = unsup.make_r2_train_step(cfg, state.g_fm, state.g_r2, tx)
+    calib_fn = unsup.make_calib_train_step(cfg, state.g_fm, state.g_r2)
+
+    def pair():
+        step_fn(state, bt)
+        r2_fn(state, bt)
+
+    paths = {}
+    for name, fn in (("uq_train", pair),
+                     ("uq_calib", lambda: calib_fn(state, bt))):
+        _, _, counts = counted(dev, fn)
+        paths[name] = dict(launches=counts, **steady_step(dev, fn, batch))
+    exp = out_dir / "t" / unsup.DEFAULTS["dataset"]
+    for name, map_name in (("aideal_uq_serving_pdff_var", "PDFF-var"),
+                           ("aideal_uq_serving_pdff", "PDFF")):
+        argv = ["--model_sel", "AI-DEAL", "--experiment_dir", str(exp),
+                "--map", map_name, "--synthetic", str(n), "--data_size",
+                str(size), "--infer_batch", str(batch), "--export", "npz",
+                "--seed", "0", "--device", str(dev), "--output_base",
+                str(out_dir / name)]
+        maps, wall_s, counts = counted(dev, lambda: infer.main(argv))
+        if maps.shape != (n, 3, size, size, 2) \
+                or not np.isfinite(maps).all():
+            raise AssertionError(f"{name} maps {maps.shape} not finite")
+        with np.load(out_dir / name / "infer" / "maps_pred.npz") as npz:
+            slices_per_s = float(npz["slices_per_s"])
+        paths[name] = dict(launches=counts, chunks=-(-n // batch),
+                           slices_per_s=slices_per_s,
+                           ms_per_slice=1e3 / slices_per_s, wall_s=wall_s)
+
+    scfg = dict(infer.DEFAULTS, model_sel="AI-DEAL", experiment_dir=str(exp),
+                map="PDFF-var", seed=0, synthetic=n, data_size=size)
+    step = roi_analysis.restore_checkpoint(scfg)["step"]
+    a, t = acqs[:compared], te[:compared]
+    set_tf32(False)
+    heads = {}
+    for where in (dev, "cpu"):
+        g_fm, g_r2, off = roi_analysis.load_models(scfg, where)
+        heads[str(where)] = _heads(g_fm, g_r2, off,
+                                   torch.from_numpy(a).to(where))
+    card, cpu = heads[str(dev)], heads["cpu"]
+    rho, var = _gls(card, a, t, dev, scfg["field"])
+    rho_cpu, var_cpu = _gls(card, a, t, "cpu", scfg["field"])
+    ulp = [np.nextafter(x, np.inf).astype(np.float32) for x in card]
+    rho_ulp, var_ulp = _gls(ulp, np.nextafter(a, np.inf).astype(np.float32),
+                            t, "cpu", scfg["field"])
+    serving = dict(
+        checkpoint_step=step, steps_trained=steps_trained,
+        compared_slices=compared,
+        heads_vs_cpu={k: float(np.abs(x - y).max()) for k, x, y in zip(
+            ("fm", "fm_var", "r2", "r2_var"), card, cpu)},
+        gls_on_card_heads_vs_cpu=dict(rho=_scaled(rho, rho_cpu),
+                                      rho_var=_scaled(var, var_cpu)),
+        gls_cpu_one_ulp_spread=dict(rho=_scaled(rho_ulp, rho_cpu),
+                                    rho_var=_scaled(var_ulp, var_cpu)),
+        pdff_var_finite=bool(np.isfinite(
+            roi_analysis.pdff_variance_map(
+                np.concatenate([rho, np.concatenate(card[::2], -1)], 1),
+                var)).all()))
+    parity = uq_step_parity(dev, parity_size, parity_batch, f)
+    set_tf32(True)
+    return dict(launches=launches, wall_s=wall, epochs=result["epochs"],
+                steps=steps_trained, calibration=result.get("calibration"),
+                no_gradient=no_grad, paths=paths, serving=serving,
+                parity=parity,
+                parity_shape=dict(size=parity_size, batch=parity_batch, F=f))
+
+
+def check_uq(uq: dict) -> None:
+    """The uq phase's gates: the cycle, ConvLSTM forward and backward
+    kernels on the training CLI and on a step pair, the cycle and ConvLSTM
+    forward on a calibration step (no backward: the nets are frozen), the
+    fit kernel once a chunk of `--map PDFF` serving (the warm-up chunk
+    included) and none under `--map PDFF-var`, the ConvLSTM forward on
+    both; the calibration stage ran and every ConvLSTM parameter has a
+    gradient; the card-vs-CPU steps (`_parity_failures`); PDFF-var serving
+    per stage: the heads card vs CPU ≤ 5e-3, and `pdff_uncertainty` on
+    identical inputs card vs CPU ≤ 1e-3 of each output's scale (float32's
+    6e-8 relative rounding times the per-voxel 2×2 GLS's conditioning,
+    which the 1-ulp spread shows)."""
+    p = uq["paths"]
+    need = {"uq_train": ("ideal_cycle", "convlstm_fwd", "convlstm_bwd"),
+            "uq_calib": ("ideal_cycle", "convlstm_fwd"),
+            "aideal_uq_serving_pdff": ("ideal_fit", "convlstm_fwd"),
+            "aideal_uq_serving_pdff_var": ("convlstm_fwd",)}
+    short = {k: p[k]["launches"] for k, names in need.items()
+             if any(p[k]["launches"][x] < 1 for x in names)}
+    short.update({"cli": uq["launches"]} if any(
+        uq["launches"][x] < 1 for x in need["uq_train"]) else {})
+    if short or p["uq_calib"]["launches"]["convlstm_bwd"] \
+            or p["aideal_uq_serving_pdff_var"]["launches"]["ideal_fit"]:
+        raise AssertionError(f"uq paths skipped kernels: {short or p}")
+    srv = p["aideal_uq_serving_pdff"]
+    if srv["launches"]["ideal_fit"] != srv["chunks"] + 1:
+        raise AssertionError(f"PDFF serving skipped the fit: {srv}")
+    if not uq["calibration"] or uq["no_gradient"]:
+        raise AssertionError(f"uq calibration {uq['calibration']}, "
+                             f"no gradient {uq['no_gradient']}")
+    if uq["serving"]["checkpoint_step"] != uq["steps"]:
+        raise AssertionError(f"serving did not restore the calibrated "
+                             f"checkpoint: {uq['serving']}")
+    bad = _parity_failures(uq["parity"])
+    if bad:
+        raise AssertionError(f"card and CPU UQ steps disagree (loss, "
+                             f"gradients, metrics): {bad}")
+    srv = uq["serving"]
+    if max(srv["heads_vs_cpu"].values()) > 5e-3 \
+            or max(srv["gls_on_card_heads_vs_cpu"].values()) > 1e-3 \
+            or not srv["pdff_var_finite"]:
+        raise AssertionError(f"card and CPU PDFF-var serving disagree: "
+                             f"{srv}")
+
+
+def single_step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """One single-subject step at the JAX `DEFAULTS` (bipolar, MSE) on
+    `dev` and on the CPU from the same weights and batch (TF32 off on the
+    card), with a float64 witness: loss, metrics and every gradient leaf of
+    both nets. The echoes and maps carry N(0, 1e-3²) noise, so neither the
+    nets' input nor the loss's masks have an exactly zero background."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import single
+
+    cfg = dict(single.DEFAULTS, n_G_filters=f)
+    acqs, maps, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    rng = np.random.default_rng(2)
+    args = tuple(torch.from_numpy((x + 1e-3 * rng.normal(size=x.shape))
+                                  .astype(np.float32)) for x in (acqs, maps))
+    g_mag, g_pha = single.build_models(cfg)
+    gen = torch.Generator().manual_seed(4)
+    g_mag.init_params(gen)
+    g_pha.init_params(gen)
+    return _parity(lambda m, p: single.make_loss_fn(cfg, m, p),
+                   (g_mag, g_pha), args + (torch.from_numpy(te),), dev)
+
+
+def single_phase(dev, out_dir: Path, size: int = SIZE, f: int = F_MAIN,
+                 epochs: int = 4, parity_size: int = 96) -> dict:
+    """The single-subject CLI at the JAX `DEFAULTS` (F=36, bipolar, the
+    `data_idx`-th 3 slices of a 12-slice synthetic cohort) for `epochs`
+    full-batch steps with the launch counters read around it; one more
+    step counted alone, then timed (`steady_step`); every ConvLSTM
+    parameter's gradient; the card-vs-CPU step at `parity_size`²
+    (`single_step_parity`)."""
+    import torch
+    from ideal_gan_tpu_torch.cli import train_single
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import single
+
+    argv = ["--synthetic", "12", "--data_size", str(size), "--epochs",
+            str(epochs), "--epoch_ckpt", str(epochs // 2), "--n_G_filters",
+            str(f), "--seed", "0", "--device", str(dev), "--output_base",
+            str(out_dir)]
+    result, wall, launches = counted(dev, lambda: train_single.main(argv))
+    if not _finite_losses(result["epochs"]):
+        raise AssertionError(f"single losses not finite: {result['epochs']}")
+    state = result["state"]
+    no_grad = [f"{net}.{k}" for net in ("g_mag", "g_pha")
+               for k in _no_gradient(getattr(state, net), ("lstm.",))]
+    cfg = dict(single.DEFAULTS, n_G_filters=f)
+    i0 = 3 * cfg["data_idx"]
+    data = load_cohorts(dict(cfg, synthetic=12, data_size=size))
+    bt = tuple(torch.from_numpy(x[i0:i0 + 3]).to(dev) for x in data)
+    step_fn, _ = single.make_train_step(cfg, state.g_mag, state.g_pha)
+    _, _, step_launches = counted(dev, lambda: step_fn(state, bt))
+    timed = steady_step(dev, lambda: step_fn(state, bt), 3)
+    set_tf32(False)
+    parity = single_step_parity(dev, parity_size, 3, f)
+    set_tf32(True)
+    return dict(launches=launches, steps=epochs, wall_s=wall,
+                epochs=result["epochs"], no_gradient=no_grad,
+                launches_per_step=step_launches, **timed, parity=parity,
+                parity_shape=dict(size=parity_size, batch=3, F=f))
+
+
+def check_single(s: dict) -> None:
+    """The single phase's gates: both ConvLSTM kernels at least once a step
+    of the CLI's run and in the step counted alone; finite losses and a
+    gradient on every ConvLSTM parameter of both nets; the card-vs-CPU
+    step (`_parity_failures`)."""
+    k = s["steps"]
+    if any(s["launches"][x] < k or s["launches_per_step"][x] < 1
+           for x in ("convlstm_fwd", "convlstm_bwd")):
+        raise AssertionError(f"single skipped the ConvLSTM kernels in {k} "
+                             f"steps: {s['launches']}, "
+                             f"{s['launches_per_step']}")
+    if s["no_gradient"]:
+        raise AssertionError(f"single: ConvLSTM parameters without a "
+                             f"gradient: {s['no_gradient']}")
+    bad = _parity_failures({"single": s["parity"]})
+    if bad:
+        raise AssertionError(f"card and CPU single steps disagree (loss, "
+                             f"gradients, metrics): {bad}")
 
 
 def main() -> int:
@@ -2374,12 +2731,31 @@ def main() -> int:
         gens = teaug_gens_phase(dev, Path(tmp))
     emit("teaug_gens", card=smi, seconds=time.perf_counter() - t0, **gens)
     check_teaug_gens(gens)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        uq = uq_phase(dev, Path(tmp))
+    emit("uq", card=smi, seconds=time.perf_counter() - t0, **uq)
+    check_uq(uq)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        sgl = single_phase(dev, Path(tmp))
+    emit("single", card=smi, seconds=time.perf_counter() - t0, **sgl)
+    check_single(sgl)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag}
     new_paths = {"sup_pm_resynthesis": sup["runs"]["U-Net-PM-resynthesis"],
                  "sup_2d_net_serving": sup["serving_2d_net"],
-                 **{f"teaug_{g}": gens[g] for g in TEAUG_GENS}}
+                 **{f"teaug_{g}": gens[g] for g in TEAUG_GENS},
+                 "uq_train": uq["paths"]["uq_train"],
+                 "uq_calib": uq["paths"]["uq_calib"],
+                 "aideal_uq_serving_pdff": uq["paths"][
+                     "aideal_uq_serving_pdff"],
+                 "aideal_uq_serving_pdff_var": uq["paths"][
+                     "aideal_uq_serving_pdff_var"],
+                 "single": sgl}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

@@ -14,7 +14,9 @@ of the kernels):
 - `--model_sel VET-Net` (the default, as in the JAX package): the
   TE-conditioned net on the echoes and the TE vector, then the
   phase-constrained map fit;
-- `--model_sel AI-DEAL`: the field-map generators and the map fit;
+- `--model_sel AI-DEAL`: the field-map generators and the map fit (with
+  `--map PDFF-var`, the GLS fit of `physics.pdff_uncertainty` under the
+  heads' posteriors, `--rem_R2` dropping R2*);
 - `--model_sel Mag`: the magnitude R2* UNet and the magnitude fit;
 - `--model_sel 2D-Net`: the supervised PM U-Net on the legacy echoes, its
   (R2*, (FM − 0.5)·2), then the map fit;
@@ -27,7 +29,9 @@ printed line). The cohort is `--synthetic N` slices, or else the HDF5
 cohorts under `--dataset_dir`. Writes <output_base>/<dataset>/maps_pred.npz
 (maps MEBCRN + pdff/r2s/field planes) and prints the steady-state
 throughput measured after a warm-up chunk. `--map` PDFF, R2s and Water
-serve the same maps; PDFF-var, PNG and DICOM export are not ported yet.
+serve the same maps; with PDFF-var the maps' ρ is the GLS estimate, and the
+covariance `rho_var` is computed and discarded, as the JAX CLI discards it.
+PNG and DICOM export are not ported yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ EXPORT_FORMATS = ("npz",)
 DEFAULTS = dict(
     dataset="infer", experiment_dir="", model_sel="VET-Net", map="PDFF",
     n_echoes=6, field=1.5, infer_batch=8, export="npz", weights="",
+    rem_R2=False,
 )
 
 

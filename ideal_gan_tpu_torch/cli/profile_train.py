@@ -2,7 +2,7 @@
 
     python -m ideal_gan_tpu_torch.cli.profile_train [--trainer unsup]
         [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 36]
-        [--seed 0]
+        [--seed 0] [--UQ 1 --UQ_R2s 1 [--UQ_calib 1]]
     python -m ideal_gan_tpu_torch.cli.profile_train --trainer teaug
         [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 72]
         [--G_model VET-Net|U-Net|2U-Net|MDWF-Net]
@@ -13,15 +13,22 @@
     python -m ideal_gan_tpu_torch.cli.profile_train --trainer mag
         [--data_size 384] [--batch_size 8] [--steps 3] [--n_G_filters 36]
         [--training_mode supervised]
+    python -m ideal_gan_tpu_torch.cli.profile_train --trainer single
+        [--data_size 384] [--steps 3] [--n_G_filters 36]
+        [--grad_mode bipolar]
 
 `--trainer unsup` (the default) runs `--steps` AI-DEAL PM-mode step pairs
 (the FM step, then the R2 step with g_fm frozen, as `cli.train_unsup` runs
-them); `--trainer teaug` runs `--steps` generator steps of `--G_model` (as
+them; with `--UQ 1 --UQ_R2s 1` the Bayesian heads and the heteroscedastic
+loss), or with `--UQ_calib 1` `--steps` σ-calibration steps (both nets
+frozen); `--trainer teaug` runs `--steps` generator steps of `--G_model` (as
 `cli.train_teaug` runs them, at one sampled TE train; the 2U-Net's step is
 G_A2B's step, then G_A2R2's); `--trainer mag` runs `--steps` magnitude R2*
 steps (as `cli.train_mag` runs them, at the cohort's TE train);
 `--trainer sup` runs `--steps` supervised steps (as `cli.train_sup` runs
-them, at the cohort's TE train). Each runs on one synthetic batch under `torch.profiler`, after one warm-up step, and print
+them, at the cohort's TE train); `--trainer single` runs `--steps`
+full-batch single-subject steps on 3 slices (as `cli.train_single` runs
+them). Each runs on one synthetic batch under `torch.profiler`, after one warm-up step, and print
 one JSON line: the card's name and power limit, the wall time per step, the
 device time per step in each kernel category (the hand-written kernels,
 the ConvLSTM backward's sweep by stage, cuDNN convolutions, cuDNN's RNN
@@ -45,7 +52,7 @@ from torch.autograd import DeviceType
 
 from ..ops.convlstm import RECOMPUTE_RANGE
 from ..ops.ideal import BACKWARD_RANGE
-from ..train import mag, sup, teaug, unsup
+from ..train import mag, single, sup, teaug, unsup
 from ..train.common import STEP_RANGE
 from .common import parse_flags, resolve_device, synthetic_dataset
 from .profile_infer import category
@@ -79,7 +86,8 @@ def _is_lstm_op(name: str) -> bool:
 
 
 def _unsup_step(argv):
-    """(cfg, device, step): one AI-DEAL PM step pair on one synthetic batch."""
+    """(cfg, device, step): one AI-DEAL PM step pair on one synthetic batch,
+    or with UQ_calib one calibration step."""
     cfg = parse_flags(dict(unsup.DEFAULTS, data_size=384, steps=3, seed=0,
                            device="cuda", out_vars="PM"), argv)
     dev = resolve_device(cfg["device"])
@@ -90,11 +98,15 @@ def _unsup_step(argv):
     g_fm, g_r2 = unsup.build_models(cfg)
     step_fn, tx = unsup.make_train_step(cfg, g_fm, g_r2)
     r2_step_fn = unsup.make_r2_train_step(cfg, g_fm, g_r2, tx)
+    calib_fn = unsup.make_calib_train_step(cfg, g_fm, g_r2)
     state = unsup.init_state(cfg, g_fm, g_r2, tx,
                              torch.Generator().manual_seed(cfg["seed"]), dev)
 
     def step():
         nonlocal state
+        if cfg["UQ_calib"]:
+            state, _ = calib_fn(state, batch)
+            return
         state, _ = step_fn(state, batch)
         state, _ = r2_step_fn(state, batch)
 
@@ -171,13 +183,35 @@ def _mag_step(argv):
     return cfg, dev, step
 
 
+def _single_step(argv):
+    """(cfg, device, step): one single-subject step on 3 synthetic slices."""
+    cfg = parse_flags(dict(single.DEFAULTS, data_size=384, steps=3, seed=0,
+                           device="cuda", batch_size=3), argv)
+    dev = resolve_device(cfg["device"])
+    size = cfg["data_size"]
+    data = synthetic_dataset(cfg["batch_size"], h=size, w=size,
+                             ne=cfg["n_echoes"])
+    batch = tuple(torch.from_numpy(x).to(dev) for x in data)
+    g_mag, g_pha = single.build_models(cfg)
+    step_fn, tx = single.make_train_step(cfg, g_mag, g_pha)
+    state = single.init_state(cfg, g_mag, g_pha, tx,
+                              torch.Generator().manual_seed(cfg["seed"]),
+                              dev)
+
+    def step():
+        step_fn(state, batch)
+
+    return cfg, dev, step
+
+
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--trainer", choices=("unsup", "teaug", "mag", "sup"),
-                     default="unsup")
+    pre.add_argument("--trainer", default="unsup",
+                     choices=("unsup", "teaug", "mag", "sup", "single"))
     known, argv = pre.parse_known_args(argv)
     cfg, dev, step = {"unsup": _unsup_step, "teaug": _teaug_step,
-                      "mag": _mag_step, "sup": _sup_step}[known.trainer](argv)
+                      "mag": _mag_step, "sup": _sup_step,
+                      "single": _single_step}[known.trainer](argv)
     if dev.type != "cuda":
         raise SystemExit("profile_train measures the card: --device cuda")
     step()
@@ -221,10 +255,13 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    unit = "step_pair" if known.trainer == "unsup" else "step"
+    unit = "step"
+    if known.trainer == "unsup":
+        unit = "calib_step" if cfg["UQ_calib"] else "step_pair"
     print(json.dumps({
         "card": smi, "trainer": known.trainer,
         "G_model": cfg.get("G_model"), "out_vars": cfg.get("out_vars"),
+        "UQ": cfg.get("UQ"), "UQ_R2s": cfg.get("UQ_R2s"),
         "batch": bs,
         "size": cfg["data_size"], "F": cfg["n_G_filters"], f"{unit}s": n,
         f"wall_ms_per_{unit}": wall_ms / n,

@@ -10,9 +10,13 @@ the experiment directory a port trainer wrote (`--experiment_dir`: its
 random initialization, as the JAX package serves its initial weights where
 the experiment has no checkpoint.
 
-`GraphCuts` consumes precomputed maps and raises SystemExit, as in the JAX
-package. The PDFF-var map and the ROI evaluation are not ported yet
-(ROADMAP Queue 1).
+AI-DEAL reads posterior heads where the experiment trained them (UQ,
+UQ_R2s): the Normal's loc and variance, the Rician's ν and variance. With
+`--map PDFF-var` it serves ρ and its covariance `rho_var` from
+`physics.pdff_uncertainty` (with `rem_R2`); `pdff_variance_map` turns them
+into the PDFF variance. `GraphCuts` consumes precomputed maps and raises
+SystemExit, as in the JAX package. The ROI evaluation is not ported yet
+(ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import convert, ops, physics
-from ..prob import Rician
+from ..prob import Normal, Rician
 from ..data import layouts
 from ..train import mag, sup, teaug, unsup
 from ..utils import Checkpoint
@@ -96,7 +100,8 @@ def load_models(cfg, device="cuda"):
     """The AI-DEAL generators on `device`, in eval mode, and the global FM
     offset. Weights come from `cfg["weights"]`, an `.npz` of the Flax state's
     `params_fm/...`, `params_r2/...` (and optional `fm_offset`) paths, whose
-    shapes also give the width and the attention flags; or else from the
+    shapes also give the width, the attention flags and the Bayesian heads
+    (UQ, UQ_R2s: a σ head's `Conv_1`); or else from the
     experiment's checkpoint (`g_fm`, `g_r2`, `fm_offset`) at its settings;
     or else from a seeded random initialization."""
     dev = resolve_device(device)
@@ -106,7 +111,9 @@ def load_models(cfg, device="cuda"):
         lstm = tree["params_fm"]["ConvLSTM_0"]["input_conv"]["kernel"]
         ucfg.update(n_G_filters=int(lstm.shape[-1]) // 4,
                     D1_SelfAttention="SelfAttention_0" in tree["params_fm"],
-                    D2_SelfAttention="SelfAttention_0" in tree["params_r2"])
+                    D2_SelfAttention="SelfAttention_0" in tree["params_r2"],
+                    UQ="Conv_1" in tree["params_fm"],
+                    UQ_R2s="Conv_1" in tree["params_r2"])
         g_fm, g_r2 = unsup.build_models(ucfg)
         g_fm.load_state_dict(convert.unet(tree["params_fm"]))
         g_r2.load_state_dict(convert.unet(tree["params_r2"]))
@@ -253,9 +260,6 @@ def make_infer_run(cfg, acqs, device="cuda"):
     if sel not in FAMILIES:
         raise SystemExit(f"model_sel {sel!r} is not ported yet (ROADMAP "
                          f"Queue 1); the port serves {', '.join(FAMILIES)}")
-    if cfg.get("map", "PDFF") == "PDFF-var":
-        raise SystemExit("map 'PDFF-var' is not ported yet (ROADMAP Queue 1 "
-                         "item 6)")
     if sel == "Mag":
         return _mag_run(cfg, device)
     if sel == "VET-Net":
@@ -265,18 +269,73 @@ def make_infer_run(cfg, acqs, device="cuda"):
     if sel in ("U-Net", "MDWF"):
         return _sup_run(cfg, device)
     g_fm, g_r2, fm_offset = load_models(cfg, device)
-    field = cfg["field"]
+    pdff_var = cfg.get("map", "PDFF") == "PDFF-var"
+    field, rem_r2 = cfg["field"], bool(cfg.get("rem_R2", False))
 
     @torch.inference_mode()
     def run(a, te_b):
-        fm_mean = g_fm(a) + fm_offset
-        a_abs = torch.sqrt(torch.sum(torch.square(a), dim=-1, keepdim=True))
-        r2_mean = g_r2(a_abs)
-        pm = torch.cat([fm_mean, r2_mean], dim=-1)
-        rho = ops.fit_rho_fused(a, pm, te_b, field=field)
-        return torch.cat([rho, pm], dim=1), _zero_var(rho)
+        return aideal_maps(g_fm, g_r2, fm_offset, a, te_b, field, pdff_var,
+                           rem_r2)
 
     return run
+
+
+def aideal_heads(g_fm, g_r2, fm_offset, a):
+    """The AI-DEAL nets' (φ, R2*) posteriors on one chunk as ((φ mean, φ
+    variance), (R2* mean, R2* variance)), each (nb, 1, H, W, 1): a Normal
+    head's loc (plus `fm_offset`) and variance, a Rician head's ν and
+    variance, a deterministic head's output and zeros."""
+    out_fm = g_fm(a)
+    if isinstance(out_fm, Normal):
+        fm_mean, fm_var = out_fm.loc, out_fm.variance()
+    else:
+        fm_mean, fm_var = out_fm, torch.zeros_like(out_fm)
+    a_abs = torch.sqrt(torch.sum(torch.square(a), dim=-1, keepdim=True))
+    out_r2 = g_r2(a_abs)
+    if isinstance(out_r2, Rician):
+        r2_mean, r2_var = out_r2.nu, out_r2.variance()
+    else:
+        r2_mean, r2_var = out_r2, torch.zeros_like(out_r2)
+    return (fm_mean + fm_offset, fm_var), (r2_mean, r2_var)
+
+
+def aideal_maps(g_fm, g_r2, fm_offset, a, te_b, field: float,
+                pdff_var: bool = False, rem_r2: bool = False):
+    """The AI-DEAL branch on one chunk: the heads (`aideal_heads`), then
+    the map fit kernel and a zero rho_var, or with `pdff_var` the plain
+    `physics.pdff_uncertainty` (ρ and rho_var); maps [ρ_w, ρ_f, (φ,
+    R2*)]."""
+    (fm_mean, fm_var), (r2_mean, r2_var) = aideal_heads(g_fm, g_r2,
+                                                        fm_offset, a)
+    pm = torch.cat([fm_mean, r2_mean], dim=-1)
+    if pdff_var:
+        rho, rho_var = physics.pdff_uncertainty(
+            a, physics.Posterior(fm_mean[:, 0, ..., 0], fm_var[:, 0, ..., 0]),
+            physics.Posterior(r2_mean[:, 0, ..., 0], r2_var[:, 0, ..., 0]),
+            te_b, field=field, rem_r2=rem_r2)
+    else:
+        rho = ops.fit_rho_fused(a, pm, te_b, field=field)
+        rho_var = _zero_var(rho)
+    return torch.cat([rho, pm], dim=1), rho_var
+
+
+def pdff_variance_map(maps: np.ndarray, rho_var: np.ndarray) -> np.ndarray:
+    """The PDFF variance by first-order propagation from the W/F covariance
+    entries: rho_var's rows are the flattened 2×2 covariance [W_var,
+    WF_var, FW_var, F_var]; 0 where |F| or |W + F| is 0."""
+    f = np.abs(maps[:, 1, ..., 0] + 1j * maps[:, 1, ..., 1])
+    tot = np.abs((maps[:, 0, ..., 0] + maps[:, 1, ..., 0])
+                 + 1j * (maps[:, 0, ..., 1] + maps[:, 1, ..., 1]))
+    w_var = rho_var[:, 0, ..., 0]
+    wf_var = rho_var[:, 1, ..., 0]
+    f_var = rho_var[:, 3, ..., 0]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pdff_var = f_var / np.where(f > 0, f ** 2, 1.0)
+        pdff_var -= 2 * wf_var / np.where(f * tot > 0, f * tot, 1.0)
+        pdff_var += (w_var + f_var + 2 * wf_var) / np.where(tot > 0, tot,
+                                                            1.0)
+        pdff_var *= np.where(tot > 0, f ** 2 / tot ** 2, 0.0)
+    return np.nan_to_num(pdff_var)
 
 
 def _zero_var(rho):

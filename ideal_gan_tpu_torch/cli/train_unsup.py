@@ -15,10 +15,20 @@ the latest one.
 Prints one `cycle_loss` line per epoch. `--device` defaults to `cuda` and
 raises without a card; `cpu` runs the plain PyTorch versions of the kernels.
 
-Not ported yet (ROADMAP Queue 1 items 6 and 12): DICOM/NIfTI folders
-(SystemExit), UQ and the calibration stage (NotImplementedError);
-tensorboardX summaries, the sample PNGs and the preemption guard are
-skipped with a printed note.
+Uncertainty: `--UQ 1` gives g_fm a Normal posterior head and trains it on
+the heteroscedastic cycle loss, `--UQ_R2s 1` gives g_r2 a Rician head.
+`--UQ_calib 1` (with `--UQ` or `--UQ_R2s`; SystemExit without) holds the
+tail of the training fold out as a calibration split of
+min(max(n // 5, batch), n − batch) slices (the stage is skipped with a
+printed line where that is < 2); after training, with both nets frozen,
+the per-echo calibration scale takes `--epochs` epochs of SGD steps on it,
+the split's first quarter held out, and the run prints
+`calibration: held-out NLL a → b, calib=[...]` and checkpoints at epoch
+`epochs + 1`.
+
+Not ported yet (ROADMAP Queue 1 items 7 and 12): DICOM/NIfTI folders
+(SystemExit); tensorboardX summaries, the sample PNGs and the preemption
+guard are skipped with a printed note.
 """
 
 from __future__ import annotations
@@ -35,14 +45,15 @@ from ..utils import Checkpoint
 from .common import load_cohorts, resolve_device, setup_experiment
 
 _SKIPPED = ("summaries (tensorboardX), sample PNGs and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 6): skipped")
+            "are not ported yet (ROADMAP Queue 1 item 7): skipped")
 
 
 def main(argv=None) -> dict:
     """Runs the training; returns {"state": UnsupState, "epochs": [{"epoch",
     "seconds", "steps", metric: value, ...}]}, one entry per epoch run (the
     metrics of its last step, the wall time of the epoch ending in a
-    synchronisation)."""
+    synchronisation), and with the calibration stage "calibration":
+    {"nll_before", "nll_after", "calib", "steps", "seconds"}."""
     cfg = setup_experiment({**unsup.DEFAULTS, "train_data": "HDF5",
                             "k_fold": 0, "k_folds_total": 5}, argv)
     if cfg["train_data"] in ("DICOM", "NIFTI"):
@@ -57,6 +68,28 @@ def main(argv=None) -> dict:
         val_idx = np.arange(k * fold_sz, min((k + 1) * fold_sz, len(acqs)))
         train_idx = np.setdiff1d(np.arange(len(acqs)), val_idx)
         acqs, te = acqs[train_idx], te[train_idx]
+    if cfg["UQ_calib"] and not (cfg["UQ"] or cfg["UQ_R2s"]):
+        # without a Bayesian head the propagated variance is zero: var_mse
+        # floors it and the scale's gradient through the floor is zero
+        raise SystemExit("--UQ_calib requires --UQ (or --UQ_R2s): the "
+                         "calibration stage trains a scale on the "
+                         "propagated variance, which is zero without a "
+                         "Bayesian head")
+    calib_data = None
+    if cfg["UQ_calib"]:
+        # a calibration split from the tail of the training fold, leaving
+        # at least one training batch and ≥ 2 calibration slices (the stage
+        # holds one fraction out for the NLL report)
+        n_cal = min(max(len(acqs) // 5, cfg["batch_size"]),
+                    len(acqs) - cfg["batch_size"])
+        if n_cal < 2:
+            print("UQ_calib: cohort too small for a calibration split "
+                  f"({len(acqs)} slices, batch {cfg['batch_size']}) — "
+                  "skipping the calibration stage")
+            cfg["UQ_calib"] = False
+        else:
+            calib_data = (acqs[-n_cal:], te[-n_cal:])
+            acqs, te = acqs[:-n_cal], te[:-n_cal]
     n = len(acqs)
     if n < cfg["batch_size"]:
         raise SystemExit(
@@ -106,7 +139,42 @@ def main(argv=None) -> dict:
             ckpt.save(ep + 1, state.state_dict())
         print(f"epoch {ep + 1}/{cfg['epochs']} cycle_loss="
               f"{values['A2B2A_cycle_loss']:.6f}")
-    return {"state": state, "epochs": epochs}
+    out = {"state": state, "epochs": epochs}
+    if calib_data is not None:
+        out["calibration"] = _calibrate(cfg, g_fm, g_r2, state, calib_data,
+                                        rng, dev)
+        ckpt.save(cfg["epochs"] + 1, state.state_dict())
+    return out
+
+
+def _calibrate(cfg, g_fm, g_r2, state, calib_data, rng, dev) -> dict:
+    """The σ-calibration stage: the first quarter of the split (at least
+    one slice, leaving one) held out for the NLL report, `epochs` epochs of
+    calibration steps on the rest in batches of min(batch_size, its
+    length); prints and returns the held-out NLL before and after and the
+    scale."""
+    cal_acqs, cal_te = calib_data
+    calib_step = unsup.make_calib_train_step(cfg, g_fm, g_r2)
+    nll_fn = unsup.eval_calibrated_nll(cfg, g_fm, g_r2)
+    n_hold = min(max(len(cal_acqs) // 4, 1), len(cal_acqs) - 1)
+    hold = (torch.from_numpy(cal_acqs[:n_hold]).to(dev),
+            torch.from_numpy(cal_te[:n_hold]).to(dev))
+    fit = (cal_acqs[n_hold:], cal_te[n_hold:])
+    cal_bs = min(cfg["batch_size"], len(fit[0]))
+    t0 = time.perf_counter()
+    nll0 = float(nll_fn(state, *hold))
+    steps = 0
+    for _ in range(cfg["epochs"]):
+        for A, te_b in batch_iterator(fit, cal_bs, rng):
+            state, _ = calib_step(state, (torch.from_numpy(A).to(dev),
+                                          torch.from_numpy(te_b).to(dev)))
+            steps += 1
+    nll1 = float(nll_fn(state, *hold))
+    calib = state.calib.detach().cpu().numpy()
+    print(f"calibration: held-out NLL {nll0:.5f} → {nll1:.5f}, "
+          f"calib={calib}")
+    return dict(nll_before=nll0, nll_after=nll1, calib=calib.tolist(),
+                steps=steps, seconds=time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

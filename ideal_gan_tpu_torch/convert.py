@@ -15,8 +15,8 @@ are the `/`-joined paths). Conversion rules:
 
 Only arrays cross this boundary; nothing of JAX is imported. Every map is
 linear, so the converters also map gradient trees. The whole-net
-converters (`unet`, `vetnet`, `mdwfnet`) check that every Flax leaf was
-mapped.
+converters (`unet`, `vetnet`, `mdwfnet`, `single`) check that every Flax
+leaf was mapped.
 """
 
 from __future__ import annotations
@@ -210,3 +210,11 @@ def mdwfnet(p: dict, num_layers: int = 4) -> dict:
     for dec in ("dec_wf", "dec_r2", "dec_fm"):
         sd.update(_decoder(p[dec], f"{dec}.", num_layers))
     return _checked(p, sd)
+
+
+def single(p_mag: dict, p_pha: dict,
+           num_layers: int = 4) -> tuple[dict, dict]:
+    """State dicts of `train.single`'s G_mag and G_pha (two `models.UNet`s)
+    from the Flax `SingleState`'s params_mag and params_pha, every leaf of
+    each checked."""
+    return unet(p_mag, num_layers), unet(p_pha, num_layers)

@@ -1,5 +1,8 @@
 """Losses of the port."""
 
+from .heteroscedastic import (absolute_phase_disparity, rician_nll, var_mse,
+                              var_mse_r2)
 from .regs import l1_mean, total_variation, total_variation_2d
 
-__all__ = ["l1_mean", "total_variation", "total_variation_2d"]
+__all__ = ["absolute_phase_disparity", "l1_mean", "rician_nll",
+           "total_variation", "total_variation_2d", "var_mse", "var_mse_r2"]

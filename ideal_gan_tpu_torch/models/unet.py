@@ -14,12 +14,12 @@ share `_SharedEncoder`: conv blocks with LSTM→AdaIN TE conditioning at
 every level ("adain", VET-Net) or a Dense(TE) + ReLU added at level 1
 ("dense_l1", MDWF-Net); VET-Net has two decoders (R2* sigmoid, field map
 tanh), MDWF-Net three (water/fat sigmoid ×2, R2* relu, field map tanh).
-The other options (a `Normal` posterior for a Bayesian tanh head, the CSE
-physics layer, dropout, no skip connections) raise NotImplementedError;
-ROADMAP.md queues them.
+The other options (the CSE physics layer, dropout, no skip connections)
+raise NotImplementedError; ROADMAP.md queues them.
 
 Layouts are the JAX package's: the UNet returns (nb, 1, H, W, n_out) with
-`me_layer` (a `prob.Rician` of two such maps with `bayesian`, the pair
+`me_layer` (with `bayesian` a `prob.Normal` of two such maps for a tanh
+head, a `prob.Rician` otherwise; the pair
 (out, σ) with `std_out`), (nb, H, W, n_out) on a 4-D input and (nb, ne, H,
 W, n_out) on a folded 5-D one; VET-Net returns (nb, 1, H, W, [FM, R2*])
 with `me_layer` and [R2*, FM] channel-last without it (folded as the
@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..prob import Rician
+from ..prob import Normal, Rician
 from .attention import SelfAttention, adain
 from .blocks import (ConvBlock, TEEncoder, Upsample, get_activation,
                      he_normal_, init_params)
@@ -100,9 +100,7 @@ class UNet(nn.Module):
                  dropout: float = 0.0, output_activation: str = "tanh",
                  self_attention: bool = False, norm: str = "instance_norm"):
         super().__init__()
-        unported = {"bayesian with a tanh head (Normal; ROADMAP Queue 1 item "
-                    "6)": bayesian and output_activation == "tanh",
-                    "cse_layer": cse_layer,
+        unported = {"cse_layer": cse_layer,
                     "skip_con=False": not skip_con, "dropout": dropout > 0}
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -158,7 +156,11 @@ class UNet(nn.Module):
         if self.sigma is None:
             return out
         sigma = _back(self.sigma(x), layout)
-        return Rician(nu=out, sigma=sigma) if self.bayesian else (out, sigma)
+        if not self.bayesian:
+            return out, sigma
+        if self.output_activation == "tanh":
+            return Normal(loc=out, scale=sigma)
+        return Rician(nu=out, sigma=sigma)
 
     def init_params(self, generator: torch.Generator) -> None:
         init_params(self, generator)

@@ -65,6 +65,15 @@ def pinv_normal(m: torch.Tensor) -> torch.Tensor:
     return small_inv(mh @ m) @ mh
 
 
+def null_projector(m: torch.Tensor, m_pinv: torch.Tensor) -> torch.Tensor:
+    """P0 = I − M·M⁺, the projector onto the orthogonal complement of
+    span(M), Hermitian-symmetrized. m (nb, ne, ns), m_pinv (nb, ns, ne) →
+    (nb, ne, ne) in m's dtype."""
+    ne = m.shape[-2]
+    p0 = torch.eye(ne, dtype=m.dtype, device=m.device) - m @ m_pinv
+    return 0.5 * (p0 + p0.transpose(-1, -2).conj())
+
+
 def phase_constraint_matrix(m: torch.Tensor,
                             m_pinv: torch.Tensor) -> torch.Tensor:
     """H⁺ = inv(sym(Re(M⁺M))), used by the shared-phase constraint of the

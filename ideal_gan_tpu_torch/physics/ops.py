@@ -14,8 +14,11 @@ water/fat as ρ/rho_sc.
 `cse_mag_fit` is the magnitude-domain fit, the plain version of the
 magnitude fit kernel (`ops.ideal.cse_mag_fused`) and its backward.
 
-Not ported yet: the bipolar readout phase and the demodulated-echo output
-of `fit_rho`, `synthesize_mag` and `synthesize_mag_phase`.
+`synthesize_mag` and `synthesize_mag_phase` are the forward models of the
+(FF, PD, phase) and the separate magnitude/phase parameterizations; the
+latter carries the bipolar readout phase (`_bipolar_phase`). Not ported
+yet (ROADMAP Queue 1 item 9): the bipolar map row of `synthesize` and the
+bipolar and demodulated-echo branches of `fit_rho`.
 """
 
 from __future__ import annotations
@@ -47,9 +50,25 @@ def _xi(phi: torch.Tensor, r2s: torch.Tensor) -> torch.Tensor:
     return torch.complex(phi.float(), (r2s / _2PI).float()).reshape(nb, 1, -1)
 
 
-def _phasor(te: torch.Tensor, xi: torch.Tensor, sign: float) -> torch.Tensor:
-    """W^± = exp(±2πi·te·ξ) over (nb, ne, nv); te (nb, ne, 1)."""
-    return torch.exp(sign * 2j * np.pi * te.to(torch.complex64) * xi)
+def _phasor(te: torch.Tensor, xi: torch.Tensor, sign: float,
+            extra: torch.Tensor | None = None) -> torch.Tensor:
+    """W^± = exp(±2πi·te·ξ [+ extra]) over (nb, ne, nv); te (nb, ne, 1),
+    `extra` a complex exponent broadcast against (nb, ne, nv)."""
+    expo = sign * 2j * np.pi * te.to(torch.complex64) * xi
+    if extra is not None:
+        expo = expo + extra
+    return torch.exp(expo)
+
+
+def _bipolar_phase(pha_bip: torch.Tensor, ne: int,
+                   scale: float) -> torch.Tensor:
+    """The alternating-readout (bipolar) phase exponent i·(−1)ⁿ·scale·φ_bip
+    for echoes n = 1..ne: pha_bip (nb, H, W) → complex64 (nb, ne, nv)."""
+    nb = pha_bip.shape[0]
+    signs = torch.tensor((-1.0) ** np.arange(1, ne + 1), dtype=torch.float32,
+                         device=pha_bip.device)
+    pha = pha_bip.reshape(nb, 1, -1).float() * scale * signs[None, :, None]
+    return torch.complex(torch.zeros_like(pha), pha)
 
 
 def synthesize(out_maps: torch.Tensor, te: torch.Tensor, field: float = 1.5,
@@ -75,6 +94,54 @@ def synthesize(out_maps: torch.Tensor, te: torch.Tensor, field: float = 1.5,
     r2s = torch.clamp(out_maps[:, ns, ..., 1], min=0.0) * r2_sc
     phi = out_maps[:, ns, ..., 0] * fm_sc
     wp = _phasor(te, _xi(phi, r2s), +1.0)
+    smtx = wp * (m @ rho_mtx)
+    return _from_complex(smtx.reshape(nb, ne, hgt, wdt))
+
+
+def synthesize_mag(out_maps: torch.Tensor, te: torch.Tensor,
+                   field: float = 1.5, r2_sc: float = R2_SC,
+                   fm_sc: float = FM_SC, rho_sc: float = RHO_SC,
+                   species: SpeciesModel = WATER_FAT_7PEAK) -> torch.Tensor:
+    """The (FF, PD, common phase) forward model: out_maps rows [(FF, ·),
+    (PD, R2*), (WF phase, φ)], the common water/fat phase 4π·(row 2, ch
+    0). Returns acquisitions (nb, ne, H, W, 2)."""
+    nb, _, hgt, wdt, _ = out_maps.shape
+    ne = te.shape[1]
+    m = mx.model_matrix(te, field, species)
+    ff = out_maps[:, 0, ..., 0]
+    pd = out_maps[:, 1, ..., 0]
+    r2s = out_maps[:, 1, ..., 1] * r2_sc
+    pha_rho = out_maps[:, 2, ..., 0] * np.pi * 4.0
+    phi = out_maps[:, 2, ..., 1] * fm_sc
+    common = torch.polar(torch.ones_like(pha_rho), pha_rho)
+    rho_w = ((1.0 - ff) * pd * rho_sc) * common
+    rho_f = (ff * pd * rho_sc) * common
+    rho_mtx = torch.stack([rho_w, rho_f], dim=1).reshape(nb, 2, -1)
+    wp = _phasor(te, _xi(phi, r2s), +1.0)
+    smtx = wp * (m @ rho_mtx)
+    return _from_complex(smtx.reshape(nb, ne, hgt, wdt))
+
+
+def synthesize_mag_phase(out_maps: torch.Tensor, te: torch.Tensor,
+                         field: float = 1.5, r2_sc: float = R2_SC,
+                         fm_sc: float = FM_SC, rho_sc: float = RHO_SC,
+                         species: SpeciesModel = WATER_FAT_7PEAK
+                         ) -> torch.Tensor:
+    """The separate magnitude/phase forward model: out_maps (nb, 2, H, W,
+    4) rows [(|W|, |F|, R2*, ·), (φ_W, φ_F, φ, φ_bip)], the phases scaled
+    by 4π, the bipolar term alternating per echo. Returns acquisitions
+    (nb, ne, H, W, 2)."""
+    nb, _, hgt, wdt, _ = out_maps.shape
+    ne = te.shape[1]
+    m = mx.model_matrix(te, field, species)
+    mag_rho = out_maps[:, 0, ..., :2] * rho_sc  # (nb, H, W, 2)
+    pha_rho = out_maps[:, 1, ..., :2] * (4.0 * np.pi)
+    rho = torch.polar(mag_rho, pha_rho).permute(0, 3, 1, 2)  # (nb, 2, H, W)
+    rho_mtx = rho.reshape(nb, 2, -1)
+    r2s = out_maps[:, 0, ..., 2] * r2_sc
+    phi = out_maps[:, 1, ..., 2] * fm_sc
+    extra = _bipolar_phase(out_maps[:, 1, ..., 3], ne, 4.0 * np.pi)
+    wp = _phasor(te, _xi(phi, r2s), +1.0, extra)
     smtx = wp * (m @ rho_mtx)
     return _from_complex(smtx.reshape(nb, ne, hgt, wdt))
 

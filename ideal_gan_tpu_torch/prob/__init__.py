@@ -1,5 +1,5 @@
 """Map posteriors of the port's Bayesian heads."""
 
-from .distributions import Rician
+from .distributions import Normal, Rician, softplus_lb
 
-__all__ = ["Rician"]
+__all__ = ["Normal", "Rician", "softplus_lb"]

@@ -1,11 +1,13 @@
-"""The Rician map posterior (port of `ideal_gan_tpu/prob/distributions.py`'s
-`Rician`), the output of a Bayesian UNet head with a non-tanh activation.
+"""The Normal and Rician map posteriors (port of
+`ideal_gan_tpu/prob/distributions.py`), the outputs of a Bayesian UNet
+head: `Normal` with a tanh activation, `Rician` otherwise.
 
 Numerics follow the JAX package: the Bessel functions through the
 exponentially scaled `torch.special.i0e` / `i1e` (differentiable), σ
-floored at 1e-10, log_prob zeroed for x ≤ 0, mean and variance through the
-Laguerre-½ polynomial. Not ported yet (ROADMAP Queue 1 item 5): `sample`,
-and `Normal` (the tanh head), which the magnitude trainer does not use.
+floored at 1e-10, the Rician's log_prob zeroed for x ≤ 0, its mean and
+variance through the Laguerre-½ polynomial. Samplers take an explicit
+`torch.Generator`. Not ported yet: `Rician.sample`, which no ported path
+draws.
 """
 
 from __future__ import annotations
@@ -14,7 +16,50 @@ import dataclasses
 import math
 
 import torch
+from torch.nn import functional as F
 from torch.special import i0e, i1e
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def softplus_lb(x: torch.Tensor, lb: float = 1e-5) -> torch.Tensor:
+    """softplus with a lower bound: softplus(x) + lb."""
+    return F.softplus(x) + lb
+
+
+@dataclasses.dataclass
+class Normal:
+    """Normal distribution N(loc, scale²)."""
+
+    loc: torch.Tensor
+    scale: torch.Tensor
+
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    def variance(self) -> torch.Tensor:
+        return torch.square(self.scale)
+
+    def stddev(self) -> torch.Tensor:
+        return self.scale
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        z = (x - self.loc) / self.scale
+        return -0.5 * torch.square(z) - torch.log(self.scale) - _HALF_LOG_2PI
+
+    def sample(self, generator: torch.Generator,
+               sample_shape=()) -> torch.Tensor:
+        """loc + scale·N(0, 1) of shape sample_shape + loc's, drawn from
+        `generator` (on loc's device)."""
+        shape = tuple(sample_shape) + tuple(self.loc.shape)
+        eps = torch.randn(shape, generator=generator, dtype=self.loc.dtype,
+                          device=self.loc.device)
+        return self.loc + self.scale * eps
+
+    def kl_to_std_normal(self) -> torch.Tensor:
+        """KL(N(loc, scale²) ‖ N(0, 1)) elementwise."""
+        var = torch.square(self.scale)
+        return 0.5 * (torch.square(self.loc) + var - torch.log(var) - 1.0)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Shared training machinery (port of `ideal_gan_tpu/train/common.py`).
 
 - `linear_decay_schedule`: constant LR until step_decay, then linear to 0.
+- `SGD`: plain SGD at a constant rate (optax.sgd without momentum).
 - `make_adam`: Adam with optional global-norm clipping, matching optax's
   `chain(clip_by_global_norm(c), adam(schedule, b1, b2))` step for step:
   the clip divides by the norm itself (no ε, unlike
@@ -10,7 +11,7 @@
 - `ModelState`: one net, its optimizer and the step count, as checkpointed.
 
 Not ported yet: `TrainLoop` and `accumulate_microbatch_grads` (ROADMAP
-Queue 1 item 6).
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -92,6 +93,34 @@ class Adam:
         self.count = int(state["count"])
         for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
             dst.copy_(src)
+
+
+class SGD:
+    """Plain SGD at a constant learning rate over a list of leaf tensors
+    (optax.sgd without momentum, whose state is empty: the step count is
+    kept for checkpoints only)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float):
+        self.params = list(params)
+        self.lr = float(np.float32(lr))
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is not None:
+                p.sub_(p.grad * self.lr)
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
 
 
 def make_adam(schedule, beta_1: float = 0.9, beta_2: float = 0.9999,

@@ -272,8 +272,8 @@ def test_unet_te_input_sigma_head_matches_flax(mag_serving):
     point, std = models.UNet(1, std_out=True, te_input=True,
                              filters=F_SMALL)(_t(a_mag), _t(te[..., 0]))
     assert point.shape == std.shape == (3, 1, SIZE, SIZE, 1)
-    with pytest.raises(NotImplementedError, match="Normal"):
-        models.UNet(1, bayesian=True, output_activation="tanh")
+    with pytest.raises(NotImplementedError, match="skip_con"):
+        models.UNet(1, bayesian=True, skip_con=False)
 
 
 def test_mag_serving_matches_jax(mag_serving, tmp_path):

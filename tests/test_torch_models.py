@@ -28,7 +28,9 @@ from ideal_gan_tpu_torch.train import unsup as tunsup  # noqa: E402
 def flax_params(module, x, seed, noise=0.1, extra=()):
     """Initialized Flax params with every leaf perturbed by `noise`·N(0, 1)
     (γ set to 0.7); `extra` are further arguments of the module's call."""
-    params = module.init(jax.random.PRNGKey(seed), x, *extra)["params"]
+    # jitted: one compile instead of one per operation (bit-identical)
+    params = jax.jit(module.init)(jax.random.PRNGKey(seed), x,
+                                  *extra)["params"]
     rng = np.random.default_rng(seed)
 
     def perturb(path, leaf):
@@ -136,7 +138,7 @@ def test_convert_npz_roundtrip(tmp_path):
 
 def test_unported_unet_options_raise():
     with pytest.raises(NotImplementedError):
-        models.UNet(2, bayesian=True)
+        models.UNet(2, dropout=0.1)
     with pytest.raises(NotImplementedError):
         models.UNet(2, cse_layer=True)
     with pytest.raises(NotImplementedError):

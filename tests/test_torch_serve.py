@@ -344,13 +344,16 @@ def test_experiment_settings_take_the_family_keys_only(tmp_path):
 
 
 def test_map_selects_the_same_maps(teaug_experiment):
-    """`--map` R2s and Water serve the PDFF maps, as in the JAX package;
-    PDFF-var (the variance propagation) is not ported."""
+    """`--map` R2s and Water serve the PDFF maps, as in the JAX package,
+    and so does PDFF-var outside the AI-DEAL branch (VET-Net here); the
+    GraphCuts selector is not served (it consumes precomputed maps)."""
     _, exp, acqs, te = teaug_experiment
     cfg = dict(infer.DEFAULTS, experiment_dir=str(exp))
     served = {m: _run(dict(cfg, map=m), acqs, te)
-              for m in ("PDFF", "R2s", "Water")}
+              for m in ("PDFF", "R2s", "Water", "PDFF-var")}
     np.testing.assert_array_equal(served["R2s"], served["PDFF"])
     np.testing.assert_array_equal(served["Water"], served["PDFF"])
-    with pytest.raises(SystemExit, match="PDFF-var"):
-        roi_analysis.make_infer_run(dict(cfg, map="PDFF-var"), acqs, "cpu")
+    np.testing.assert_array_equal(served["PDFF-var"], served["PDFF"])
+    with pytest.raises(SystemExit, match="GraphCuts"):
+        roi_analysis.make_infer_run(dict(cfg, model_sel="GraphCuts"), acqs,
+                                    "cpu")

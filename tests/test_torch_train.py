@@ -452,9 +452,13 @@ def test_cycle_loss_decreases_on_cpu(out_vars):
 
 
 def test_unported_settings_raise():
-    for key in ("UQ", "UQ_R2s", "UQ_calib", "bf16"):
+    for key in ("bf16", "remat"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tunsup.build_models(dict(tunsup.DEFAULTS, **{key: True}))
+    # UQ is ported: Bayesian heads (tests/test_torch_uq.py)
+    g_fm, g_r2 = tunsup.build_models(dict(tunsup.DEFAULTS, n_G_filters=4,
+                                          UQ=True, UQ_R2s=True))
+    assert g_fm.sigma is not None and g_r2.sigma is not None
 
 
 # --------------------------------------------------------------------------
