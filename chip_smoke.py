@@ -174,13 +174,34 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             both nets has a gradient. Then one step on the card (TF32 off)
             and on the CPU (96², 3 slices, 1e-3 noise, float64 witness; see
             `single_step_parity`).
+13. options  the trainers' bf16, remat and microbatch options at full
+            width (see `options_phase`): `cli.train_unsup --out_vars PM
+            --bf16 1 --remat 1` (F=36, 16 slices, batch 8, 2 epochs), its
+            launches against `UNSUP_REMAT_PAIR`, its peak memory beside the
+            train phase's f32 run, and one bf16 FM and R2 step card vs CPU
+            (96², batch 2) within `bf16_step_gate`, whose three controls
+            (the f32 step, a zeroed and a flipped gradient) must fail it;
+            `cli.train_teaug --bf16 1 --remat 1` (VET-Net, F=72, one epoch)
+            and three steady steps with their peak memory; `cli.train_teaug
+            --microbatch 2` (F=72, f32, one epoch), then the microbatched
+            gradients held to the full batch's on the same noise (loss
+            2e-5, gradients 2e-2 of scale) and both steps timed.
+
+The kernels phase also holds the ConvLSTM kernels' bf16 storage mode
+(`convlstm_bf16_entries`): the forward and the backward (kink-free inputs)
+at Cin 2 and 1, F=36 and F=72, nb=8, 384², against their bf16 plain
+versions at `bf16_gate` and `BF16_ULP_SHARE`, two launches bit for bit,
+with the f32 kernel and the float64 plain version as witnesses (the f32
+kernel's output, a control, must fail those gates), their bf16 HMMA count,
+times and bounds.
 
 Each phase line carries its seconds. The last three lines are the card's
 `nvidia-smi` name and power limit, the `{"kernels": [...]}` summary (launches from the path that runs each kernel:
 the train phase for the cycle and the ConvLSTM backward, teaug for the
 synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
-the magnitude fit; vetnet_serve prints its own; `launches_on_new_paths`
-the counts of the sup, teaug_gens, uq and single runs) and `{"ok": true,
+the magnitude fit, the options phase's bf16 AI-DEAL run for the bf16
+ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
+counts of the sup, teaug_gens, uq, single and options runs) and `{"ok": true,
 "device": {...}}`.
 """
 
@@ -201,6 +222,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
+# dense bf16 on the tensor cores (H100 SXM data sheet), and bf16's unit
+# roundoff
+PEAK_BF16_FLOPS = 989e12
+BF16_U = 2.0 ** -8
 
 SIZE, NE, F_MAIN, NB_SERVE = 384, 6, 36, 8
 F_TEAUG = 72  # VET-Net's width (teaug DEFAULTS)
@@ -272,10 +297,11 @@ def device_ms_by(fn, dev, fragments: dict, iters: int = 3):
             for label, frag in fragments.items()}
 
 
-def hmma_counts(name: str, fragments) -> dict | None:
+def hmma_counts(name: str, fragments, opcode: str = "") -> dict | None:
     """The number of HMMA (tensor-core) instructions `cuobjdump -sass` finds
     in each kernel of the built `csrc/<name>.cu` whose symbol holds one of
-    `fragments` (None where there is no build or no cuobjdump)."""
+    `fragments` (None where there is no build or no cuobjdump); with
+    `opcode`, only those whose line holds it (e.g. "BF16")."""
     import shutil
     from ideal_gan_tpu_torch.ops import _build
     lib = _build._lib_path(name)
@@ -289,7 +315,7 @@ def hmma_counts(name: str, fragments) -> dict | None:
     for line in sass.splitlines():
         if "Function :" in line:
             current = next((f for f in fragments if f in line), None)
-        elif current and "HMMA" in line:
+        elif current and "HMMA" in line and opcode in line:
             counts[current] += 1
     return counts
 
@@ -562,7 +588,8 @@ def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_FWD_SHAPES) -> dict:
                                  f"reference: {cases[-1]}")
         del x, inp
         torch.cuda.empty_cache()
-    hmma = hmma_counts(ops.CONVLSTM_KERNEL.name, [LSTM_FWD])
+    # the 3xTF32 kernel's own (the bf16 mode's symbol holds LSTM_FWD too)
+    hmma = hmma_counts(ops.CONVLSTM_KERNEL.name, [LSTM_FWD], "TF32")
     if hmma is not None and not all(hmma.values()):
         raise AssertionError(f"the ConvLSTM forward has no tensor-core "
                              f"instruction: {hmma}")
@@ -828,7 +855,7 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
     main = cases[2]  # Cin=2, random inputs
     hmma = hmma_counts(ops.CONVLSTM_BWD_KERNEL.name,
                        [v for n, v in BWD_STAGES.items()
-                        if n not in ("recompute", "reduce")])
+                        if n not in ("recompute", "reduce")], "TF32")
     if hmma is not None and not all(hmma.values()):
         raise AssertionError(f"a stage of the ConvLSTM backward has no "
                              f"tensor-core instruction: {hmma}")
@@ -857,6 +884,248 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
                   "inputs bit-identical; bound_ms: 3xTF32 on the tensor "
                   "cores (bound_fp32_ms: FP32 on the CUDA cores)",
         cases=cases, wide=_widest(cases))
+
+
+# the bf16 storage mode's shapes: AI-DEAL's FM (Cin=2) and R2* (Cin=1) nets
+# at F=36 and VET-Net's and the 2U-Net R2* net's at F=72
+LSTM_BF16_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
+                    (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE))
+LSTM_FWD_BF16 = "convlstm_echo_mma_bf16"
+BWD_BF16_STAGES = {"recompute": LSTM_FWD_BF16, "gates": "gates_mma_bf16",
+                   "dinp": "dinp_mma_bf16", "dk": "dk_mma_bf16",
+                   "reduce": "sum_slots_bf16"}
+
+
+def bf16_gate(scale: float) -> float:
+    """The bf16 kernels' gate against their plain versions, which round at
+    the same points (`ops.convlstm`): the two sum each f32 product in
+    another order (~1e-7 relative), which now and then moves a value
+    across a bf16 rounding boundary, one ulp (2u of its magnitude, u =
+    2^-8) at the echo where it happens. Each of the ne echoes can add at
+    most one such ulp, and the recurrence does not amplify it (sigmoid
+    gates below 1 scale the carried state; dk and db are sums whose
+    final bf16 rounding adds one ulp), so |kernel − plain| ≤ ne · 2u ·
+    max|plain|."""
+    return NE * 2 * BF16_U * scale
+
+
+# The share of elements more than one bf16 ulp (2u·|plain|) from the plain
+# version a bf16 kernel may have: a summation-order flip moves an element by
+# one ulp where it happens and its neighbours downstream by less, so the
+# sound kernels sit at ≤ 1.05 % (PERF.md §6); a kernel that skips the
+# bf16 rounding points (the f32 kernel's output) sits at 15–24 %.
+BF16_ULP_SHARE = 0.02
+
+
+def bf16_fails(gap: dict) -> bool:
+    """Whether a `_bf16_gap` reading breaks the bf16 kernels' gate:
+    max |kernel − plain| over `bf16_gate`, or more than BF16_ULP_SHARE of
+    the elements beyond one ulp."""
+    return (gap["max_abs_err"] > bf16_gate(gap["scale"])
+            or gap["share_beyond_1ulp"] > BF16_ULP_SHARE)
+
+
+def _bf16_gap(got, ref) -> dict:
+    """got against ref: the max |difference|, max |ref| and the share of
+    elements more than one bf16 ulp (2u·|ref|) apart."""
+    got, ref = got.double(), ref.double()
+    d = (got - ref).abs()
+    return dict(max_abs_err=float(d.max()), scale=float(ref.abs().max()),
+                share_beyond_1ulp=float((d > 2 * BF16_U * ref.abs())
+                                        .double().mean()))
+
+
+def _bf16_inputs(dev, cin, f, nb, size, seed, kink=None):
+    """convlstm_entry's (kink None) or convlstm_bwd_entry's kink-free
+    inputs in float32, and their bf16 roundings."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin)) * 0.5)
+                         .astype(np.float32)).to(dev)
+    k = torch.from_numpy((rng.normal(size=(3, 3, cin + f, 4 * f))
+                          * (2.0 / (9 * (cin + f))) ** 0.5
+                          ).astype(np.float32)).to(dev)
+    b = torch.from_numpy((rng.normal(size=(4 * f,)) * 0.1)
+                         .astype(np.float32)).to(dev)
+    if kink is not None:
+        k *= 0.1
+        b[2 * f:3 * f] = kink
+    g = torch.from_numpy(rng.normal(size=(nb, size, size, f))
+                         .astype(np.float32)).to(dev)
+    f32 = (x, k, b, g)
+    return f32, tuple(t.to(torch.bfloat16) for t in f32)
+
+
+def convlstm_bf16_entries(dev, size: int = SIZE,
+                          shapes=LSTM_BF16_SHAPES) -> list:
+    """The ConvLSTM kernels' bf16 storage mode (rows 2 and 4 of the kernel
+    table) at each (Cin, F, nb) of `shapes`, as two `kernels` entries:
+
+    - forward: on convlstm_entry's inputs rounded to bf16, held to the bf16
+      plain version (`convlstm_reference` on bf16 tensors) by `bf16_fails`;
+      a second launch bit for bit; witnesses: the distance from the f32
+      kernel and from the float64 plain version on the float32 inputs; a
+      control: the f32 kernel's output must fail that gate;
+    - backward: on the kink-free inputs (`KINK_FREE`, smooth and negative)
+      rounded to bf16, dx, dk and db held to the bf16 plain version by
+      `bf16_fails`; a second launch bit for bit; on the smooth inputs the
+      f32-kernel and float64 witnesses, the f32 kernel's dx, dk and db as
+      the control (one of them must fail the gate), and the call as the
+      trainer makes it (no dx) timed and split by stage.
+
+    Each case reports the share of elements more than one bf16 ulp from
+    the plain version, ms beside the bf16 bound (989 TFLOP/s dense bf16;
+    bytes at two a value), the plain version's ms, and cuDNN's one-echo
+    bf16 gate convolution (forward) or weight gradient (backward) as a
+    partial yardstick; each entry the bf16 HMMA instructions
+    (HMMA.16816.F32.BF16) `cuobjdump -sass` finds in its kernels."""
+    import torch
+    import torch.nn.functional as F
+    from ideal_gan_tpu_torch import ops
+    fwd_cases, bwd_cases = [], []
+    for cin, f, nb in shapes:
+        (x, k, b, _), (xb, kb, bb, _) = _bf16_inputs(dev, cin, f, nb, size,
+                                                     cin)
+        call = lambda: ops.convlstm_forward(xb, kb, bb)  # noqa: E731
+        out = call()
+        deterministic = torch.equal(out, call())
+        plain = ops.convlstm_reference(xb, kb, bb)
+        gap = _bf16_gap(out, plain)
+        out32 = ops.convlstm_forward(x, k, b)
+        vs_f32 = _bf16_gap(out, out32)
+        control = _bf16_gap(out32, plain)
+        control["fails"] = bf16_fails(control)
+        vs_f64 = _bf16_gap(out, ops.convlstm_reference(
+            x.double(), k.double(), b.double()))
+        del out, out32, plain
+        npx = nb * size * size
+        flops = 2 * 9 * 4 * f * npx * (cin + (NE - 1) * (cin + f))
+        n_bytes = 2 * (x.numel() + k.numel() + b.numel() + npx * f)
+        b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_FLOPS)
+        inp = torch.zeros((nb, cin + f, size, size), device=dev,
+                          dtype=torch.bfloat16)
+        w = kb.permute(3, 2, 0, 1).contiguous()
+        case = dict(
+            cin=cin, F=f, ne=NE, nb=nb, **gap, deterministic=deterministic,
+            vs_f32_kernel=vs_f32, f32_kernel_control=control,
+            vs_plain_f64=vs_f64,
+            ms=time_ms(call, dev, iters=5),
+            device_ms=device_ms(call, dev, LSTM_FWD_BF16, iters=3),
+            plain_ms=time_ms(lambda: ops.convlstm_reference(xb, kb, bb), dev,
+                             iters=3),
+            bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+            cudnn_one_echo_gate_conv_bf16_ms_partial=time_ms(
+                lambda: F.conv2d(inp, w, padding=1), dev, iters=5))
+        fwd_cases.append(case)
+        if bf16_fails(gap) or not deterministic or not control["fails"]:
+            raise AssertionError(f"bf16 convlstm forward disagrees with its "
+                                 f"plain version, or the f32 kernel's output "
+                                 f"passes its gate: {case}")
+        del x, xb, inp
+        for kind, g_bias in KINK_FREE.items():
+            (x, k, b, g), (xb, kb, bb, gb) = _bf16_inputs(
+                dev, cin, f, nb, size, 10 + cin, g_bias)
+            got = ops.convlstm_backward(xb, kb, bb, gb)
+            again = ops.convlstm_backward(xb, kb, bb, gb)
+            case = dict(cin=cin, F=f, ne=NE, nb=nb, inputs=kind,
+                        deterministic=all(torch.equal(a, r)
+                                          for a, r in zip(got, again)))
+            del again
+            ref = ops.convlstm_backward_reference(xb, kb, bb, gb)
+            for name, a, r in zip(("dx", "dk", "db"), got, ref):
+                case[name] = _bf16_gap(a, r)
+            if kind != "smooth":
+                del ref
+            else:
+                f32 = ops.convlstm_backward(x, k, b, g)
+                for name, a, r, p in zip(("dx", "dk", "db"), got, f32, ref):
+                    case[name]["vs_f32_kernel"] = _bf16_gap(a, r)
+                    case[name]["f32_kernel_control"] = _bf16_gap(r, p)
+                case["f32_kernel_control_fails"] = any(
+                    bf16_fails(case[n]["f32_kernel_control"])
+                    for n in ("dx", "dk", "db"))
+                del f32, ref
+                f64 = ops.convlstm_backward_reference(
+                    *(t.double() for t in (x, k, b, g)))
+                for name, a, r in zip(("dx", "dk", "db"), got, f64):
+                    case[name]["vs_plain_f64"] = _bf16_gap(a, r)
+                del f64
+                call = lambda: ops.convlstm_backward(  # noqa: E731
+                    xb, kb, bb, gb, need_dx=False)
+                need, _ = lstm_bwd_flops(nb, size, cin, f)
+                n_bytes = 2 * (x.numel() + 2 * k.numel() + 2 * b.numel()
+                               + g.numel())
+                b_ms, b_by = bound(n_bytes, need, PEAK_BF16_FLOPS)
+                inp = torch.zeros((nb, cin + f, size, size), device=dev,
+                                  dtype=torch.bfloat16)
+                dg = torch.zeros((nb, 4 * f, size, size), device=dev,
+                                 dtype=torch.bfloat16)
+                split = device_ms_by(call, dev, BWD_BF16_STAGES)
+                case.update(
+                    ms=time_ms(call, dev, iters=3, warmup=1),
+                    device_ms=split and sum(split.values()),
+                    stages_device_ms=split,
+                    plain_ms=time_ms(lambda: ops.convlstm_backward_reference(
+                        xb, kb, bb, gb, need_dx=False), dev, iters=2,
+                        warmup=1),
+                    bound_ms=b_ms, bound_by=b_by,
+                    gflop_necessary=need / 1e9,
+                    cudnn_one_echo_wgrad_bf16_ms_partial=time_ms(
+                        lambda: torch.nn.grad.conv2d_weight(
+                            inp, (4 * f, cin + f, 3, 3), dg, padding=1),
+                        dev, iters=5))
+                del inp, dg
+            bwd_cases.append(case)
+            del got, x, xb, g, gb
+            if not case["deterministic"] or any(
+                    bf16_fails(case[n]) for n in ("dx", "dk", "db")) \
+                    or not case.get("f32_kernel_control_fails", True):
+                raise AssertionError(f"bf16 convlstm backward disagrees with "
+                                     f"its plain version, or the f32 "
+                                     f"kernel's output passes its gate: "
+                                     f"{case}")
+            torch.cuda.empty_cache()
+    hmma_fwd = hmma_counts(ops.CONVLSTM_BF16_KERNEL.lib, [LSTM_FWD_BF16],
+                           "BF16")
+    hmma_bwd = hmma_counts(ops.CONVLSTM_BWD_BF16_KERNEL.lib,
+                           ["gates_mma_bf16", "dinp_mma_bf16", "dk_mma_bf16"],
+                           "BF16")
+    for hmma in (hmma_fwd, hmma_bwd):
+        if hmma is not None and not all(hmma.values()):
+            raise AssertionError(f"a bf16 ConvLSTM kernel has no bf16 "
+                                 f"tensor-core instruction: {hmma}")
+    tol = ("|kernel - plain bf16| <= ne * 2u * max|plain| (u = 2^-8, "
+           "bf16_gate) and at most 2 % of the elements beyond one ulp "
+           "(BF16_ULP_SHARE); the f32 kernel's output fails that gate; two "
+           "launches bit-identical; bound_ms: dense bf16 on the tensor "
+           "cores, two bytes a value")
+    timed = [c for c in bwd_cases if "ms" in c]
+    fwd_main, bwd_main = fwd_cases[0], timed[0]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    return [
+        dict(name=ops.CONVLSTM_BF16_KERNEL.name, route="cuda",
+             source=ops.CONVLSTM_BF16_KERNEL.source,
+             replaces="ideal_gan_tpu/ops/pallas_convlstm.py:177",
+             launches=None,
+             max_abs_err=max(c["max_abs_err"] for c in fwd_cases),
+             **{k: fwd_main[k] for k in keys}, library_ms=None,
+             hmma=hmma_fwd, deterministic=all(c["deterministic"]
+                                              for c in fwd_cases),
+             tolerance=tol, cases=fwd_cases,
+             wide={k: fwd_cases[2][k] for k in ("cin", "F", "nb") + keys}),
+        dict(name=ops.CONVLSTM_BWD_BF16_KERNEL.name, route="cuda",
+             source=ops.CONVLSTM_BWD_BF16_KERNEL.source,
+             replaces="ideal_gan_tpu/ops/pallas_convlstm.py:517",
+             launches=None,
+             max_abs_err=max(c[n]["max_abs_err"] for c in bwd_cases
+                             for n in ("dx", "dk", "db")),
+             **{k: bwd_main[k] for k in keys},
+             stages_device_ms=bwd_main["stages_device_ms"], library_ms=None,
+             hmma=hmma_bwd, deterministic=all(c["deterministic"]
+                                              for c in bwd_cases),
+             tolerance=tol + "; kink-free inputs", cases=bwd_cases,
+             wide={k: timed[2][k] for k in ("cin", "F", "nb") + keys})]
 
 
 def forward_entry(dev, size: int = SIZE, nb: int = NB_SERVE) -> dict:
@@ -1272,7 +1541,8 @@ def train_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
             str(batch), "--epochs", "2", "--out_vars", "PM", "--n_G_filters",
             str(f), "--seed", "0", "--device", str(dev), "--output_base",
             str(out_dir)]
-    result, wall, launches = counted(dev, lambda: train_unsup.main(argv))
+    result, wall, launches, peak = counted_peak(
+        dev, lambda: train_unsup.main(argv))
     losses = [v for ep in result["epochs"] for k, v in ep.items()
               if k.endswith("loss")]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1289,7 +1559,7 @@ def train_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     set_tf32(False)
     parity = step_parity(dev, parity_size, parity_batch, f)
     return dict(launches=launches, wall_s=wall, epochs=result["epochs"],
-                ms_per_step_pair=step_ms,
+                peak_memory_gb=peak, ms_per_step_pair=step_ms,
                 slices_per_s=batch * 1e3 / step_ms, parity=parity,
                 parity_shape=dict(size=parity_size, batch=parity_batch, F=f))
 
@@ -1899,6 +2169,19 @@ def counted(dev, fn):
         torch.cuda.synchronize(dev)
     return result, time.perf_counter() - t0, {k.name: k.launches
                                               for k in ops.KERNELS}
+
+
+def counted_peak(dev, fn):
+    """`counted(dev, fn)` and the peak device memory of the call in GB
+    (None on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    result, wall, launches = counted(dev, fn)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else None
+    return result, wall, launches, peak
 
 
 def steady_step(dev, fn, batch: int, iters: int = 3) -> dict:
@@ -2620,6 +2903,300 @@ def check_single(s: dict) -> None:
                              f"gradients, metrics): {bad}")
 
 
+# the AI-DEAL PM step pair's ConvLSTM launches per net trained with a
+# gradient under remat: its forward (ne echoes; remat leaves the ConvLSTM
+# front out, so no second forward), the backward's state recompute (ne - 1)
+# and sweep (ne echoes and the reduction); the frozen net's forward (ne).
+# Two such steps make a pair.
+UNSUP_REMAT_PAIR = {"convlstm_fwd_bf16": 2 * (NE + (NE - 1) + NE),
+                    "convlstm_bwd_bf16": 2 * (NE + 1)}
+
+
+# the bf16 step gate (card against CPU, `bf16_step_gate`): leaves whose CPU
+# bf16 gradient lies within BF16_LEAF_SEL of the float32 one (of the leaf's
+# own float32 scale) are "resolved"; on them the card may lie BF16_LEAF_TOL
+# of that scale from the CPU; the whole gradient BF16_GRAD_TOL of the CPU
+# bf16 step's scale; the loss BF16_LOSS_FACTOR times bf16's own effect on
+# it; and the card's step must be at least BF16_APPLIED of bf16's effect on
+# the gradient away from float32
+BF16_LEAF_SEL, BF16_LEAF_TOL, BF16_GRAD_TOL = 0.1, 0.25, 0.75
+BF16_LOSS_FACTOR, BF16_APPLIED = 0.25, 0.1
+
+
+def bf16_step_gate(run: dict, ref: dict, f32: dict) -> dict:
+    """A bf16 step `run` (loss, grads) held to the bf16 step `ref` of another
+    device, with `f32` (the float32 step from the same weights) as the
+    witness. At random weights most of a bf16 gradient is rounding noise
+    (the AI-DEAL FM step's CPU bf16 gradient lies ~1.25 of scale from
+    float32 at 96², no leaf within a tenth of its own scale; PERF.md
+    §6), so the gradient is held where it is resolved and as a whole on
+    a scale a wrong step leaves:
+
+    - loss: |run − ref| ≤ BF16_LOSS_FACTOR · |ref − f32|;
+    - whole gradient: max |run − ref| ≤ BF16_GRAD_TOL · max |ref| (a zero
+      gradient reads 1, a sign-flipped one 2);
+    - resolved leaves (|ref − f32| ≤ BF16_LEAF_SEL · max |f32| of the
+      leaf): |run − ref| ≤ BF16_LEAF_TOL · max |f32| of the leaf;
+    - bf16 applied: max |run − f32| ≥ BF16_APPLIED · max |ref − f32| (on
+      the f32 scale), which the float32 step fails.
+
+    Returns the readings and `failures`, the names of the rules broken."""
+    g, r, w = run["grads"], ref["grads"], f32["grads"]
+    if set(g) != set(r) or set(r) != set(w):
+        raise AssertionError("gradient leaves differ")
+
+    def gap(a, b, k):
+        return float((a[k] - b[k]).abs().max())
+
+    scale32 = max(float(v.abs().max()) for v in w.values())
+    scale_ref = max(float(v.abs().max()) for v in r.values())
+    resolved = {}
+    for k in w:
+        s_k = float(w[k].abs().max())
+        if s_k > 0 and gap(r, w, k) <= BF16_LEAF_SEL * s_k:
+            resolved[k] = gap(g, r, k) / s_k
+    out = dict(
+        loss=run["loss"], loss_ref=ref["loss"], loss_f32=f32["loss"],
+        loss_gap=abs(run["loss"] - ref["loss"]),
+        loss_bf16_effect=abs(ref["loss"] - f32["loss"]),
+        grad_gap=max(gap(g, r, k) for k in w) / scale_ref,
+        resolved_leaves=len(resolved),
+        resolved_worst=max(resolved.values(), default=0.0),
+        resolved_worst_leaf=max(resolved, key=resolved.get, default=None),
+        run_vs_f32=max(gap(g, w, k) for k in w) / scale32,
+        ref_vs_f32=max(gap(r, w, k) for k in w) / scale32)
+    out["failures"] = [name for name, bad in (
+        ("loss", out["loss_gap"] > BF16_LOSS_FACTOR * out["loss_bf16_effect"]),
+        ("gradient", out["grad_gap"] > BF16_GRAD_TOL),
+        ("resolved leaves", out["resolved_worst"] > BF16_LEAF_TOL),
+        ("bf16 applied", out["run_vs_f32"]
+         < BF16_APPLIED * out["ref_vs_f32"])) if bad]
+    return out
+
+
+def options_step_parity(dev, size: int, batch: int, f: int) -> dict:
+    """One bf16 FM step and one bf16 R2 step on `dev` and on the CPU from the
+    same float32 weights and batch (the noisy synthetic cohort of
+    `step_parity`), the card's held to the CPU's by `bf16_step_gate` with
+    the CPU's float32 steps as the witness. Three controls run through the
+    same gate and must fail it: the CPU's float32 step, the card's step
+    with its gradient zeroed, and with it sign-flipped."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import unsup
+
+    cpu = torch.device("cpu")
+    cfg = dict(unsup.DEFAULTS, n_G_filters=f, out_vars="PM")
+    cfg_bf16 = dict(cfg, bf16=True)
+    clean, _, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    acqs = clean + 1e-3 * np.random.default_rng(2).normal(
+        size=clean.shape).astype(np.float32)
+    nets = unsup.build_models(cfg)
+    gen = torch.Generator().manual_seed(3)
+    for net in nets:
+        net.init_params(gen)
+    nets_bf16 = unsup.build_models(cfg_bf16)
+    for a, b in zip(nets_bf16, nets):
+        a.load_state_dict(b.state_dict())
+
+    def run(c, ns, where):
+        return _steps(c, [copy.deepcopy(n).to(where) for n in ns], acqs, te,
+                      where, ("fm", "r2"))
+
+    card, ref = run(cfg_bf16, nets_bf16, dev), run(cfg_bf16, nets_bf16, cpu)
+    f32 = run(cfg, nets, cpu)
+    out = {}
+    for step in ("fm", "r2"):
+        res = bf16_step_gate(card[step], ref[step], f32[step])
+        res["within_gate"] = not res["failures"]
+        g = card[step]["grads"]
+        controls = {
+            "f32_step": f32[step],
+            "zero_gradient": dict(card[step], grads={
+                k: torch.zeros_like(v) for k, v in g.items()}),
+            "flipped_gradient": dict(card[step], grads={
+                k: -v for k, v in g.items()})}
+        res["controls"] = {
+            name: bf16_step_gate(c, ref[step], f32[step])["failures"]
+            for name, c in controls.items()}
+        res["controls_fail"] = all(res["controls"].values())
+        out[step] = res
+    out["gate"] = (f"bf16_step_gate: loss <= {BF16_LOSS_FACTOR:g} x bf16's "
+                   f"effect; gradient <= {BF16_GRAD_TOL:g} of the CPU bf16 "
+                   f"scale; leaves the CPU's bf16 resolves to "
+                   f"{BF16_LEAF_SEL:g}: <= {BF16_LEAF_TOL:g} of their scale; "
+                   f">= {BF16_APPLIED:g} x bf16's effect from float32; the "
+                   f"f32, zeroed and flipped controls fail it")
+    return out
+
+
+def micro_step_parity(dev, size: int, batch: int, f: int,
+                      micro: int = 2) -> dict:
+    """VET-Net's float32 generator gradients with `--microbatch micro`
+    against the full-batch step on the card, from the same weights, maps,
+    TE train and noise (the microbatched step's chunks take the noise's
+    rows in order), at the step gates (loss 2e-5 relative, every gradient
+    leaf 2e-2 of scale, TF32 off); then both steps timed with their peak
+    memory at PyTorch's defaults."""
+    import torch
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import teaug
+
+    cfg = dict(teaug.DEFAULTS, n_G_filters=f)
+    gen = torch.Generator().manual_seed(5)
+    model = teaug.build_model(cfg)
+    model.init_params(gen)
+    model.to(dev)
+    _, maps, _ = load_cohorts(dict(cfg, synthetic=batch, data_size=size))
+    B = torch.from_numpy(maps).to(dev)
+    te = teaug.sample_te(gen, cfg, batch).to(dev)
+    noise = teaug.draw_noise(B, te, torch.Generator(device=dev)
+                             .manual_seed(6))
+    runs = {}
+    set_tf32(False)
+    for name, m in (("full", 0), ("micro", micro)):
+        grad_fn = teaug.make_grad_fn(dict(cfg, microbatch=m), model)
+        model.zero_grad()
+        loss, _ = grad_fn(B, te, noise)
+        runs[name] = dict(loss=float(loss.detach()), grads=_grads(model))
+    res = _compare(runs["micro"], runs["full"])
+    res["within_gate"] = (res["loss_rel_diff"] <= 2e-5
+                          and res["grad_max_rel"] <= 2e-2)
+    set_tf32(True)  # the steps timed at PyTorch's defaults
+    for name, m in (("full", 0), ("micro", micro)):
+        step, tx = teaug.make_train_step(dict(cfg, microbatch=m), model)
+        state = teaug.TEAugState(model, tx(list(model.parameters())))
+        noise_gen = torch.Generator(device=dev).manual_seed(7)
+        res[f"{name}_step"] = steady_step(
+            dev, lambda: step(state, (B, te), noise_gen), batch)
+    return res
+
+
+def options_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+                  batch: int = NB_SERVE, parity_size: int = 96,
+                  parity_batch: int = 2, f_main: int = F_MAIN,
+                  f_teaug: int = F_TEAUG) -> dict:
+    """The trainers' bf16, remat and microbatch options at full width, each
+    CLI run with the launch counters read around it:
+
+    (a) `cli.train_unsup --out_vars PM --bf16 1 --remat 1` (AI-DEAL, F=36,
+        `size`², batch 8, 2 epochs of n/batch step pairs): both bf16
+        ConvLSTM kernels run (the FM net at Cin 2, the R2* net at Cin 1),
+        the f32 ones not at all; the launches against `UNSUP_REMAT_PAIR`
+        (exactly: remat adds no ConvLSTM launch), finite losses, the peak
+        memory; then `options_step_parity` at `parity_size`²;
+    (b) `cli.train_teaug --bf16 1 --remat 1` (VET-Net, F=72, one epoch),
+        then three steady steps timed with their peak memory;
+    (c) `cli.train_teaug --microbatch 2` (VET-Net, F=72, float32, one
+        epoch: the synthesis kernel once a chunk), then `micro_step_parity`
+        (the microbatched gradients against the full batch's on the same
+        noise, and both steps timed: the float32 full-batch step is (b)'s
+        yardstick)."""
+    import torch
+    from ideal_gan_tpu_torch.cli import train_teaug, train_unsup
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import teaug
+
+    def argv(sub, *extra):
+        return ["--synthetic", str(n), "--data_size", str(size),
+                "--batch_size", str(batch), "--seed", "0", "--device",
+                str(dev), "--output_base", str(out_dir / sub), *extra]
+
+    res, wall, launches, peak = counted_peak(dev, lambda: train_unsup.main(
+        argv("unsup", "--epochs", "2", "--out_vars", "PM", "--n_G_filters",
+             str(f_main), "--bf16", "1", "--remat", "1")))
+    pairs = sum(ep["steps"] for ep in res["epochs"])
+    want = {k: v * pairs for k, v in UNSUP_REMAT_PAIR.items()}
+    unsup_run = dict(
+        launches=launches, wall_s=wall, epochs=res["epochs"],
+        step_pairs=pairs, expected_launches=want,
+        launches_as_expected=all(launches[k] == v for k, v in want.items()),
+        peak_memory_gb=peak,
+        ms_per_step_pair=res["epochs"][-1]["seconds"]
+        / res["epochs"][-1]["steps"] * 1e3,
+        finite=_finite_losses(res["epochs"]))
+    set_tf32(False)
+    unsup_run["parity"] = options_step_parity(dev, parity_size,
+                                              parity_batch, f_main)
+    unsup_run["parity_shape"] = dict(size=parity_size, batch=parity_batch,
+                                     F=f_main)
+    set_tf32(True)
+    del res
+
+    res, wall, launches, peak = counted_peak(dev, lambda: train_teaug.main(
+        argv("teaug_bf16", "--epochs", "1", "--n_G_filters", str(f_teaug),
+             "--bf16", "1", "--remat", "1")))
+    cfg = dict(teaug.DEFAULTS, n_G_filters=f_teaug, bf16=True, remat=True)
+    state = res["state"]
+    _, maps, _ = load_cohorts(dict(cfg, synthetic=batch, data_size=size))
+    B = torch.from_numpy(maps).to(dev)
+    te = teaug.sample_te(torch.Generator().manual_seed(1), cfg, batch).to(dev)
+    step, _ = teaug.make_train_step(cfg, state.model)
+    noise_gen = torch.Generator(device=dev).manual_seed(2)
+    teaug_run = dict(launches=launches, wall_s=wall, epochs=res["epochs"],
+                     steps=state.step, peak_memory_gb_cli=peak,
+                     finite=_finite_losses(res["epochs"]),
+                     **steady_step(dev, lambda: step(state, (B, te),
+                                                     noise_gen), batch))
+    del res, state, step, B
+    torch.cuda.empty_cache()
+
+    res, wall, launches = counted(dev, lambda: train_teaug.main(
+        argv("teaug_micro", "--epochs", "1", "--n_G_filters", str(f_teaug),
+             "--microbatch", "2")))
+    micro_run = dict(launches=launches, wall_s=wall, epochs=res["epochs"],
+                     steps=res["state"].step, chunks_per_step=batch // 2,
+                     finite=_finite_losses(res["epochs"]))
+    del res
+    torch.cuda.empty_cache()
+    micro_run["parity"] = micro_step_parity(dev, size, batch, f_teaug)
+    return dict(unsup_bf16_remat=unsup_run, teaug_bf16_remat=teaug_run,
+                teaug_microbatch=micro_run)
+
+
+def check_options(o: dict) -> None:
+    """The options phase's gates: (a) both bf16 ConvLSTM kernels exactly
+    `UNSUP_REMAT_PAIR` times a step pair and the f32 ones never, finite
+    losses, the bf16 card-vs-CPU steps within their gate and its three
+    controls outside it; (b) the bf16
+    kernels at least once a step, finite losses; (c) the synthesis kernel
+    once a chunk and the f32 ConvLSTM kernels at least once a step, finite
+    losses, the microbatched step within the step gates of the full
+    batch."""
+    u, t, m = (o[k] for k in ("unsup_bf16_remat", "teaug_bf16_remat",
+                              "teaug_microbatch"))
+    off = {k: (u["launches"][k], v) for k, v in
+           u["expected_launches"].items() if u["launches"][k] != v}
+    if off or u["launches"]["convlstm_fwd"] or u["launches"]["convlstm_bwd"]:
+        raise AssertionError(f"bf16 unsup path skipped the bf16 kernels or "
+                             f"ran the f32 ones: {u['launches']}")
+    bad = {s: u["parity"][s] for s in ("fm", "r2")
+           if not u["parity"][s]["within_gate"]
+           or not u["parity"][s]["controls_fail"]}
+    if not u["finite"] or bad:
+        raise AssertionError(f"bf16 unsup: losses {u['epochs']}, card vs CPU "
+                             f"bf16 steps {bad}")
+    k = t["steps"]
+    if not t["finite"] or any(t["launches"][x] < k for x in (
+            "convlstm_fwd_bf16", "convlstm_bwd_bf16")):
+        raise AssertionError(f"bf16 teaug skipped the bf16 kernels in {k} "
+                             f"steps or lost its losses: {t['launches']}, "
+                             f"{t['epochs']}")
+    k = m["steps"]
+    if not m["finite"] or m["launches"]["ideal_forward"] \
+            != k * m["chunks_per_step"] or any(
+                m["launches"][x] < k for x in ("convlstm_fwd",
+                                               "convlstm_bwd")):
+        raise AssertionError(f"microbatched teaug skipped kernels in {k} "
+                             f"steps: {m['launches']}, {m['epochs']}")
+    if not m["parity"]["within_gate"]:
+        raise AssertionError(f"microbatched and full-batch VET-Net steps "
+                             f"disagree: {m['parity']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2645,7 +3222,8 @@ def main() -> int:
     set_tf32(False)
     t0 = time.perf_counter()
     kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
-               convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev)]
+               convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev),
+               *convlstm_bf16_entries(dev)]
     emit("kernels", card=smi, seconds=time.perf_counter() - t0,
          kernels=kernels)
     set_tf32(True)  # the runs at PyTorch's defaults
@@ -2743,9 +3321,17 @@ def main() -> int:
         sgl = single_phase(dev, Path(tmp))
     emit("single", card=smi, seconds=time.perf_counter() - t0, **sgl)
     check_single(sgl)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        opts = options_phase(dev, Path(tmp))
+    emit("options", card=smi, seconds=time.perf_counter() - t0, **opts)
+    check_options(opts)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
-               "ideal_mag_fit": mag}
+               "ideal_mag_fit": mag,
+               "convlstm_fwd_bf16": opts["unsup_bf16_remat"],
+               "convlstm_bwd_bf16": opts["unsup_bf16_remat"]}
     new_paths = {"sup_pm_resynthesis": sup["runs"]["U-Net-PM-resynthesis"],
                  "sup_2d_net_serving": sup["serving_2d_net"],
                  **{f"teaug_{g}": gens[g] for g in TEAUG_GENS},
@@ -2755,7 +3341,8 @@ def main() -> int:
                      "aideal_uq_serving_pdff"],
                  "aideal_uq_serving_pdff_var": uq["paths"][
                      "aideal_uq_serving_pdff_var"],
-                 "single": sgl}
+                 "single": sgl,
+                 **{f"options_{k}": v for k, v in opts.items()}}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

@@ -37,35 +37,35 @@ from ..ops import _build
 from .common import parse_flags, resolve_device
 
 _PRODUCTS = """#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
-                mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
+        for (int q = 0; q < 4; ++q)
+          mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
+        for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);"""
+        for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);"""
 _ONE_PRODUCT = """#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
-                mma_zero(d[mi][q], fa[mi].hi, fb[q].hi);"""
+        for (int q = 0; q < 4; ++q)
+          mma_zero(d[mi][q], fa[mi].hi, fb[q].hi);"""
 _ROUND = """#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-                for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];"""
+          for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];"""
 _SPLIT = """    hi[i] = to_tf32(v);
     lo[i] = to_tf32(v - __uint_as_float(hi[i]));"""
 _NO_SPLIT = """    hi[i] = __float_as_uint(v);
     lo[i] = hi[i];"""
-_STORE = """          ea.h_next[o] = go * leaky_relu(cn);
-          if (ea.c_next) ea.c_next[o] = cn;"""
+_STORE = """          store_f(ea.h_next, o, go * leaky_relu(cn));
+          if (ea.c_next) store_f(ea.c_next, o, cn);"""
 _LOAD = "        gates_load(a, buf, 8 * s, ceff, b, ty0, tx0, j0);"
 _BOUNDS = "__launch_bounds__(kWarps * 32, 2)"
 

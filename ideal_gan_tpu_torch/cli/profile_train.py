@@ -17,6 +17,9 @@
         [--data_size 384] [--steps 3] [--n_G_filters 36]
         [--grad_mode bipolar]
 
+Every trainer takes `--bf16 1` and `--remat 1`, teaug and sup also
+`--microbatch N`, as their CLIs do; the JSON line names them.
+
 `--trainer unsup` (the default) runs `--steps` AI-DEAL PM-mode step pairs
 (the FM step, then the R2 step with g_fm frozen, as `cli.train_unsup` runs
 them; with `--UQ 1 --UQ_R2s 1` the Bayesian heads and the heteroscedastic
@@ -262,7 +265,8 @@ def main(argv=None):
         "card": smi, "trainer": known.trainer,
         "G_model": cfg.get("G_model"), "out_vars": cfg.get("out_vars"),
         "UQ": cfg.get("UQ"), "UQ_R2s": cfg.get("UQ_R2s"),
-        "batch": bs,
+        "bf16": bool(cfg.get("bf16")), "remat": bool(cfg.get("remat")),
+        "microbatch": cfg.get("microbatch"), "batch": bs,
         "size": cfg["data_size"], "F": cfg["n_G_filters"], f"{unit}s": n,
         f"wall_ms_per_{unit}": wall_ms / n,
         "slices_per_s": bs * n * 1e3 / wall_ms,

@@ -16,9 +16,12 @@ each, and resumes from the latest one. `--device` defaults to `cuda` and
 raises without a card; `cpu` runs the plain PyTorch versions of the
 kernels.
 
-Not ported yet (ROADMAP Queue 1 item 7): bf16 and remat
-(NotImplementedError); tensorboardX summaries and the preemption guard are
-skipped with a printed note.
+`--bf16 1` computes the nets in bfloat16 (the ConvLSTM kernels' bf16
+storage mode; parameters and physics float32) and `--remat 1`
+rematerializes their blocks in the backward.
+
+Not ported yet (ROADMAP Queue 1 item 7b): tensorboardX summaries and the
+preemption guard are skipped with a printed note.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..utils import Checkpoint
 from .common import load_cohorts, resolve_device, setup_experiment
 
 _SKIPPED = ("summaries (tensorboardX) and the preemption guard are not "
-            "ported yet (ROADMAP Queue 1 item 7): skipped")
+            "ported yet (ROADMAP Queue 1 item 7b): skipped")
 
 
 def main(argv=None) -> dict:

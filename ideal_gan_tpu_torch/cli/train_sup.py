@@ -20,11 +20,16 @@ the latest one. Prints one `G_loss` line per epoch. `--device` defaults to
 `cuda` and raises without a card; `cpu` runs the plain PyTorch versions of
 the kernels.
 
-Not ported yet (ROADMAP Queue 1 item 7): `--microbatch`, bf16 and remat
-(NotImplementedError); tensorboardX summaries, profiling and the
-preemption guard are skipped with a printed note. The JAX CLI's warning
-about a TPU compiler crash has no counterpart on the card; its data mesh
-(`data_mesh_for_batch`, `shard_batch`) is ROADMAP Queue 1 item 12.
+`--bf16 1` computes the net in bfloat16 (parameters and physics float32),
+`--remat 1` rematerializes its blocks in the backward, and `--microbatch
+N` accumulates the gradients over chunks of N slices, each with its own
+input noise (the batch must be a multiple of N).
+
+Not ported yet (ROADMAP Queue 1 item 7b): tensorboardX summaries,
+profiling and the preemption guard are skipped with a printed note. The
+JAX CLI's warning about a TPU compiler crash has no counterpart on the
+card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
+Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from ..utils import Checkpoint
 from .common import load_cohorts, resolve_device, setup_experiment
 
 _SKIPPED = ("summaries (tensorboardX), profiling and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 7): skipped")
+            "are not ported yet (ROADMAP Queue 1 item 7b): skipped")
 # --DL_partial_real → the number of real slices prepended
 _PARTIAL_REAL = {2: 64, 6: 200, 10: 330}
 

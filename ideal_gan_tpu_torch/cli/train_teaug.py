@@ -21,11 +21,17 @@ resumes from the latest one. Prints one `PM_loss` line per epoch.
 `--device` defaults to `cuda` and raises without a card; `cpu` runs the
 plain PyTorch versions of the kernels.
 
-Not ported yet (ROADMAP Queue 1 item 7): `--microbatch`, bf16 and remat
-(NotImplementedError); tensorboardX summaries, the sample PNGs and the
-preemption guard are skipped with a printed note. The JAX CLI's warning
-about a TPU compiler crash has no counterpart on the card; its data mesh
-(`data_mesh_for_batch`, `shard_batch`) is ROADMAP Queue 1 item 12.
+`--bf16 1` computes the nets in bfloat16 (the ConvLSTM kernels' bf16
+storage mode; parameters and physics float32), `--remat 1`
+rematerializes their blocks in the backward, and `--microbatch N`
+accumulates G_A2B's gradients over chunks of N slices, each with its own
+noise (the batch must be a multiple of N).
+
+Not ported yet (ROADMAP Queue 1 item 7b): tensorboardX summaries, the
+sample PNGs and the preemption guard are skipped with a printed note. The
+JAX CLI's warning about a TPU compiler crash has no counterpart on the
+card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
+Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from ..utils import Checkpoint
 from .common import load_cohorts, resolve_device, setup_experiment
 
 _SKIPPED = ("summaries (tensorboardX), sample PNGs and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 7): skipped")
+            "are not ported yet (ROADMAP Queue 1 item 7b): skipped")
 
 
 def main(argv=None) -> dict:

@@ -26,7 +26,11 @@ the split's first quarter held out, and the run prints
 `calibration: held-out NLL a → b, calib=[...]` and checkpoints at epoch
 `epochs + 1`.
 
-Not ported yet (ROADMAP Queue 1 items 7 and 12): DICOM/NIfTI folders
+`--bf16 1` computes the nets in bfloat16 (the ConvLSTM kernels' bf16
+storage mode; parameters and physics float32) and `--remat 1`
+rematerializes their blocks in the backward.
+
+Not ported yet (ROADMAP Queue 1 items 7b and 12): DICOM/NIfTI folders
 (SystemExit); tensorboardX summaries, the sample PNGs and the preemption
 guard are skipped with a printed note.
 """
@@ -45,7 +49,7 @@ from ..utils import Checkpoint
 from .common import load_cohorts, resolve_device, setup_experiment
 
 _SKIPPED = ("summaries (tensorboardX), sample PNGs and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 7): skipped")
+            "are not ported yet (ROADMAP Queue 1 item 7b): skipped")
 
 
 def main(argv=None) -> dict:

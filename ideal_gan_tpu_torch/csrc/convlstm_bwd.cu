@@ -84,6 +84,17 @@
 //    state) is skipped by a block-uniform branch.
 // The TPU kernel's whole-recurrence VMEM state, taint fronts and dx
 // overlap-add have no counterpart: per-echo launches need none of them.
+//
+// The bf16 storage mode (`convlstm_echo_bwd_bf16`: gates_mma_bf16,
+// dinp_mma_bf16, dk_mma_bf16, sum_slots_bf16) is the TPU kernel's bf16
+// reverse sweep, the same templates on S = the bits of bf16: k, x and the
+// state stacks are bf16; dL/dh, dL/dc and dL/dz stay f32 in device memory,
+// and dL/dz is rounded to bf16 where it becomes an operand of (b) and (c)
+// (at the fragment); db is summed from the f32 dL/dz beside (c)'s MMAs (no
+// bias column); dx leaves in bf16, the dk/db partials in f32, dk and db in
+// bf16. Each product is one m16n8k16 bf16 MMA with f32 accumulation. Only
+// the stages' inner steps (3xTF32 k8 against bf16 k16 fragments) and
+// loaders differ between the two modes.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -105,19 +116,24 @@ constexpr int CS = 24;       // (c): patch stride per pixel (16 channels)
 
 // ---------------------------------------------------------------- (a)
 
-struct GatesArgs {
-  GateConv conv;        // x_e, k, h_{e-1} and the shape
-  const float* bias;
-  const float* c_prev;  // (nb, F, H, W), unused without state
+// x, k, the bias and the state stacks stored as S (float, or bf16 bits);
+// dL/dh, dL/dc and dL/dz are float32 in both modes
+template <class S>
+struct GatesArgsT {
+  GateConvT<S> conv;    // x_e, k, h_{e-1} and the shape
+  const S* bias;
+  const S* c_prev;      // (nb, F, H, W), unused without state
   const float* dh;      // dL/dh_e (nb, H, W, F)
   const float* dc;      // dL/dc_e (nb, H, W, F), null at the last echo
   float* dgates;        // dL/dz (nb, H, W, 4F)
   float* dc_prev;       // dL/dc_{e-1} (nb, H, W, F), null at echo 0
 };
+using GatesArgs = GatesArgsT<float>;
 
-__global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
-  extern __shared__ float smem[];
-  const GateConv& a = ga.conv;
+template <class S>
+__device__ __forceinline__ void gates_body(const GatesArgsT<S>& ga,
+                                           float* smem) {
+  const GateConvT<S>& a = ga.conv;
   const int tiles_x = (a.W + T - 1) / T;
   const int tx0 = (blockIdx.y % tiles_x) * T;
   const int ty0 = (blockIdx.y / tiles_x) * T;
@@ -147,7 +163,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        bias[q][e] = ga.bias[q * a.F + min(f0 + e, a.F - 1)];
+        bias[q][e] = load_f(ga.bias, q * a.F + min(f0 + e, a.F - 1));
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int y = ty0 + 2 * warp + mi;
@@ -184,8 +200,8 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
           const float go = sigmoid(acc[mi][jj][3][r] + bias[3][e]);
           const float cp =
               a.has_state && e < ne
-                  ? ga.c_prev[((long long)b * a.F + f0 + e) * hw +
-                             (long long)y * a.W + xx]
+                  ? load_f(ga.c_prev, ((long long)b * a.F + f0 + e) * hw +
+                                          (long long)y * a.W + xx)
                   : 0.f;
           const float cn = gf * cp + gi * gg;
           const float dct = dc[e] + dh[e] * go * leaky_relu_grad(cn);
@@ -216,30 +232,91 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
   }
 }
 
+__global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
+  extern __shared__ float smem[];
+  gates_body(ga, smem);
+}
+
+// stage (a) in the bf16 storage mode: the bf16 gate mainloop; the epilogue
+// reads the bias and c_{e-1} (the stack's bf16 copy) as f32 and writes
+// dL/dz and dL/dc_{e-1} in f32, as the TPU kernel's f32 dgates and dc
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    gates_mma_bf16(GatesArgsT<uint16_t> ga) {
+  extern __shared__ float smem[];
+  gates_body(ga, smem);
+}
+
 // ---------------------------------------------------------------- (b)
 
-struct DinpArgs {
+// k and dx stored as S; dL/dz and dL/dh float32 in both modes
+template <class S>
+struct DinpArgsT {
   const float* dg;  // (nb, H, W, 4F)
-  const float* k;   // (3, 3, Cin+F, 4F)
-  float* dx;        // echo e of dx (nb, ne, H, W, Cin), may be null
+  const S* k;       // (3, 3, Cin+F, 4F)
+  S* dx;            // echo e of dx (nb, ne, H, W, Cin), may be null
   long long dx_b;   // batch stride of dx (elements)
   float* dh;        // dL/dh_{e-1} (nb, H, W, F), may be null
   int cin, F, H, W, c0, nco, cpb;  // output channels [c0, c0 + nco)
 };
+using DinpArgs = DinpArgsT<float>;
 
+// A stage in 32-bit words: the dgates patch (float32 in both modes; bf16
+// rounds it at the fragment) and the flipped weights, float32 rows of 8
+// gates (stride PS) or bf16 pairs of consecutive gates (4 words a row).
+template <class S>
 __host__ __device__ inline int dinp_stage(int cpb) {
-  return P * P * PS + 9 * cpb * PS;
+  return P * P * PS + 9 * cpb * (sizeof(S) == 2 ? 4 : PS);
 }
 
-// Stage gates [n0, n0 + 8) of the dgates patch and the flipped weights
-// ws[t][j][n] = k[8 - t][c][n0 + n] of the block's output channels.
-__device__ __forceinline__ void dinp_load(const DinpArgs& a, float* buf,
+// the flipped weights ws[t][j][n] = k[8 - t][c][n0 + n] of the block's
+// output channels, float32: rows of 4 gates 16 bytes at a time
+__device__ __forceinline__ void dinp_load_w(const DinpArgs& a, float* ws,
+                                            int n0, int cbase) {
+  const int N = 4 * a.F;
+  const int C = a.cin + a.F;
+  for (int i = threadIdx.x; i < 9 * a.cpb * 2; i += blockDim.x) {
+    const int n = n0 + 4 * (i & 1);
+    const int r = i >> 1;  // tap * cpb + j
+    const int tap = r / a.cpb;
+    const int c = cbase + (r - tap * a.cpb);
+    const bool in = n < N && c < a.c0 + a.nco;
+    copy16(ws + r * PS + 4 * (i & 1),
+           in ? a.k + ((long long)(8 - tap) * C + c) * N + n : nullptr, in);
+  }
+}
+
+// bf16: word (tap, j, p) = k[8 - tap][c_j][n0 + 2p, n0 + 2p + 1]; 4
+// consecutive gates are 8 bytes, aligned (N % 4 == 0, n0 % 8 == 0)
+__device__ __forceinline__ void dinp_load_w(const DinpArgsT<uint16_t>& a,
+                                            float* buf, int n0, int cbase) {
+  const int N = 4 * a.F;
+  const int C = a.cin + a.F;
+  uint32_t* ws = reinterpret_cast<uint32_t*>(buf);
+  for (int i = threadIdx.x; i < 9 * a.cpb * 2; i += blockDim.x) {
+    const int half = i & 1;
+    const int r = i >> 1;  // tap * cpb + j
+    const int tap = r / a.cpb;
+    const int c = cbase + (r - tap * a.cpb);
+    const int n = n0 + 4 * half;
+    uint32_t* dst = ws + r * 4 + 2 * half;
+    if (n < N && c < a.c0 + a.nco) {
+      __pipeline_memcpy_async(dst, a.k + ((long long)(8 - tap) * C + c) * N + n,
+                              8);
+    } else {
+      dst[0] = 0u;
+      dst[1] = 0u;
+    }
+  }
+}
+
+// Stage gates [n0, n0 + 8) of the dgates patch and the flipped weights of
+// the block's output channels.
+template <class S>
+__device__ __forceinline__ void dinp_load(const DinpArgsT<S>& a, float* buf,
                                           int n0, int b, int ty0, int tx0,
                                           int cbase) {
   const int N = 4 * a.F;
-  const int C = a.cin + a.F;
   float* patch = buf;
-  float* ws = buf + P * P * PS;
   // 4 consecutive gates are contiguous and 16-byte aligned (N % 4 == 0)
   for (int i = threadIdx.x; i < 2 * P * P; i += blockDim.x) {
     const int pix = i >> 1;
@@ -253,20 +330,102 @@ __device__ __forceinline__ void dinp_load(const DinpArgs& a, float* buf,
               : nullptr,
            in);
   }
-  for (int i = threadIdx.x; i < 9 * a.cpb * 2; i += blockDim.x) {
-    const int n = n0 + 4 * (i & 1);
-    const int r = i >> 1;  // tap * cpb + j
-    const int tap = r / a.cpb;
-    const int c = cbase + (r - tap * a.cpb);
-    const bool in = n < N && c < a.c0 + a.nco;
-    copy16(ws + r * PS + 4 * (i & 1),
-           in ? a.k + ((long long)(8 - tap) * C + c) * N + n : nullptr, in);
-  }
+  dinp_load_w(a, buf + P * P * PS, n0, cbase);
   __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
-  extern __shared__ float smem[];
+constexpr int NT = kCols / 8;  // (b): n8 tiles a block
+
+// One stage of (b), float32: 9 taps of 3xTF32 k8 steps.
+__device__ __forceinline__ void dinp_step(const DinpArgs& a,
+                                          const float* patch, int nt,
+                                          float (&acc)[2][NT][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const float* ws = patch + P * P * PS;
+#pragma unroll 3
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+    FragA fa[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
+    const float* wt = ws + (tap * a.cpb + g) * PS + t;
+    FragB fb[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        fb[j].set(0, wt[j * 8 * PS]);
+        fb[j].set(1, wt[j * 8 * PS + 4]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma(acc[mi][j], fa[mi].lo, fb[j].hi);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma(acc[mi][j], fa[mi].hi, fb[j].lo);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma(acc[mi][j], fa[mi].hi, fb[j].hi);
+  }
+}
+
+// One stage of (b), bf16: 5 k16 steps of two taps (the tenth zero), the
+// f32 dgates packed into bf16 pairs at the fragment.
+__device__ __forceinline__ void dinp_step(const DinpArgsT<uint16_t>& a,
+                                          const float* patch, int nt,
+                                          float (&acc)[2][NT][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const uint32_t* ws = reinterpret_cast<const uint32_t*>(patch + P * P * PS);
+#pragma unroll 1
+  for (int tp = 0; tp < 5; ++tp) {
+    const int t0 = 2 * tp, t1 = 2 * tp + 1;  // tap 9 is zero
+    uint32_t fa[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      // gates 2t, 2t+1 of pixels g and g + 8, taps t0 and t1
+      const float* p0 =
+          patch + ((2 * warp + mi + t0 / 3) * P + t0 % 3 + g) * PS + 2 * t;
+      fa[mi][0] = pack_bf16(p0[0], p0[1]);
+      fa[mi][1] = pack_bf16(p0[8 * PS], p0[8 * PS + 1]);
+      if (t1 < 9) {
+        const float* p1 =
+            patch + ((2 * warp + mi + t1 / 3) * P + t1 % 3 + g) * PS + 2 * t;
+        fa[mi][2] = pack_bf16(p1[0], p1[1]);
+        fa[mi][3] = pack_bf16(p1[8 * PS], p1[8 * PS + 1]);
+      } else {
+        fa[mi][2] = fa[mi][3] = 0u;
+      }
+    }
+    uint32_t fb[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        fb[j][0] = ws[(t0 * a.cpb + 8 * j + g) * 4 + t];
+        fb[j][1] = t1 < 9 ? ws[(t1 * a.cpb + 8 * j + g) * 4 + t] : 0u;
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma_bf16(acc[mi][j], fa[mi], fb[j]);
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void dinp_body(const DinpArgsT<S>& a,
+                                          float* smem) {
   const int tiles_x = (a.W + T - 1) / T;
   const int tx0 = (blockIdx.x % tiles_x) * T;
   const int ty0 = (blockIdx.x / tiles_x) * T;
@@ -276,7 +435,6 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x >> 2) & 7;
   const int t = threadIdx.x & 3;
-  constexpr int NT = kCols / 8;
 
   float acc[2][NT][4];
 #pragma unroll
@@ -287,43 +445,9 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
       for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
 
   ring(
-      smem, dinp_stage(a.cpb), (4 * a.F + 7) / 8,
+      smem, dinp_stage<S>(a.cpb), (4 * a.F + 7) / 8,
       [&](int s, float* buf) { dinp_load(a, buf, 8 * s, b, ty0, tx0, cbase); },
-      [&](const float* patch) {
-        const float* ws = patch + P * P * PS;
-#pragma unroll 3
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-          FragA fa[2];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
-          const float* wt = ws + (tap * a.cpb + g) * PS + t;
-          FragB fb[NT];
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            if (j < nt) {
-              fb[j].set(0, wt[j * 8 * PS]);
-              fb[j].set(1, wt[j * 8 * PS + 4]);
-            }
-          }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-              if (j < nt) mma(acc[mi][j], fa[mi].lo, fb[j].hi);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-              if (j < nt) mma(acc[mi][j], fa[mi].hi, fb[j].lo);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-              if (j < nt) mma(acc[mi][j], fa[mi].hi, fb[j].hi);
-        }
-      });
+      [&](const float* patch) { dinp_step(a, patch, nt, acc); });
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
@@ -337,7 +461,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
         if (j >= nt || c >= a.c0 + a.nco || y >= a.H || xx >= a.W) continue;
         const long long pix = (long long)y * a.W + xx;
         if (c < a.cin) {
-          if (a.dx) a.dx[b * a.dx_b + pix * a.cin + c] = acc[mi][j][r];
+          if (a.dx) store_f(a.dx, b * a.dx_b + pix * a.cin + c, acc[mi][j][r]);
         } else if (a.dh) {
           a.dh[((long long)b * a.H * a.W + pix) * a.F + (c - a.cin)] =
               acc[mi][j][r];
@@ -347,25 +471,53 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
+  extern __shared__ float smem[];
+  dinp_body(a, smem);
+}
+
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    dinp_mma_bf16(DinpArgsT<uint16_t> a) {
+  extern __shared__ float smem[];
+  dinp_body(a, smem);
+}
+
 // ---------------------------------------------------------------- (c)
 
-struct DkArgs {
-  const float* x;  // echo e of x (nb, ne, H, W, Cin)
+// x and h_{e-1} stored as S; dL/dz and the slot partials float32
+template <class S>
+struct DkArgsT {
+  const S* x;  // echo e of x (nb, ne, H, W, Cin)
   long long x_b;
-  const float* h_prev;  // (nb, F, H, W), null at echo 0
+  const S* h_prev;      // (nb, F, H, W), null at echo 0
   const float* dg;      // (nb, H, W, 4F)
   float* part;          // (S, 9, C, 4F) slot partials of dk
   float* part_b;        // (S, 4F) slot partials of db
   int nb, cin, F, H, W, ceff;
 };
+using DkArgs = DkArgsT<float>;
 
 constexpr int kDkStage = RY * T * DS + (RY + 2) * P * CS;
 
+// an input value into the staged patch: float32 by cp.async, bf16 widened
+// to f32 (exactly)
+__device__ __forceinline__ void stage_in(float* dst, const float* src,
+                                         bool in) {
+  copy4(dst, src, in);
+}
+__device__ __forceinline__ void stage_in(float* dst, const uint16_t* src,
+                                         bool in) {
+  *dst = in ? bf2f(*src) : 0.f;
+}
+
 // Stage pixel chunk (b, rows y0 .. y0 + RY - 1, columns x0 .. x0 + 15): its
 // dgates rows [m0, m0 + 144) and the (RY + 2) x 18 input patch of channels
-// [cp0, cp0 + 16) (channel C is 1).
-__device__ __forceinline__ void dk_load(const DkArgs& a, float* buf, int b,
-                                        int y0, int x0, int m0, int cp0) {
+// [cp0, cp0 + 16). Float32 stages channel C as 1 (the bias column: db is
+// the centre tap's column); bf16 sums db from the f32 dgates instead.
+template <class S>
+__device__ __forceinline__ void dk_load(const DkArgsT<S>& a, float* buf,
+                                        int b, int y0, int x0, int m0,
+                                        int cp0) {
   const int N = 4 * a.F;
   const int C = a.cin + a.F;
   const long long hw = (long long)a.H * a.W;
@@ -391,25 +543,117 @@ __device__ __forceinline__ void dk_load(const DkArgs& a, float* buf, int b,
     const int xx = x0 + (pix - py * P) - 1;
     const int c = cp0 + cc;
     float* dst = ps + pix * CS + cc;
-    if (c == C) {
+    if (sizeof(S) == 4 && c == C) {
       *dst = 1.f;  // the bias column
       continue;
     }
     const bool in = c < a.ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
-    const float* src =
+    const S* src =
         !in ? nullptr
         : c < a.cin
             ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
             : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
                   (long long)y * a.W + xx;
-    copy4(dst, src, in);
+    stage_in(dst, src, in);
   }
   __pipeline_commit();
 }
 
-// block (slot, channel pair, gate chunk): 9 warps, warp (dy, third)
-__global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
-  extern __shared__ float smem[];
+// One chunk of (c), float32: 2*RY k8 steps of 8 pixels, 3xTF32, summed on
+// the tensor core from zero into d.
+__device__ __forceinline__ void dk_step(const DkArgs&, const float* ds,
+                                        const bool (&used)[2], int mw, int dy,
+                                        float (&d)[3][6][4]) {
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const float* ps = ds + RY * T * DS;
+#pragma unroll
+  for (int ks = 0; ks < 2 * RY; ++ks) {  // 8 pixels of row ks / 2
+    FragA fa[3];
+#pragma unroll
+    for (int mi = 0; mi < 3; ++mi) {
+      const float* dz = ds + (8 * ks + t) * DS + mw + 16 * mi + g;
+      fa[mi].set(0, dz[0]);
+      fa[mi].set(1, dz[8]);
+      fa[mi].set(2, dz[4 * DS]);
+      fa[mi].set(3, dz[4 * DS + 8]);
+    }
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {  // channel octet; tile 2 * dx + o
+      if (!used[o]) continue;
+      FragB fb[3];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* p = ps + ((ks / 2 + dy) * P + 8 * (ks & 1) + t +
+                               dx) * CS + 8 * o + g;
+        fb[dx].set(0, p[0]);
+        fb[dx].set(1, p[4 * CS]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          mma(d[mi][2 * dx + o], fa[mi].lo, fb[dx].hi);
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          mma(d[mi][2 * dx + o], fa[mi].hi, fb[dx].lo);
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          mma(d[mi][2 * dx + o], fa[mi].hi, fb[dx].hi);
+    }
+  }
+}
+
+// One chunk of (c), bf16: RY k16 steps, one chunk row of 16 pixels each,
+// the dgates and the widened inputs packed into bf16 pairs at the fragment.
+__device__ __forceinline__ void dk_step(const DkArgsT<uint16_t>&,
+                                        const float* ds, const bool (&used)[2],
+                                        int mw, int dy, float (&d)[3][6][4]) {
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const float* ps = ds + RY * T * DS;
+#pragma unroll 1
+  for (int row = 0; row < RY; ++row) {  // 16 pixels of chunk row
+    uint32_t fa[3][4];
+#pragma unroll
+    for (int mi = 0; mi < 3; ++mi) {
+      // gates m, m + 8 of pixels 2t, 2t + 1 (and + 8)
+      const float* dz = ds + (16 * row + 2 * t) * DS + mw + 16 * mi + g;
+      fa[mi][0] = pack_bf16(dz[0], dz[DS]);
+      fa[mi][1] = pack_bf16(dz[8], dz[DS + 8]);
+      fa[mi][2] = pack_bf16(dz[8 * DS], dz[9 * DS]);
+      fa[mi][3] = pack_bf16(dz[8 * DS + 8], dz[9 * DS + 8]);
+    }
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      if (!used[o]) continue;
+      uint32_t fb[3][2];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* p = ps + ((row + dy) * P + 2 * t + dx) * CS + 8 * o + g;
+        fb[dx][0] = pack_bf16(p[0], p[CS]);
+        fb[dx][1] = pack_bf16(p[8 * CS], p[9 * CS]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          mma_bf16(d[mi][2 * dx + o], fa[mi], fb[dx]);
+    }
+  }
+}
+
+// block (slot, channel pair, gate chunk): 9 warps, warp (dy, third). In the
+// bf16 mode the block that holds channel C sums db from the staged f32
+// dgates beside the MMAs: thread (half, row) sums 64 of the chunk's 128
+// pixels of its gate row.
+template <class S>
+__device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
+  constexpr bool bf16 = sizeof(S) == 2;
   const int N = 4 * a.F;
   const int C = a.cin + a.F;
   const int slot = blockIdx.x;
@@ -423,17 +667,19 @@ __global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
   const int xs = (a.W + T - 1) / T;
   const int ys = (a.H + RY - 1) / RY;
   const int n_chunks = a.nb * ys * xs;
-  const int S = gridDim.x;
+  const int S_ = gridDim.x;
   const bool rows = m0 + mw < N;  // the warp has gate rows to sum
   // octets of the block's 16 channels with a channel to sum: below ceff,
-  // or the bias column C (padding past C, and echo 0's zero state, skipped)
+  // or (float32) the bias column C; padding past C and echo 0's zero
+  // state are skipped
   bool used[2];
 #pragma unroll
   for (int o = 0; o < 2; ++o) {
     const int c = cp0 + 8 * o;
-    used[o] = c < a.ceff || (c <= C && C < c + 8);
+    used[o] = c < a.ceff || (!bf16 && c <= C && C < c + 8);
   }
-  if (!used[0] && !used[1]) return;
+  const bool bias_block = bf16 && cp0 <= C && C < cp0 + 16;
+  if (!used[0] && !used[1] && !bias_block) return;
 
   float acc[3][6][4];
 #pragma unroll
@@ -442,18 +688,26 @@ __global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
     for (int j = 0; j < 6; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+  float db = 0.f;
+  const int db_row = threadIdx.x % kGateRows;
+  const int db_px = (threadIdx.x / kGateRows) * (RY * T / 2);
 
   ring(
-      smem, kDkStage, slot < n_chunks ? (n_chunks - 1 - slot) / S + 1 : 0,
+      smem, kDkStage, slot < n_chunks ? (n_chunks - 1 - slot) / S_ + 1 : 0,
       [&](int s, float* buf) {
-        const int chunk = slot + s * S;
+        const int chunk = slot + s * S_;
         const int xq = chunk % xs;
         const int by = chunk / xs;
         dk_load(a, buf, by / ys, (by % ys) * RY, xq * T, m0, cp0);
       },
       [&](const float* ds) {
+        if (bias_block) {
+          float sum = 0.f;
+          for (int px = db_px; px < db_px + RY * T / 2; ++px)
+            sum += ds[px * DS + db_row];
+          db += sum;
+        }
         if (!rows) return;
-        const float* ps = ds + RY * T * DS;
         // this chunk's sums on the tensor core from zero, then rounded into
         // the FP32 accumulators: a slot walks thousands of pixels an echo,
         // too long a sum for the tensor core's truncating accumulation
@@ -464,45 +718,7 @@ __global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
           for (int j = 0; j < 6; ++j)
 #pragma unroll
             for (int r = 0; r < 4; ++r) d[mi][j][r] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < 2 * RY; ++ks) {  // 8 pixels of row ks / 2
-          FragA fa[3];
-#pragma unroll
-          for (int mi = 0; mi < 3; ++mi) {
-            const float* dz = ds + (8 * ks + t) * DS + mw + 16 * mi + g;
-            fa[mi].set(0, dz[0]);
-            fa[mi].set(1, dz[8]);
-            fa[mi].set(2, dz[4 * DS]);
-            fa[mi].set(3, dz[4 * DS + 8]);
-          }
-#pragma unroll
-          for (int o = 0; o < 2; ++o) {  // channel octet; tile 2 * dx + o
-            if (!used[o]) continue;
-            FragB fb[3];
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx) {
-              const float* p = ps + ((ks / 2 + dy) * P + 8 * (ks & 1) + t +
-                                     dx) * CS + 8 * o + g;
-              fb[dx].set(0, p[0]);
-              fb[dx].set(1, p[4 * CS]);
-            }
-#pragma unroll
-            for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-              for (int dx = 0; dx < 3; ++dx)
-                mma(d[mi][2 * dx + o], fa[mi].lo, fb[dx].hi);
-#pragma unroll
-            for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-              for (int dx = 0; dx < 3; ++dx)
-                mma(d[mi][2 * dx + o], fa[mi].hi, fb[dx].lo);
-#pragma unroll
-            for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-              for (int dx = 0; dx < 3; ++dx)
-                mma(d[mi][2 * dx + o], fa[mi].hi, fb[dx].hi);
-          }
-        }
+        dk_step(a, ds, used, mw, dy, d);
 #pragma unroll
         for (int mi = 0; mi < 3; ++mi)
 #pragma unroll
@@ -510,6 +726,13 @@ __global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[mi][j][r] += d[mi][j][r];
       });
+  if (bias_block) {  // the ring ended synchronised: smem is free
+    smem[threadIdx.x] = db;
+    __syncthreads();
+    if (threadIdx.x < kGateRows && m0 + threadIdx.x < N)
+      a.part_b[(long long)slot * N + m0 + threadIdx.x] +=
+          smem[threadIdx.x] + smem[threadIdx.x + kGateRows];
+  }
   if (!rows) return;
 
   float* part = a.part + (long long)slot * 9 * C * N;
@@ -526,26 +749,51 @@ __global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
         if (n >= N) continue;
         if (c < a.ceff) {
           part[((long long)tap * C + c) * N + n] += acc[mi][j][r];
-        } else if (c == C && tap == 4) {
+        } else if (!bf16 && c == C && tap == 4) {
           part_b[n] += acc[mi][j][r];
         }
       }
 }
 
-// dk[i] = sum over slots of part[s][i], in slot order; db likewise.
-__global__ void sum_slots(const float* part, const float* part_b, float* dk,
-                          float* db, int n_slots, long long K, int N) {
+__global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
+  extern __shared__ float smem[];
+  dk_body(a, smem);
+}
+
+__global__ void __launch_bounds__(9 * 32, 1) dk_mma_bf16(DkArgsT<uint16_t> a) {
+  extern __shared__ float smem[];
+  dk_body(a, smem);
+}
+
+// dk[i] = sum over slots of part[s][i], in slot order; db likewise; stored
+// as S.
+template <class S>
+__device__ __forceinline__ void sum_slots_body(const float* part,
+                                               const float* part_b, S* dk,
+                                               S* db, int n_slots,
+                                               long long K, int N) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < K) {
     float s = 0.f;
     for (int j = 0; j < n_slots; ++j) s += part[j * K + i];
-    dk[i] = s;
+    store_f(dk, i, s);
   }
   if (i < N) {
     float s = 0.f;
     for (int j = 0; j < n_slots; ++j) s += part_b[(long long)j * N + i];
-    db[i] = s;
+    store_f(db, i, s);
   }
+}
+
+__global__ void sum_slots(const float* part, const float* part_b, float* dk,
+                          float* db, int n_slots, long long K, int N) {
+  sum_slots_body(part, part_b, dk, db, n_slots, K, N);
+}
+
+__global__ void sum_slots_bf16(const float* part, const float* part_b,
+                               uint16_t* dk, uint16_t* db, int n_slots,
+                               long long K, int N) {
+  sum_slots_body(part, part_b, dk, db, n_slots, K, N);
 }
 
 // output channels per dinp block: octets, at most kCols, spread evenly
@@ -555,12 +803,99 @@ int dinp_cpb(int nco) {
   return 8 * ((oct + chunks - 1) / chunks);
 }
 
+template <class S>
+int echo_bwd(const S* x, long long x_b, const S* k, const S* bias,
+             const S* h_prev, const S* c_prev, const float* dh,
+             const float* dc, float* dgates, float* dc_prev, float* dh_prev,
+             S* dx, long long dx_b, float* part, float* part_b, int n_slots,
+             int nb, int cin, int F, int H, int W, int has_state, int device,
+             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);
+
+  // the storage type's kernels
+  void (*gates)(GatesArgsT<S>);
+  void (*dinp)(DinpArgsT<S>);
+  void (*dk)(DkArgsT<S>);
+  if constexpr (sizeof(S) == 2) {
+    gates = gates_mma_bf16;
+    dinp = dinp_mma_bf16;
+    dk = dk_mma_bf16;
+  } else {
+    gates = gates_mma;
+    dinp = dinp_mma;
+    dk = dk_mma;
+  }
+
+  const int gpb = gates_gpb(F);
+  GatesArgsT<S> ga{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
+                   bias, c_prev, dh, dc, dgates, dc_prev};
+  size_t bytes = gates_smem_bytes<S>(gpb);
+  err = allow_smem(gates, bytes);
+  if (err != cudaSuccess) return (int)err;
+  // channel chunks fastest: the blocks that stage one tile's input patch
+  // run together and share it in L2
+  gates<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb), kWarps * 32, bytes,
+          st>>>(ga);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int c0 = dx ? 0 : cin;
+  const int c1 = has_state ? cin + F : cin;
+  if (c1 > c0) {
+    const int cpb = dinp_cpb(c1 - c0);
+    DinpArgsT<S> d{dgates, k, dx, dx_b, has_state ? dh_prev : nullptr,
+                   cin,    F, H,  W,    c0,
+                   c1 - c0, cpb};
+    bytes = 2 * (size_t)dinp_stage<S>(cpb) * sizeof(float);
+    err = allow_smem(dinp, bytes);
+    if (err != cudaSuccess) return (int)err;
+    dinp<<<dim3(tiles, (c1 - c0 + cpb - 1) / cpb, nb), kWarps * 32, bytes,
+           st>>>(d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  DkArgsT<S> kd{x, x_b, has_state ? h_prev : nullptr, dgates, part, part_b,
+                nb, cin, F, H, W, has_state ? cin + F : cin};
+  bytes = 2 * (size_t)kDkStage * sizeof(float);
+  err = allow_smem(dk, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dk<<<dim3(n_slots, (cin + F + 1 + 15) / 16,
+            (4 * F + kGateRows - 1) / kGateRows),
+       9 * 32, bytes, st>>>(kd);
+  return (int)cudaGetLastError();
+}
+
+template <class S>
+int bwd_reduce(const float* part, const float* part_b, S* dk, S* db,
+               int n_slots, long long K, int N, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  const long long n = K > N ? K : N;
+  void (*reduce)(const float*, const float*, S*, S*, int, long long, int);
+  if constexpr (sizeof(S) == 2) {
+    reduce = sum_slots_bf16;
+  } else {
+    reduce = sum_slots;
+  }
+  reduce<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(part, part_b, dk, db, n_slots,
+                                                K, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Largest shared memory any block of the backward needs at (cin, F).
+// Largest shared memory any block of the backward needs at (cin, F): the
+// float32 stages', which the bf16 ones do not exceed.
 extern "C" long long convlstm_bwd_smem_bytes(int cin, int F) {
-  const size_t a = gates_smem_bytes(gates_gpb(F));
-  const size_t b = 2 * (size_t)dinp_stage(dinp_cpb(cin + F)) * sizeof(float);
+  const size_t a = gates_smem_bytes<float>(gates_gpb(F));
+  const size_t b =
+      2 * (size_t)dinp_stage<float>(dinp_cpb(cin + F)) * sizeof(float);
   const size_t c = 2 * (size_t)kDkStage * sizeof(float);
   return (long long)(a > b ? (a > c ? a : c) : (b > c ? b : c));
 }
@@ -579,49 +914,9 @@ extern "C" int convlstm_echo_bwd(
     float* dx, long long dx_b, float* part, float* part_b, int n_slots,
     int nb, int cin, int F, int H, int W, int has_state, int device,
     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);
-
-  const int gpb = gates_gpb(F);
-  GatesArgs ga{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
-               bias, c_prev, dh, dc, dgates, dc_prev};
-  size_t bytes = gates_smem_bytes(gpb);
-  err = allow_smem(gates_mma, bytes);
-  if (err != cudaSuccess) return (int)err;
-  // channel chunks fastest: the blocks that stage one tile's input patch
-  // run together and share it in L2
-  gates_mma<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb), kWarps * 32,
-              bytes, st>>>(ga);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int c0 = dx ? 0 : cin;
-  const int c1 = has_state ? cin + F : cin;
-  if (c1 > c0) {
-    const int cpb = dinp_cpb(c1 - c0);
-    DinpArgs d{dgates, k, dx, dx_b, has_state ? dh_prev : nullptr,
-               cin,    F, H,  W,    c0,
-               c1 - c0, cpb};
-    bytes = 2 * (size_t)dinp_stage(cpb) * sizeof(float);
-    err = allow_smem(dinp_mma, bytes);
-    if (err != cudaSuccess) return (int)err;
-    dinp_mma<<<dim3(tiles, (c1 - c0 + cpb - 1) / cpb, nb), kWarps * 32,
-               bytes, st>>>(d);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  DkArgs kd{x, x_b, has_state ? h_prev : nullptr, dgates, part, part_b,
-            nb, cin, F, H, W, has_state ? cin + F : cin};
-  bytes = 2 * (size_t)kDkStage * sizeof(float);
-  err = allow_smem(dk_mma, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dk_mma<<<dim3(n_slots, (cin + F + 1 + 15) / 16,
-                (4 * F + kGateRows - 1) / kGateRows),
-           9 * 32, bytes, st>>>(kd);
-  return (int)cudaGetLastError();
+  return echo_bwd(x, x_b, k, bias, h_prev, c_prev, dh, dc, dgates, dc_prev,
+                  dh_prev, dx, dx_b, part, part_b, n_slots, nb, cin, F, H, W,
+                  has_state, device, stream);
 }
 
 // dk (3, 3, C, 4F) and db (4F) from the slot partials.
@@ -629,12 +924,30 @@ extern "C" int convlstm_bwd_reduce(const float* part, const float* part_b,
                                    float* dk, float* db, int n_slots,
                                    long long K, int N, int device,
                                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const long long n = K > N ? K : N;
-  sum_slots<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-              static_cast<cudaStream_t>(stream)>>>(part, part_b, dk, db,
-                                                   n_slots, K, N);
-  return (int)cudaGetLastError();
+  return bwd_reduce(part, part_b, dk, db, n_slots, K, N, device, stream);
+}
+
+// One echo of the reverse sweep in the bf16 storage mode: x, k, the bias,
+// h_prev, c_prev (the recompute's bf16 stacks) and dx are bf16; dh, dc,
+// dgates, dc_prev, dh_prev and the partials f32. Arguments otherwise as
+// convlstm_echo_bwd.
+extern "C" int convlstm_echo_bwd_bf16(
+    const uint16_t* x, long long x_b, const uint16_t* k, const uint16_t* bias,
+    const uint16_t* h_prev, const uint16_t* c_prev, const float* dh,
+    const float* dc, float* dgates, float* dc_prev, float* dh_prev,
+    uint16_t* dx, long long dx_b, float* part, float* part_b, int n_slots,
+    int nb, int cin, int F, int H, int W, int has_state, int device,
+    void* stream) {
+  return echo_bwd(x, x_b, k, bias, h_prev, c_prev, dh, dc, dgates, dc_prev,
+                  dh_prev, dx, dx_b, part, part_b, n_slots, nb, cin, F, H, W,
+                  has_state, device, stream);
+}
+
+// dk (3, 3, C, 4F) and db (4F) in bf16 from the slot partials.
+extern "C" int convlstm_bwd_reduce_bf16(const float* part,
+                                        const float* part_b, uint16_t* dk,
+                                        uint16_t* db, int n_slots,
+                                        long long K, int N, int device,
+                                        void* stream) {
+  return bwd_reduce(part, part_b, dk, db, n_slots, K, N, device, stream);
 }

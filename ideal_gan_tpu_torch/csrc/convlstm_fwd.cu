@@ -38,6 +38,17 @@
 // writes h_e and c_e in NCHW (nb, F, H, W): a warp's store covers 8
 // contiguous pixels of 4 channel rows, whole 32-byte sectors. Hidden
 // channels past F (the last octet's padding) are never written.
+//
+// The bfloat16 storage mode (`convlstm_echo_fwd_bf16`, kernel
+// `convlstm_echo_mma_bf16`) is the TPU kernel's bf16 form: x, k, the bias
+// and the state are bf16; the gate product multiplies bf16 operands with f32
+// accumulation (one m16n8k16 MMA where 3xTF32 takes three, the bf16 mainloop
+// of convlstm_tile.cuh); the bias is added, the gates and the cell computed
+// in f32; h and c are rounded to bf16 at the end of every echo. Its
+// recompute form for the backward reads c_{e-1} in f32 and writes c_e in f32
+// (the chain) and as a bf16 copy (the sweep's stack), as the TPU backward
+// carries its cell in f32. Bound: 2.275 TFLOP at F=72 (Cin=2, nb=8, 384^2,
+// ne=6) is 2.3 ms at 989 TFLOP/s dense bf16; 587 GFLOP at F=36 is 0.59 ms.
 
 #include <cuda_runtime.h>
 
@@ -47,18 +58,26 @@ namespace {
 
 using namespace convlstm;
 
-struct EchoArgs {
-  GateConv conv;        // x_e, k, h_{e-1} and the shape
-  const float* bias;    // (4F,)
-  const float* c_prev;  // (nb, F, H, W), unused without state
-  float* h_next;        // (nb, F, H, W)
-  float* c_next;        // (nb, F, H, W), null at the last echo
+// The echo's operands, stored as S (float, or the bits of bf16). c_prev32
+// and c_next32 are the bf16 recompute's float32 cell chain (null otherwise,
+// and always for float32).
+template <class S>
+struct EchoArgsT {
+  GateConvT<S> conv;      // x_e, k, h_{e-1} and the shape
+  const S* bias;          // (4F,)
+  const S* c_prev;        // (nb, F, H, W), unused without state
+  S* h_next;              // (nb, F, H, W)
+  S* c_next;              // (nb, F, H, W), or null (the last echo)
+  const float* c_prev32;  // (nb, F, H, W) f32 c_{e-1}, or null
+  float* c_next32;        // f32 c_e, or null
 };
+using EchoArgs = EchoArgsT<float>;
 
-__global__ void __launch_bounds__(kWarps * 32, 2)
-    convlstm_echo_mma(EchoArgs ea) {
-  extern __shared__ float smem[];
-  const GateConv& a = ea.conv;
+template <class S>
+__device__ __forceinline__ void echo_body(const EchoArgsT<S>& ea,
+                                          float* smem) {
+  constexpr bool bf16 = sizeof(S) == 2;
+  const GateConvT<S>& a = ea.conv;
   const int tiles_x = (a.W + T - 1) / T;
   const int tx0 = (blockIdx.y % tiles_x) * T;
   const int ty0 = (blockIdx.y / tiles_x) * T;
@@ -83,8 +102,9 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
     for (int e = 0; e < 2; ++e) {
       const int f = (j0 + jj) * 8 + 2 * t + e;
       if (f >= a.F) continue;
-      const float bi = ea.bias[f], bf = ea.bias[a.F + f];
-      const float bg = ea.bias[2 * a.F + f], bo = ea.bias[3 * a.F + f];
+      const float bi = load_f(ea.bias, f), bf = load_f(ea.bias, a.F + f);
+      const float bg = load_f(ea.bias, 2 * a.F + f);
+      const float bo = load_f(ea.bias, 3 * a.F + f);
       const long long plane = ((long long)b * a.F + f) * hw;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -99,46 +119,91 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
           const float gf = sigmoid(acc[mi][jj][1][r] + bf);
           const float gg = leaky_relu(acc[mi][jj][2][r] + bg);
           const float go = sigmoid(acc[mi][jj][3][r] + bo);
-          const float cp = a.has_state ? ea.c_prev[o] : 0.f;
+          const float cp = !a.has_state           ? 0.f
+                           : bf16 && ea.c_prev32 ? ea.c_prev32[o]
+                                                 : load_f(ea.c_prev, o);
           const float cn = gf * cp + gi * gg;
-          ea.h_next[o] = go * leaky_relu(cn);
-          if (ea.c_next) ea.c_next[o] = cn;
+          store_f(ea.h_next, o, go * leaky_relu(cn));
+          if (ea.c_next) store_f(ea.c_next, o, cn);
+          if (bf16 && ea.c_next32) ea.c_next32[o] = cn;
         }
       }
     }
   }
 }
 
-}  // namespace
-
-// Dynamic shared memory a block needs for F hidden channels: two
-// channel-octet stages, whatever Cin is.
-extern "C" long long convlstm_smem_bytes(int F) {
-  return (long long)gates_smem_bytes(gates_gpb(F));
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    convlstm_echo_mma(EchoArgs ea) {
+  extern __shared__ float smem[];
+  echo_body(ea, smem);
 }
 
-// One echo. Returns the cudaError_t of the launch (0 on success). The caller
-// checks that the grid (ceil(F/8 / gpb), 16x16 tiles, nb) fits the launch
-// limits. h_prev and c_prev may be null when has_state is 0 (echo 0).
-extern "C" int convlstm_echo_fwd(const float* x, long long x_b,
-                                 const float* k, const float* bias,
-                                 const float* h_prev, const float* c_prev,
-                                 float* h_next, float* c_next, int nb,
-                                 int cin, int F, int H, int W, int has_state,
-                                 int device, void* stream) {
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    convlstm_echo_mma_bf16(EchoArgsT<uint16_t> ea) {
+  extern __shared__ float smem[];
+  echo_body(ea, smem);
+}
+
+template <class S>
+int echo_fwd(const S* x, long long x_b, const S* k, const S* bias,
+             const S* h_prev, const S* c_prev, const float* c_prev32,
+             S* h_next, S* c_next, float* c_next32, int nb, int cin, int F,
+             int H, int W, int has_state, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int gpb = gates_gpb(F);
-  EchoArgs ea{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
-              bias, c_prev, h_next, c_next};
-  const size_t bytes = gates_smem_bytes(gpb);
-  err = allow_smem(convlstm_echo_mma, bytes);
+  EchoArgsT<S> ea{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
+                  bias, c_prev, h_next, c_next, c_prev32, c_next32};
+  const size_t bytes = gates_smem_bytes<S>(gpb);
+  void (*kernel)(EchoArgsT<S>);
+  if constexpr (sizeof(S) == 2) {
+    kernel = convlstm_echo_mma_bf16;
+  } else {
+    kernel = convlstm_echo_mma;
+  }
+  err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);
   // channel chunks fastest: the blocks that stage one tile's input patch
   // run together and share it in L2
-  convlstm_echo_mma<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb),
-                      kWarps * 32, bytes, static_cast<cudaStream_t>(stream)>>>(
-      ea);
+  kernel<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb), kWarps * 32, bytes,
+           static_cast<cudaStream_t>(stream)>>>(ea);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory a block needs for F hidden channels: two
+// channel-octet stages, whatever Cin is (float32's, the larger).
+extern "C" long long convlstm_smem_bytes(int F) {
+  return (long long)gates_smem_bytes<float>(gates_gpb(F));
+}
+
+// One echo. Returns the cudaError_t of the launch (0 on success). The caller
+// checks that the grid (ceil(F/8 / gpb), 16x16 tiles, nb) fits the launch
+// limits. h_prev and c_prev may be null when has_state is 0 (echo 0);
+// c_prev32 and c_next32 must be null (the bf16 entry's cell chain).
+extern "C" int convlstm_echo_fwd(const float* x, long long x_b,
+                                 const float* k, const float* bias,
+                                 const float* h_prev, const float* c_prev,
+                                 const float* c_prev32, float* h_next,
+                                 float* c_next, float* c_next32, int nb,
+                                 int cin, int F, int H, int W, int has_state,
+                                 int device, void* stream) {
+  return echo_fwd(x, x_b, k, bias, h_prev, c_prev, c_prev32, h_next, c_next,
+                  c_next32, nb, cin, F, H, W, has_state, device, stream);
+}
+
+// One echo in the bf16 storage mode (bf16 bits as uint16_t). The forward
+// passes c_prev (bf16) and c_next (null at the last echo); the backward's
+// recompute passes c_prev32 (in place of c_prev) and both c_next (the
+// stack's copy) and c_next32 (the chain). Returns the cudaError_t of the
+// launch.
+extern "C" int convlstm_echo_fwd_bf16(
+    const uint16_t* x, long long x_b, const uint16_t* k, const uint16_t* bias,
+    const uint16_t* h_prev, const uint16_t* c_prev, const float* c_prev32,
+    uint16_t* h_next, uint16_t* c_next, float* c_next32, int nb, int cin,
+    int F, int H, int W, int has_state, int device, void* stream) {
+  return echo_fwd(x, x_b, k, bias, h_prev, c_prev, c_prev32, h_next, c_next,
+                  c_next32, nb, cin, F, H, W, has_state, device, stream);
 }

@@ -29,8 +29,22 @@
 // a ring of two, so the next octet streams in while this one is used.
 // State is float32 NCHW (nb, F, H, W); x is the echo's slice of (nb, ne, H,
 // W, Cin).
+//
+// The bfloat16 storage mode (`gate_mainloop` on a GateConvT<uint16_t>, the
+// raw bf16 bits of x, k and h_{e-1}) is the TPU kernel's bf16 form: bf16
+// operands, f32 accumulation. One mma.sync.m16n8k16.bf16 takes the place of
+// the three TF32 products: its k16 step is two taps (2j, 2j+1) of one
+// channel octet, so a stage runs 5 tap pairs, the tenth tap zero. A stage
+// holds the octet's patch as bf16 pairs ([pixel][4 words], no padding:
+// fragment loads hit 32 banks) and its weights as pairs of consecutive
+// channels ([tap][channel pair][column], stride gates_ws words), 15.5 KB
+// against float32's 36.3 KB. The loads are plain 16-bit loads (cp.async
+// moves 4 bytes or more; the state is bf16 NCHW). Products of two bf16
+// values are exact in f32, so the sums equal a float32 convolution of the
+// bf16 operands up to summation order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +95,44 @@ __device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "f"(0.f));
+}
+
+// d += a*b on the tensor core, bf16 operands (two per register, the lower k
+// in the low half), f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// bf16 bits <-> float: the widening is exact; the narrowing rounds to
+// nearest even, as torch's float32 -> bfloat16 cast does
+__device__ __forceinline__ float bf2f(uint16_t u) {
+  return __uint_as_float((uint32_t)u << 16);
+}
+__device__ __forceinline__ uint16_t f2bf(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+// two floats as a bf16 pair, `lo` in the low half (rounded to nearest even)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// an element of a state or parameter buffer as float: float32, or bf16 bits
+__device__ __forceinline__ float load_f(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float load_f(const uint16_t* p, long long i) {
+  return bf2f(p[i]);
+}
+// a float stored into such a buffer (rounded to nearest even for bf16)
+__device__ __forceinline__ void store_f(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store_f(uint16_t* p, long long i, float v) {
+  p[i] = f2bf(v);
 }
 
 // Fragments with each f32 element split: x = hi + lo, both TF32.
@@ -152,21 +204,30 @@ __device__ __forceinline__ void ring(float* smem, int stage, int n, Load load,
   }
 }
 
-// The operands of an echo's gate convolution.
-struct GateConv {
-  const float* x;  // echo e of x (nb, ne, H, W, Cin): x + e*H*W*Cin
+// The operands of an echo's gate convolution, stored as S: float, or
+// uint16_t for the bits of bf16.
+template <class S>
+struct GateConvT {
+  const S* x;      // echo e of x (nb, ne, H, W, Cin): x + e*H*W*Cin
   long long x_b;   // batch stride of x (elements)
-  const float* k;  // (3, 3, Cin+F, 4F)
-  const float* h_prev;  // (nb, F, H, W), unused without state
+  const S* k;      // (3, 3, Cin+F, 4F)
+  const S* h_prev;  // (nb, F, H, W), unused without state
   int cin, F, H, W, has_state, gpb;  // gpb: groups of 8 channels a block
 };
+using GateConv = GateConvT<float>;
+using GateConvB = GateConvT<uint16_t>;
 
 // column stride of the staged weights: 4 gates x 8 channels per group, plus
 // 8 so that k-rows t and t+4 fall in other banks
 __host__ __device__ inline int gates_ws(int gpb) { return gpb * 32 + 8; }
 
+// A stage in 32-bit words. float32: the patch [pixel][PS] and the weights'
+// 9 taps x 8 channels rows; bf16: the patch's bf16 pairs [pixel][4 words]
+// and the weights' 9 taps x 4 channel pairs rows.
+template <class S>
 __host__ __device__ inline int gates_stage(int gpb) {
-  return P * P * PS + 9 * 8 * gates_ws(gpb);
+  return sizeof(S) == 2 ? P * P * 4 + 9 * 4 * gates_ws(gpb)
+                        : P * P * PS + 9 * 8 * gates_ws(gpb);
 }
 
 // groups of 8 hidden channels per gate block: at most kGroups, spread
@@ -178,8 +239,9 @@ inline int gates_gpb(int F) {
 }
 
 // Dynamic shared memory of a gate block (two stages).
+template <class S>
 inline size_t gates_smem_bytes(int gpb) {
-  return 2 * (size_t)gates_stage(gpb) * sizeof(float);
+  return 2 * (size_t)gates_stage<S>(gpb) * sizeof(float);
 }
 
 // Stage input channels [c0, c0 + 8) of the patch and their weights for the
@@ -231,19 +293,173 @@ __device__ __forceinline__ void gates_load(const GateConv& a, float* buf,
   __pipeline_commit();
 }
 
-// The block's gate sums, without the bias: acc[mi][jj][q][r] is gate q of
-// tile row ty0 + 2*warp + mi, pixel tx0 + g + 8*(r >> 1) (g = lane / 4),
-// channel 8*(j0 + jj) + 2*t + (r & 1) (t = lane % 4), for the block's
-// groups jj < ng. The block is 8 warps; every thread must call it (it
-// synchronises the block). `smem` holds gates_smem_bytes(a.gpb).
-__device__ __forceinline__ void gate_mainloop(
-    const GateConv& a, float* smem, int b, int ty0, int tx0, int j0, int ng,
-    float (&acc)[2][kGroups][4][4]) {
-  const int ceff = a.has_state ? a.cin + a.F : a.cin;
+// One stage of the float32 mainloop: 9 taps of 3xTF32 k8 steps.
+__device__ __forceinline__ void gates_step(const GateConv& a,
+                                           const float* patch, int ng,
+                                           float (&acc)[2][kGroups][4][4]) {
   const int wstr = gates_ws(a.gpb);
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x >> 2) & 7;
   const int t = threadIdx.x & 3;
+  const float* ws = patch + P * P * PS;
+#pragma unroll 3
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+    FragA fa[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
+    const float* wt = ws + (tap * 8 + t) * wstr + g;
+#pragma unroll
+    for (int jj = 0; jj < kGroups; ++jj) {
+      if (jj >= ng) continue;
+      FragB fb[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        fb[q].set(0, wt[(jj * 4 + q) * 8]);
+        fb[q].set(1, wt[4 * wstr + (jj * 4 + q) * 8]);
+      }
+      // this k8 step of 8 tiles, summed from zero, then rounded
+      // into the FP32 accumulators
+      float d[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];
+    }
+  }
+}
+
+// Stage input channels [c0, c0 + 8) of the patch and their weights, bf16:
+// word (pixel, p) of the patch holds channels c0 + 2p, c0 + 2p + 1; word
+// (tap, p, n) of the weights holds the same two channels' k at column n.
+__device__ __forceinline__ void gates_load(const GateConvB& a, float* buf,
+                                           int c0, int ceff, int b, int ty0,
+                                           int tx0, int j0) {
+  const int C = a.cin + a.F;
+  const long long hw = (long long)a.H * a.W;
+  uint32_t* patch = reinterpret_cast<uint32_t*>(buf);
+  uint32_t* ws = patch + P * P * 4;
+  for (int i = threadIdx.x; i < 4 * P * P; i += blockDim.x) {
+    const int cp = i / (P * P);
+    const int pix = i - cp * (P * P);
+    const int py = pix / P;
+    const int y = ty0 + py - 1;
+    const int xx = tx0 + (pix - py * P) - 1;
+    uint32_t v = 0;
+    if (y >= 0 && y < a.H && xx >= 0 && xx < a.W) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 2 * cp + e;
+        if (c >= ceff) continue;
+        const uint16_t u =
+            c < a.cin
+                ? a.x[b * a.x_b + ((long long)y * a.W + xx) * a.cin + c]
+                : a.h_prev[((long long)b * a.F + (c - a.cin)) * hw +
+                           (long long)y * a.W + xx];
+        v |= (uint32_t)u << (16 * e);
+      }
+    }
+    patch[pix * 4 + cp] = v;
+  }
+  const int cols = a.gpb * 32;
+  const int wstr = gates_ws(a.gpb);
+  for (int i = threadIdx.x; i < 36 * cols; i += blockDim.x) {
+    const int r = i / cols;  // tap * 4 + channel pair
+    const int n = i - r * cols;
+    const int tap = r >> 2;
+    const int q = (n >> 3) & 3;  // gate
+    const int f = (j0 + (n >> 5)) * 8 + (n & 7);
+    uint32_t v = 0;
+    if (f < a.F) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 2 * (r & 3) + e;
+        if (c < ceff)
+          v |= (uint32_t)a.k[((long long)tap * C + c) * 4 * a.F + q * a.F + f]
+               << (16 * e);
+      }
+    }
+    ws[r * wstr + n] = v;
+  }
+  __pipeline_commit();  // an empty group: the ring counts one a stage
+}
+
+// One stage of the bf16 mainloop: 5 k16 steps of two taps (2j, 2j+1) of
+// the channel octet, the tenth tap zero; the m16n8k16 D fragment is the
+// m16n8k8 one, so the accumulator layout is float32's.
+__device__ __forceinline__ void gates_step(const GateConvB& a,
+                                           const float* stage, int ng,
+                                           float (&acc)[2][kGroups][4][4]) {
+  const int wstr = gates_ws(a.gpb);
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const uint32_t* patch = reinterpret_cast<const uint32_t*>(stage);
+  const uint32_t* ws = patch + P * P * 4;
+#pragma unroll 1
+  for (int tp = 0; tp < 5; ++tp) {
+    const int t0 = 2 * tp, t1 = 2 * tp + 1;  // tap 9 is zero
+    uint32_t fa[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const uint32_t* p0 =
+          patch + ((2 * warp + mi + t0 / 3) * P + t0 % 3 + g) * 4 + t;
+      fa[mi][0] = p0[0];
+      fa[mi][1] = p0[8 * 4];
+      if (t1 < 9) {
+        const uint32_t* p1 =
+            patch + ((2 * warp + mi + t1 / 3) * P + t1 % 3 + g) * 4 + t;
+        fa[mi][2] = p1[0];
+        fa[mi][3] = p1[8 * 4];
+      } else {
+        fa[mi][2] = fa[mi][3] = 0u;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kGroups; ++jj) {
+      if (jj >= ng) continue;
+      uint32_t fb[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = (jj * 4 + q) * 8 + g;
+        fb[q][0] = ws[(t0 * 4 + t) * wstr + col];
+        fb[q][1] = t1 < 9 ? ws[(t1 * 4 + t) * wstr + col] : 0u;
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_bf16(acc[mi][jj][q], fa[mi], fb[q]);
+    }
+  }
+}
+
+// The block's gate sums, without the bias: acc[mi][jj][q][r] is gate q of
+// tile row ty0 + 2*warp + mi, pixel tx0 + g + 8*(r >> 1) (g = lane / 4),
+// channel 8*(j0 + jj) + 2*t + (r & 1) (t = lane % 4), for the block's
+// groups jj < ng. The block is 8 warps; every thread must call it (it
+// synchronises the block). `smem` holds gates_smem_bytes<S>(a.gpb).
+template <class S>
+__device__ __forceinline__ void gate_mainloop(
+    const GateConvT<S>& a, float* smem, int b, int ty0, int tx0, int j0,
+    int ng, float (&acc)[2][kGroups][4][4]) {
+  const int ceff = a.has_state ? a.cin + a.F : a.cin;
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -255,54 +471,11 @@ __device__ __forceinline__ void gate_mainloop(
         for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] = 0.f;
 
   ring(
-      smem, gates_stage(a.gpb), (ceff + 7) / 8,
+      smem, gates_stage<S>(a.gpb), (ceff + 7) / 8,
       [&](int s, float* buf) {
         gates_load(a, buf, 8 * s, ceff, b, ty0, tx0, j0);
       },
-      [&](const float* patch) {
-        const float* ws = patch + P * P * PS;
-#pragma unroll 3
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-          FragA fa[2];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            load_a_patch(patch, 2 * warp + mi + dy, dx, g, t, fa[mi]);
-          const float* wt = ws + (tap * 8 + t) * wstr + g;
-#pragma unroll
-          for (int jj = 0; jj < kGroups; ++jj) {
-            if (jj >= ng) continue;
-            FragB fb[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              fb[q].set(0, wt[(jj * 4 + q) * 8]);
-              fb[q].set(1, wt[4 * wstr + (jj * 4 + q) * 8]);
-            }
-            // this k8 step of 8 tiles, summed from zero, then rounded
-            // into the FP32 accumulators
-            float d[2][4][4];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                mma_zero(d[mi][q], fa[mi].lo, fb[q].hi);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].lo);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) mma(d[mi][q], fa[mi].hi, fb[q].hi);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-#pragma unroll
-                for (int r = 0; r < 4; ++r) acc[mi][jj][q][r] += d[mi][q][r];
-          }
-        }
-      });
+      [&](const float* stage) { gates_step(a, stage, ng, acc); });
 }
 
 // Allow a kernel more than the default 48 KB of dynamic shared memory.

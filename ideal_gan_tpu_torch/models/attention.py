@@ -2,7 +2,11 @@
 `ideal_gan_tpu/models/attention.py`).
 
 Plain `torch.matmul`/`softmax`, as the JAX package computes it with einsum
-outside any kernel.
+outside any kernel. With a compute `dtype` the attention's projections,
+products and softmax run in it, and γ (float32) promotes the residual sum
+to float32, as in the JAX package; AdaIN follows its inputs' dtypes, so a
+bf16 content normalized in bf16 meets the float32 style's √var and mean
+and comes out float32, as jnp's promotion gives.
 """
 
 from __future__ import annotations
@@ -10,14 +14,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .blocks import dtype_conv
+
 
 class SelfAttention(nn.Module):
     """f/g (C/8) and h (C) 1×1 convs, attention softmax(g·fᵀ) over the
     flattened spatial tokens with no 1/√d scale, learnable scalar γ
     initialized to 0, residual output. NCHW in and out."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         cf = max(channels // 8, 1)
         self.f = nn.Conv2d(channels, cf, 1, bias=False)
         self.g = nn.Conv2d(channels, cf, 1, bias=False)
@@ -26,9 +33,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        fm = self.f(x).flatten(2)                   # (b, cf, N)
-        gm = self.g(x).flatten(2).transpose(1, 2)   # (b, N, cf)
-        hm = self.h(x).flatten(2).transpose(1, 2)   # (b, N, c)
+        fm = dtype_conv(self.f, x, self.dtype).flatten(2)  # (b, cf, N)
+        gm = dtype_conv(self.g, x, self.dtype).flatten(2).transpose(1, 2)
+        hm = dtype_conv(self.h, x, self.dtype).flatten(2).transpose(1, 2)
         beta = torch.softmax(torch.matmul(gm, fm), dim=-1)  # (b, N, N)
         o = torch.matmul(beta, hm).transpose(1, 2).reshape(b, c, h, w)
         return self.gamma * o + x

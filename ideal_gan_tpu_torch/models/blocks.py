@@ -2,6 +2,12 @@
 
 Activations are NCHW inside the models. Norm order follows the reference:
 conv → activation → norm. Only instance norm is ported.
+
+A compute `dtype` is Flax's `dtype` field: a block given one casts its input,
+kernel and bias to it at use (`dtype_conv`), while its parameters keep
+theirs (float32); `None` computes in the parameters' dtype. Norms reduce in
+float32 and return the compute dtype, as Flax's GroupNorm does. The
+TEEncoder has no compute dtype: the JAX package's runs in float32 always.
 """
 
 from __future__ import annotations
@@ -32,44 +38,68 @@ def get_activation(name):
     }[name]
 
 
+def dtype_conv(conv: nn.Module, x: torch.Tensor, dtype=None):
+    """`conv(x)` (an `nn.Conv2d` or a stride-2 `nn.ConvTranspose2d`)
+    computed in `dtype`: x, the kernel and the bias cast at use, the
+    parameters left as they are; `None` is `conv(x)`."""
+    if dtype is None:
+        return conv(x)
+    w = conv.weight.to(dtype)
+    b = None if conv.bias is None else conv.bias.to(dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x.to(dtype), w, b, conv.stride)
+    return conv._conv_forward(x.to(dtype), w, b)
+
+
 class Norm(nn.GroupNorm):
     """Instance norm as one group per channel, ε = 1e-3 (the keras value the
-    JAX package matches)."""
+    JAX package matches). With a compute `dtype` the statistics and the
+    affine map run in float32 and the result is cast to `dtype`."""
 
     def __init__(self, channels: int, kind: str = "instance_norm",
-                 epsilon: float = 1e-3):
+                 epsilon: float = 1e-3, dtype=None):
         if kind != "instance_norm":
             raise NotImplementedError(
                 f"Norm {kind!r} is not ported yet (ROADMAP Queue 1)")
         super().__init__(channels, channels, eps=epsilon)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype is None:
+            return super().forward(x)
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(self.dtype)
 
 
 class ConvBlock(nn.Module):
     """Two 3×3 convs, each followed by the activation and the norm."""
 
     def __init__(self, in_channels: int, filters: int,
-                 activation: str = "relu", norm: str = "instance_norm"):
+                 activation: str = "relu", norm: str = "instance_norm",
+                 dtype=None):
         super().__init__()
         self.act = get_activation(activation)
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, filters, 3, padding=1, bias=False)
-        self.norm1 = Norm(filters, norm)
+        self.norm1 = Norm(filters, norm, dtype=dtype)
         self.conv2 = nn.Conv2d(filters, filters, 3, padding=1, bias=False)
-        self.norm2 = Norm(filters, norm)
+        self.norm2 = Norm(filters, norm, dtype=dtype)
 
     def forward(self, x):
-        x = self.norm1(self.act(self.conv1(x)))
-        return self.norm2(self.act(self.conv2(x)))
+        x = self.norm1(self.act(dtype_conv(self.conv1, x, self.dtype)))
+        return self.norm2(self.act(dtype_conv(self.conv2, x, self.dtype)))
 
 
 class Upsample(nn.Module):
     """2× upsample by a 2×2 stride-2 transpose convolution."""
 
-    def __init__(self, in_channels: int, filters: int):
+    def __init__(self, in_channels: int, filters: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.ConvTranspose2d(in_channels, filters, 2, stride=2)
 
     def forward(self, x):
-        return self.conv(x)
+        return dtype_conv(self.conv, x, self.dtype)
 
 
 class TEEncoder(nn.Module):

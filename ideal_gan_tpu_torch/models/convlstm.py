@@ -11,6 +11,10 @@ activation sigmoid. The recurrence runs in `ops.convlstm.convlstm_fused`:
 the hand-written forward and backward kernels for CUDA tensors, the plain
 versions for CPU tensors. Gradients reach `input_conv.weight`,
 `input_conv.bias` and `recurrent_conv.weight` through `merged_kernel()`.
+With a compute `dtype` (bfloat16: the kernels' bf16 storage mode) x, the
+merged kernel and the bias are cast to it at call time, as the JAX module
+casts them; the parameters stay float32 and their gradients come back
+through the casts.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ from .blocks import he_normal_
 class ConvLSTM(nn.Module):
     def __init__(self, in_channels: int, filters: int,
                  activation: str = "leaky_relu",
-                 recurrent_activation: str = "sigmoid"):
+                 recurrent_activation: str = "sigmoid", dtype=None):
         super().__init__()
         self.filters = filters
+        self.dtype = dtype
         self.activation = activation
         self.recurrent_activation = recurrent_activation
         # parameter holders in torch's (out, in, kh, kw) layout
@@ -42,10 +47,10 @@ class ConvLSTM(nn.Module):
         return k.permute(2, 3, 1, 0).contiguous()
 
     def forward(self, x):
+        dtype = self.dtype or self.input_conv.weight.dtype
         hidden = lstm_ops.convlstm_fused(
-            x.to(self.input_conv.weight.dtype).contiguous(),
-            self.merged_kernel(),
-            self.input_conv.bias.contiguous(), self.activation,
+            x.to(dtype).contiguous(), self.merged_kernel().to(dtype),
+            self.input_conv.bias.to(dtype).contiguous(), self.activation,
             self.recurrent_activation)
         return hidden.permute(0, 3, 1, 2)
 

@@ -17,6 +17,20 @@ tanh), MDWF-Net three (water/fat sigmoid ×2, R2* relu, field map tanh).
 The other options (the CSE physics layer, dropout, no skip connections)
 raise NotImplementedError; ROADMAP.md queues them.
 
+`dtype` is the nets' compute dtype (`models.blocks`: every convolution,
+norm, attention and the ConvLSTM front compute in it while the parameters
+stay float32; the heads' outputs are in it, and the trainers upcast them to
+float32 before the physics, as the JAX package does). `remat` recomputes
+each conv block and each upsample in the backward
+(`torch.utils.checkpoint`); the module tree, and so the state-dict names,
+are the same with and without it, so checkpoints interchange. The JAX
+package's `_maybe_remat` also wraps the ConvLSTM front; here it is left
+out, because rematerializing it frees nothing: `ops.convlstm.convlstm_fused`
+already keeps only its inputs (x, the merged kernel, the bias) for the
+backward, which recomputes the states itself, so a checkpoint around the
+front would keep the same inputs and only add a second forward (6 kernel
+launches a net and step at 6 echoes).
+
 Layouts are the JAX package's: the UNet returns (nb, 1, H, W, n_out) with
 `me_layer` (with `bayesian` a `prob.Normal` of two such maps for a tanh
 head, a `prob.Rician` otherwise; the pair
@@ -35,21 +49,31 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..prob import Normal, Rician
 from .attention import SelfAttention, adain
-from .blocks import (ConvBlock, TEEncoder, Upsample, get_activation,
-                     he_normal_, init_params)
+from .blocks import (ConvBlock, TEEncoder, Upsample, dtype_conv,
+                     get_activation, he_normal_, init_params)
 from .convlstm import ConvLSTM
 
 ME = "me"  # the layout tag of the ConvLSTM front's (nb, 1, H, W, C) output
 
 
+def _run(remat: bool, module: nn.Module, *args):
+    """`module(*args)`, rematerialized in the backward under `remat` (and a
+    gradient): its activations are recomputed instead of kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
+
+
 def _front(lstm, x):
     """A net's input as the NCHW input of its first block, and the tag of
-    its output layout: the ConvLSTM's final state (`ME`) with a front; a
-    5-D (nb, ne, H, W, C) folded into nb·ne images, tagged (nb, ne); the
-    legacy 4-D (nb, H, W, C) as it is, tagged None."""
+    its output layout: the ConvLSTM's final state (`ME`) with a front (never
+    rematerialized: the module docstring says why); a 5-D (nb, ne, H, W, C)
+    folded into nb·ne images, tagged (nb, ne); the legacy 4-D (nb, H, W, C)
+    as it is, tagged None."""
     if lstm is not None:
         return lstm(x), ME
     if x.ndim == 5:
@@ -73,13 +97,15 @@ class _SigmaHead(nn.Module):
     """The σ head: Conv 1×1 to 16, ReLU, Conv 1×1 to n_out, sigmoid, with
     Flax's He-uniform and He-normal kernels and zero biases."""
 
-    def __init__(self, in_channels: int, n_out: int):
+    def __init__(self, in_channels: int, n_out: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, 16, 1)
         self.conv2 = nn.Conv2d(16, n_out, 1)
 
     def forward(self, x):
-        return torch.sigmoid(self.conv2(F.relu(self.conv1(x))))
+        x = F.relu(dtype_conv(self.conv1, x, self.dtype))
+        return torch.sigmoid(dtype_conv(self.conv2, x, self.dtype))
 
     def init_params(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -98,7 +124,8 @@ class UNet(nn.Module):
                  te_input: bool = False, cse_layer: bool = False,
                  filters: int = 72, num_layers: int = 4,
                  dropout: float = 0.0, output_activation: str = "tanh",
-                 self_attention: bool = False, norm: str = "instance_norm"):
+                 self_attention: bool = False, norm: str = "instance_norm",
+                 dtype=None, remat: bool = False):
         super().__init__()
         unported = {"cse_layer": cse_layer,
                     "skip_con=False": not skip_con, "dropout": dropout > 0}
@@ -110,49 +137,53 @@ class UNet(nn.Module):
         self.output_activation = output_activation
         self.te_input = te_input
         self.bayesian = bayesian
-        self.lstm = ConvLSTM(in_channels, filters) if me_layer else None
+        self.dtype, self.remat = dtype, remat
+        self.lstm = ConvLSTM(in_channels, filters, dtype=dtype) \
+            if me_layer else None
         self.down = nn.ModuleList()
         self.te = nn.ModuleList() if te_input else None
         cin, f = (filters if me_layer else in_channels), filters
         for _ in range(num_layers):
-            self.down.append(ConvBlock(cin, f, norm=norm))
+            self.down.append(ConvBlock(cin, f, norm=norm, dtype=dtype))
             if te_input:
                 self.te.append(TEEncoder(f))
             cin, f = f, 2 * f
-        self.bottom = ConvBlock(cin, f, norm=norm)
+        self.bottom = ConvBlock(cin, f, norm=norm, dtype=dtype)
         self.up = nn.ModuleList()
         self.dec = nn.ModuleList()
         self.attn = None
         for level in range(num_layers):
-            self.up.append(Upsample(f, f // 2))
+            self.up.append(Upsample(f, f // 2, dtype=dtype))
             if self_attention and level == 0:
-                self.attn = SelfAttention(f)
-            self.dec.append(ConvBlock(f, f // 2, norm=norm))
+                self.attn = SelfAttention(f, dtype=dtype)
+            self.dec.append(ConvBlock(f, f // 2, norm=norm, dtype=dtype))
             f //= 2
         self.head = nn.Conv2d(f, n_out, 1)
-        self.sigma = _SigmaHead(f, n_out) if bayesian or std_out else None
+        self.sigma = _SigmaHead(f, n_out, dtype) if bayesian or std_out \
+            else None
 
     def forward(self, x, te=None):
         """x (nb, ne, H, W, Cin) with `me_layer`, else (nb, H, W, Cin) or
         (nb, ne, H, W, Cin); te (nb, ne), needed with `te_input`."""
         if self.te_input and te is None:
             raise ValueError("UNet(te_input=True) needs the TE vector")
+        remat = self.remat
         x, layout = _front(self.lstm, x)
         skips = []
         for level, block in enumerate(self.down):
-            x = block(x)
+            x = _run(remat, block, x)
             if self.te is not None:
                 x = adain(x, self.te[level](te))
             skips.append(x)
             x = F.max_pool2d(x, 2)
-        x = self.bottom(x)
+        x = _run(remat, self.bottom, x)
         for level, (up, block) in enumerate(zip(self.up, self.dec)):
-            x = torch.cat([up(x), skips[-1 - level]], dim=1)
+            x = torch.cat([_run(remat, up, x), skips[-1 - level]], dim=1)
             if self.attn is not None and level == 0:
                 x = self.attn(x)
-            x = block(x)
-        out = _back(get_activation(self.output_activation)(self.head(x)),
-                    layout)
+            x = _run(remat, block, x)
+        out = dtype_conv(self.head, x, self.dtype)
+        out = _back(get_activation(self.output_activation)(out), layout)
         if self.sigma is None:
             return out
         sigma = _back(self.sigma(x), layout)
@@ -177,8 +208,10 @@ class _SharedEncoder(nn.Module):
 
     def __init__(self, in_channels: int, filters: int, num_layers: int,
                  te_input: bool, te_mode: str = "adain",
-                 n_echoes: int | None = None):
+                 n_echoes: int | None = None, dtype=None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if te_mode not in ("adain", "dense_l1"):
             raise ValueError(f"unknown TE mode {te_mode!r}")
         self.blocks = nn.ModuleList()
@@ -188,25 +221,26 @@ class _SharedEncoder(nn.Module):
                          if te_input and te_mode == "dense_l1" else None)
         cin, f = in_channels, filters
         for _ in range(num_layers):
-            self.blocks.append(ConvBlock(cin, f))
+            self.blocks.append(ConvBlock(cin, f, dtype=dtype))
             if adain_te:
                 self.te.append(TEEncoder(f))
             cin, f = f, 2 * f
-        self.bottom = ConvBlock(cin, f)
+        self.bottom = ConvBlock(cin, f, dtype=dtype)
 
     def forward(self, x, te=None):
         skips = []
         for level, block in enumerate(self.blocks):
-            x = block(x)
+            x = _run(self.remat, block, x)
             if self.te is not None:
                 x = adain(x, self.te[level](te))
             skips.append(x)
             x = F.max_pool2d(x, 2)
             if self.te_dense is not None and level == 1:
                 te_vec = te[..., 0] if te.ndim == 3 else te
-                y = F.relu(self.te_dense(te_vec.to(x.dtype)))
+                y = F.relu(self.te_dense(
+                    te_vec.to(self.te_dense.weight.dtype)))
                 x = x + y[:, :, None, None]
-        return self.bottom(x), skips
+        return _run(self.remat, self.bottom, x), skips
 
     def init_params(self, generator: torch.Generator) -> None:
         """`models.init_params` on the blocks and TEEncoders; the Dense's
@@ -226,28 +260,31 @@ class _Decoder(nn.Module):
     and its activation. NCHW in and out."""
 
     def __init__(self, filters_top: int, num_layers: int,
-                 head_activation: str, self_attention: bool, n_out: int = 1):
+                 head_activation: str, self_attention: bool, n_out: int = 1,
+                 dtype=None, remat: bool = False):
         super().__init__()
         self.head_activation = head_activation
+        self.dtype, self.remat = dtype, remat
         self.up = nn.ModuleList()
         self.blocks = nn.ModuleList()
         self.attn = None
         f = filters_top
         for level in range(num_layers):
-            self.up.append(Upsample(f, f // 2))
+            self.up.append(Upsample(f, f // 2, dtype=dtype))
             if self_attention and level == 0:
-                self.attn = SelfAttention(f)
-            self.blocks.append(ConvBlock(f, f // 2))
+                self.attn = SelfAttention(f, dtype=dtype)
+            self.blocks.append(ConvBlock(f, f // 2, dtype=dtype))
             f //= 2
         self.head = nn.Conv2d(f, n_out, 1)
 
     def forward(self, x, skips):
         for level, (up, block) in enumerate(zip(self.up, self.blocks)):
-            x = torch.cat([up(x), skips[-1 - level]], dim=1)
+            x = torch.cat([_run(self.remat, up, x), skips[-1 - level]], dim=1)
             if self.attn is not None and level == 0:
                 x = self.attn(x)
-            x = block(x)
-        return get_activation(self.head_activation)(self.head(x))
+            x = _run(self.remat, block, x)
+        return get_activation(self.head_activation)(
+            dtype_conv(self.head, x, self.dtype))
 
 
 class MDWFNet(nn.Module):
@@ -261,16 +298,21 @@ class MDWFNet(nn.Module):
                  num_layers: int = 4, te_input: bool = False,
                  n_echoes: int = 6, wf_self_attention: bool = False,
                  r2_self_attention: bool = False,
-                 fm_self_attention: bool = True):
+                 fm_self_attention: bool = True, dtype=None,
+                 remat: bool = False):
         super().__init__()
         self.te_input = te_input
         self.encoder = _SharedEncoder(in_channels, filters, num_layers,
-                                      te_input, "dense_l1", n_echoes)
+                                      te_input, "dense_l1", n_echoes, dtype,
+                                      remat)
         ftop = filters * 2 ** num_layers
+        kw = dict(dtype=dtype, remat=remat)
         self.dec_wf = _Decoder(ftop, num_layers, "sigmoid",
-                               wf_self_attention, n_out=2)
-        self.dec_r2 = _Decoder(ftop, num_layers, "relu", r2_self_attention)
-        self.dec_fm = _Decoder(ftop, num_layers, "tanh", fm_self_attention)
+                               wf_self_attention, n_out=2, **kw)
+        self.dec_r2 = _Decoder(ftop, num_layers, "relu", r2_self_attention,
+                               **kw)
+        self.dec_fm = _Decoder(ftop, num_layers, "tanh", fm_self_attention,
+                               **kw)
 
     def forward(self, x, te=None):
         if x.ndim != 4:
@@ -300,17 +342,20 @@ class VETNet(nn.Module):
                  filters: int = 72, num_layers: int = 4,
                  r2_self_attention: bool = False,
                  fm_self_attention: bool = True, me_layer: bool = True,
-                 n_out: int = 1):
+                 n_out: int = 1, dtype=None, remat: bool = False):
         super().__init__()
         self.te_input = te_input
-        self.lstm = ConvLSTM(in_channels, filters) if me_layer else None
+        self.remat = remat
+        self.lstm = ConvLSTM(in_channels, filters, dtype=dtype) \
+            if me_layer else None
         self.encoder = _SharedEncoder(filters if me_layer else in_channels,
-                                      filters, num_layers, te_input)
+                                      filters, num_layers, te_input,
+                                      dtype=dtype, remat=remat)
         ftop = filters * 2 ** num_layers
         self.dec_r2 = _Decoder(ftop, num_layers, "sigmoid", r2_self_attention,
-                               n_out)
+                               n_out, dtype, remat)
         self.dec_fm = _Decoder(ftop, num_layers, "tanh", fm_self_attention,
-                               n_out)
+                               n_out, dtype, remat)
 
     def forward(self, x, te=None):
         if self.te_input and te is None:

@@ -2,7 +2,8 @@
 tensors the entry points launch the kernels; for CPU tensors they call the
 kernels' plain PyTorch versions."""
 
-from .convlstm import (CONVLSTM_BWD_KERNEL, CONVLSTM_KERNEL,
+from .convlstm import (CONVLSTM_BF16_KERNEL, CONVLSTM_BWD_BF16_KERNEL,
+                       CONVLSTM_BWD_KERNEL, CONVLSTM_KERNEL,
                        convlstm_backward, convlstm_backward_reference,
                        convlstm_forward, convlstm_fused, convlstm_reference,
                        kink_masked_gradient)
@@ -13,9 +14,11 @@ from .ideal import (CYCLE_KERNEL, FIT_KERNEL, FORWARD_KERNEL, MAG_FIT_KERNEL,
                     precompute_synth_matrices, synthesize_fused)
 
 KERNELS = (FIT_KERNEL, CONVLSTM_KERNEL, CYCLE_KERNEL, CONVLSTM_BWD_KERNEL,
-           FORWARD_KERNEL, MAG_FIT_KERNEL)
+           FORWARD_KERNEL, MAG_FIT_KERNEL, CONVLSTM_BF16_KERNEL,
+           CONVLSTM_BWD_BF16_KERNEL)
 
 __all__ = [
+    "CONVLSTM_BF16_KERNEL", "CONVLSTM_BWD_BF16_KERNEL",
     "CONVLSTM_BWD_KERNEL", "CONVLSTM_KERNEL", "CYCLE_KERNEL", "FIT_KERNEL",
     "FORWARD_KERNEL", "KERNELS", "MAG_FIT_KERNEL", "convlstm_backward",
     "convlstm_backward_reference", "convlstm_forward", "convlstm_fused",

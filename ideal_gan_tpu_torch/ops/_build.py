@@ -110,12 +110,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """A hand-written CUDA kernel: its library, loaded on first launch, and
-    `launches`, the number of times a wrapper has launched it."""
+    """A hand-written CUDA kernel: its library `csrc/<lib>.cu`, loaded on
+    first launch, and `launches`, the number of times a wrapper has
+    launched it. `name` (default `lib`) tells apart kernels that share a
+    library, as the ConvLSTM kernels' bf16 modes do."""
 
-    def __init__(self, name: str, signatures: dict):
-        self.name = name
-        self.source = f"ideal_gan_tpu_torch/csrc/{name}.cu"
+    def __init__(self, lib: str, signatures: dict, name: str | None = None):
+        self.lib = lib
+        self.name = name or lib
+        self.source = f"ideal_gan_tpu_torch/csrc/{lib}.cu"
         self.launches = 0
         self._signatures = signatures
         self._lib = None
@@ -123,7 +126,7 @@ class Kernel:
     def fn(self, symbol: str):
         """The C entry `symbol`, with its argtypes and restype set."""
         if self._lib is None:
-            lib = load(self.name)
+            lib = load(self.lib)
             for sym, (restype, argtypes) in self._signatures.items():
                 getattr(lib, sym).restype = restype
                 getattr(lib, sym).argtypes = argtypes

@@ -5,7 +5,8 @@
 `torch.autograd.Function` that saves only (x, k_merged, bias), as the JAX
 package's custom VJP does. Its forward is `convlstm_forward`, which launches
 the hand-written kernel `csrc/convlstm_fwd.cu` (a 3xTF32 implicit GEMM on
-the tensor cores with the cell in its epilogue) once per echo for CUDA
+the tensor cores with the cell in its epilogue; one bf16 MMA a product in
+the bf16 storage mode) once per echo for CUDA
 tensors; its backward is `convlstm_backward`, which recomputes the per-echo
 states with that kernel and runs the reverse sweep of `csrc/convlstm_bwd.cu`
 (whose gate stage shares the forward's mainloop, `csrc/convlstm_tile.cuh`).
@@ -16,6 +17,18 @@ Cin), merged kernel (3, 3, Cin+F, 4F) HWIO, bias (4F,), result (nb, H, W,
 F). The result is a channels-last view of an NCHW buffer, so `.permute(0,
 3, 1, 2)` gives the contiguous (nb, F, H, W) tensor the rest of the UNet
 uses.
+
+Both kernels take float32 or bfloat16 (x, k_merged and bias in one dtype).
+The bfloat16 storage mode is the TPU kernels' bf16 form, and the plain
+versions are written to its rounding points: the forward stores x, k, the
+bias, h and c in bf16, multiplies bf16 operands with f32 accumulation, adds
+the bias and runs the gates and the cell in f32, and rounds h and c to bf16
+at the end of every echo; the backward recomputes the states with the cell
+chain in f32 (h rounded every echo, a bf16 copy of c for the sweep), carries
+dL/dh and dL/dc in f32, sums db from the f32 dL/dgates, rounds dL/dgates to
+bf16 before both of its products (dk's f32 sum and the transposed
+convolution into dx and dh), rounds dx to bf16 per echo, and returns dk and
+db in bf16.
 
 The TPU kernels' block search (9 MiB VMEM budget, halo efficiency floor),
 taint fronts, dx overlap-add, routing switch and viability gate have no
@@ -38,9 +51,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+_FWD_ARGS = (_I, [_P, _L] + [_P] * 8 + [_I] * 7 + [_P])
 CONVLSTM_KERNEL = Kernel("convlstm_fwd", {
-    "convlstm_echo_fwd": (_I, [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _P]),
+    "convlstm_echo_fwd": _FWD_ARGS,
     "convlstm_smem_bytes": (_L, [_I]),
 })
 CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
@@ -49,6 +62,16 @@ CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
     "convlstm_bwd_reduce": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
     "convlstm_bwd_smem_bytes": (_L, [_I, _I]),
 })
+# the bf16 storage mode: the same sources, launches counted apart
+CONVLSTM_BF16_KERNEL = Kernel("convlstm_fwd", {
+    "convlstm_echo_fwd_bf16": _FWD_ARGS,
+}, name="convlstm_fwd_bf16")
+CONVLSTM_BWD_BF16_KERNEL = Kernel("convlstm_bwd", {
+    "convlstm_echo_bwd_bf16": (_I, [_P, _L] + [_P] * 10 + [_L, _P, _P]
+                               + [_I] * 8 + [_P]),
+    "convlstm_bwd_reduce_bf16": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
+}, name="convlstm_bwd_bf16")
+_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 227 * 1024
 # the kernels' grids: 16×16 pixel tiles in y, images in z (_TILE must equal
 # T in csrc/convlstm_tile.cuh)
@@ -90,11 +113,50 @@ def _reference_states(x, k_merged, bias, activation, recurrent_activation):
     return states
 
 
+def _bf16(t):
+    """t rounded to bfloat16 and widened back to float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_states(x, k_merged, bias, activation, recurrent_activation,
+                 n_echoes, f32_cell):
+    """The bf16 storage mode's per-echo states [(h_e, c_e)], e < n_echoes,
+    NCHW float32 holding bf16 values: float32 convolutions of the bf16
+    operands (a product of two bf16 values is exact in f32) plus the bias,
+    gates and cell in f32, h rounded to bf16 every echo; c rounded to bf16
+    every echo (the forward), or carried in f32 with a rounded copy in the
+    list (`f32_cell`, the backward's recompute)."""
+    act = get_activation(activation)
+    rec_act = get_activation(recurrent_activation)
+    weight = k_merged.float().permute(3, 2, 0, 1)
+    b = bias.float()[:, None, None]
+    nb, _, h, w, _ = x.shape
+    f = k_merged.shape[-1] // 4
+    hidden = x.new_zeros((nb, f, h, w), dtype=torch.float32)
+    cell = torch.zeros_like(hidden)
+    states = []
+    for e in range(n_echoes):
+        gates = F.conv2d(torch.cat([x[:, e].float().permute(0, 3, 1, 2),
+                                    hidden], dim=1), weight, padding=1) + b
+        i, fg, gg, o = torch.split(gates, f, dim=1)
+        c32 = rec_act(fg) * cell + rec_act(i) * act(gg)
+        hidden = _bf16(rec_act(o) * act(c32))
+        cell = c32 if f32_cell else _bf16(c32)
+        states.append((hidden, _bf16(c32)))
+    return states
+
+
 def convlstm_reference(x, k_merged, bias, activation="leaky_relu",
                        recurrent_activation="sigmoid"):
     """The plain recurrence (mirrors `_jnp_reference`): per echo one SAME
     3×3 convolution over concat(x_e, h) with the merged kernel, keras gate
-    order i, f, g, o. Returns the final hidden state (nb, H, W, F)."""
+    order i, f, g, o. Returns the final hidden state (nb, H, W, F). A
+    bfloat16 x takes the kernel's bf16 storage mode (`_bf16_states`) and
+    returns bf16."""
+    if x.dtype == torch.bfloat16:
+        h = _bf16_states(x, k_merged, bias, activation, recurrent_activation,
+                         x.shape[1], f32_cell=False)[-1][0]
+        return h.to(torch.bfloat16).permute(0, 2, 3, 1)
     states = _reference_states(x, k_merged, bias, activation,
                                recurrent_activation)
     return states[-1][0].permute(0, 2, 3, 1)
@@ -108,7 +170,12 @@ def convlstm_backward_reference(x, k_merged, bias, g,
     rematerialise the per-echo states, then sweep the echoes in reverse,
     applying autograd to one echo step at a time around the recomputed
     state. g = dL/dh_final (nb, H, W, F). Returns (dx (nb, ne, H, W, Cin)
-    or None when not `need_dx`, dk (3, 3, Cin+F, 4F), db (4F,))."""
+    or None when not `need_dx`, dk (3, 3, Cin+F, 4F), db (4F,)). A
+    bfloat16 x takes the kernel's bf16 storage mode
+    (`_backward_reference_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _backward_reference_bf16(x, k_merged, bias, g, activation,
+                                        recurrent_activation, need_dx)
     act = get_activation(activation)
     rec_act = get_activation(recurrent_activation)
     with torch.no_grad():
@@ -140,6 +207,56 @@ def convlstm_backward_reference(x, k_merged, bias, g,
     return torch.stack(dx, dim=1) if need_dx else None, dk, db
 
 
+def _backward_reference_bf16(x, k_merged, bias, g, activation,
+                             recurrent_activation, need_dx):
+    """The bf16 storage mode's backward (the TPU `_bwd_kernel`'s bf16 form),
+    in float32 arithmetic on bf16 values: the states of `_bf16_states` with
+    the f32 cell chain; per echo e = ne-1 .. 0 the gates recomputed from
+    (x_e, h_{e-1}), dL/dgates and dL/dc_{e-1} by autograd of the f32 cell
+    around the bf16 copy of c_{e-1}, db summed from the f32 dL/dgates,
+    dL/dgates rounded to bf16 before dk's sum and the transposed
+    convolution into (dx_e, dL/dh_{e-1}), dx_e rounded to bf16 per echo.
+    dL/dh and dL/dc stay f32; dx, dk and db return in bf16."""
+    act = get_activation(activation)
+    rec_act = get_activation(recurrent_activation)
+    ne, cin = x.shape[1], x.shape[-1]
+    f = k_merged.shape[-1] // 4
+    with torch.no_grad():
+        states = _bf16_states(x, k_merged, bias, activation,
+                              recurrent_activation, ne - 1, f32_cell=True)
+    weight = k_merged.float().permute(3, 2, 0, 1)
+    b = bias.float()[:, None, None]
+    dh = g.float().permute(0, 3, 1, 2)
+    dc = torch.zeros_like(dh)
+    zeros = torch.zeros_like(dh)
+    dx = [None] * ne
+    dk = torch.zeros_like(weight)
+    db = torch.zeros_like(bias, dtype=torch.float32)
+    for e in range(ne - 1, -1, -1):
+        h_prev, c_prev = states[e - 1] if e else (zeros, zeros)
+        inp = torch.cat([x[:, e].float().permute(0, 3, 1, 2), h_prev], dim=1)
+        with torch.enable_grad():
+            gates = (F.conv2d(inp, weight, padding=1) + b).requires_grad_()
+            c_in = c_prev.detach().requires_grad_()
+            i, fg, gg, o = torch.split(gates, f, dim=1)
+            cell = rec_act(fg) * c_in + rec_act(i) * act(gg)
+            hidden = rec_act(o) * act(cell)
+            dgates, dc = torch.autograd.grad((hidden, cell), (gates, c_in),
+                                             (dh, dc))
+            db += dgates.sum(dim=(0, 2, 3))
+            inp_l = inp.detach().requires_grad_()
+            w_l = weight.detach().requires_grad_()
+            dinp, dw = torch.autograd.grad(
+                F.conv2d(inp_l, w_l, padding=1), (inp_l, w_l), _bf16(dgates))
+        dk += dw
+        if need_dx:
+            dx[e] = dinp[:, :cin].permute(0, 2, 3, 1).to(torch.bfloat16)
+        dh = dinp[:, cin:]
+    bf = torch.bfloat16
+    return (torch.stack(dx, dim=1) if need_dx else None,
+            dk.permute(2, 3, 1, 0).to(bf), db.to(bf))
+
+
 def kink_masked_gradient(x, k_merged, bias, g, tol=KINK_TOL):
     """g = dL/dh_final (nb, H, W, F) with zeros wherever the backward's
     result could depend on which side of leaky_relu's kink a value within
@@ -151,9 +268,12 @@ def kink_masked_gradient(x, k_merged, bias, g, tol=KINK_TOL):
     a value in any channel zeroes g within (ne-1-e) pixels (Chebyshev) of
     it, its receptive field in the reverse sweep: dh_e and dc_e there are
     then exact zeros, so the derivative taken there multiplies nothing.
-    Leaky_relu / sigmoid gates, as the kernels compute."""
+    Leaky_relu / sigmoid gates, as the kernels compute; a bfloat16 x runs
+    the forward's bf16 roundings of h and c every echo. g keeps its
+    dtype."""
     act = get_activation("leaky_relu")
     rec_act = get_activation("sigmoid")
+    bf16 = x.dtype == torch.bfloat16
     x64 = x.double()
     weight = k_merged.double().permute(3, 2, 0, 1)
     b64 = bias.double()[:, None, None]
@@ -169,6 +289,9 @@ def kink_masked_gradient(x, k_merged, bias, g, tol=KINK_TOL):
         cell = rec_act(fg) * cell + rec_act(i) * act(gg)
         hidden = rec_act(o) * act(cell)
         near = ((gg.abs() < tol) | (cell.abs() < tol)).any(1, keepdim=True)
+        if bf16:  # the bf16 storage mode's roundings, in float64 otherwise
+            hidden = hidden.to(torch.bfloat16).double()
+            cell = cell.to(torch.bfloat16).double()
         r = ne - 1 - e
         if r:
             near = F.max_pool2d(near.double(), 2 * r + 1, 1, r) > 0
@@ -196,9 +319,9 @@ def _check(x, k_merged, bias, activation, recurrent_activation):
         if t.device != x.device:
             raise ValueError(f"convlstm kernel: {name} on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"convlstm kernel: {name} must be float32, got "
-                            f"{t.dtype}")
+        if t.dtype not in _DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"convlstm kernel: {name} must be float32 or "
+                            f"bfloat16 as x ({x.dtype}), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"convlstm kernel: {name} must be contiguous")
     if (activation, recurrent_activation) != ("leaky_relu", "sigmoid"):
@@ -227,7 +350,7 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
     """ConvLSTM forward over the echo axis.
 
     x (nb, ne, H, W, Cin); k_merged (3, 3, Cin+F, 4F); bias (4F,) →
-    final hidden state (nb, H, W, F) float32.
+    final hidden state (nb, H, W, F) in x's dtype (float32 or bfloat16).
     """
     if x.device.type == "cpu":
         return convlstm_reference(x, k_merged, bias, activation,
@@ -235,26 +358,39 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
     nb, ne, h, w, cin, f = _check(x, k_merged, bias, activation,
                                   recurrent_activation)
     k_merged = _aligned(k_merged)
+    kern, launch = _fwd_launcher(x.dtype)
     # ping-pong state, separate buffers so the returned hidden state keeps
     # only its own alive
-    h_buf, c_buf = [[torch.empty((nb, f, h, w), dtype=torch.float32,
+    h_buf, c_buf = [[torch.empty((nb, f, h, w), dtype=x.dtype,
                                  device=x.device) for _ in range(2)]
                     for _ in range(2)]
     echo_stride = h * w * cin
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    launch = CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
     for e in range(ne):
         src, dst = e % 2, (e + 1) % 2
         last = e == ne - 1
         rc = launch(
-            x.data_ptr() + 4 * e * echo_stride, ne * echo_stride,
-            k_merged.data_ptr(), bias.data_ptr(),
-            h_buf[src].data_ptr(), c_buf[src].data_ptr(),
+            x.data_ptr() + x.element_size() * e * echo_stride,
+            ne * echo_stride, k_merged.data_ptr(), bias.data_ptr(),
+            h_buf[src].data_ptr(), c_buf[src].data_ptr(), None,
             h_buf[dst].data_ptr(), None if last else c_buf[dst].data_ptr(),
-            nb, cin, f, h, w, int(e > 0), x.device.index, stream)
-        CONVLSTM_KERNEL.launches += 1
-        check_launch(CONVLSTM_KERNEL, rc)
+            None, nb, cin, f, h, w, int(e > 0), x.device.index, stream)
+        kern.launches += 1
+        check_launch(kern, rc)
     return h_buf[ne % 2].permute(0, 2, 3, 1)
+
+
+def _fwd_launcher(dtype):
+    """(counter, ctypes function) of the forward kernel for a storage
+    dtype: `convlstm_echo_fwd` (float32) or `convlstm_echo_fwd_bf16`. Both
+    take (x_e, x batch stride, k, bias, h_prev, c_prev, c_prev32, h_next,
+    c_next, c_next32, nb, Cin, F, H, W, has_state, device, stream); the
+    float32 cell-chain pointers c_prev32 and c_next32 are the bf16
+    recompute's and null otherwise."""
+    if dtype == torch.bfloat16:
+        return (CONVLSTM_BF16_KERNEL,
+                CONVLSTM_BF16_KERNEL.fn("convlstm_echo_fwd_bf16"))
+    return CONVLSTM_KERNEL, CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
 
 
 def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
@@ -263,7 +399,8 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
 
     x (nb, ne, H, W, Cin); k_merged (3, 3, Cin+F, 4F); bias (4F,); g =
     dL/dh_final (nb, H, W, F) → (dx (nb, ne, H, W, Cin), or None when not
-    `need_dx`; dk (3, 3, Cin+F, 4F); db (4F,)), float32.
+    `need_dx`; dk (3, 3, Cin+F, 4F); db (4F,)), in x's dtype (float32, or
+    bfloat16 for the bf16 storage mode, whose g is bf16 too).
 
     On the card: the forward kernel recomputes h_e, c_e for e < ne-1 into
     an (ne-1, nb, F, H, W) stack (about 1 GB each at nb=8, 384², F=36), then
@@ -278,8 +415,8 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
     nb, ne, h, w, cin, f = _check(x, k_merged, bias, activation,
                                   recurrent_activation)
     if tuple(g.shape) != (nb, h, w, f) or g.device != x.device \
-            or g.dtype != torch.float32:
-        raise ValueError(f"convlstm backward: g must be float32 "
+            or g.dtype != x.dtype:
+        raise ValueError(f"convlstm backward: g must be {x.dtype} "
                          f"{(nb, h, w, f)} on {x.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     smem = CONVLSTM_BWD_KERNEL.fn("convlstm_bwd_smem_bytes")(cin, f)
@@ -295,42 +432,56 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
 
 def _kernel_states(x, k_merged, bias, n_echoes):
     """The forward kernel's h_e, c_e for e < n_echoes, as two (max(n_echoes,
-    1), nb, F, H, W) stacks. The caller has checked x, k_merged (16-byte
-    aligned) and bias."""
+    1), nb, F, H, W) stacks in x's dtype. The bf16 storage mode runs its
+    recompute form: the cell chain carried in two float32 buffers, a bf16
+    copy of each c_e in the stack. The caller has checked x, k_merged
+    (16-byte aligned) and bias."""
     nb, ne, h, w, cin = x.shape
     f = k_merged.shape[3] // 4
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     echo_stride = h * w * cin
-    hs = torch.empty((max(n_echoes, 1), nb, f, h, w), dtype=torch.float32,
+    hs = torch.empty((max(n_echoes, 1), nb, f, h, w), dtype=x.dtype,
                      device=dev)
     cs = torch.empty_like(hs)
-    fwd = CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
+    bf16 = x.dtype == torch.bfloat16
+    c32 = [torch.empty((nb, f, h, w), dtype=torch.float32, device=dev)
+           for _ in range(min(n_echoes - 1, 2) if bf16 else 0)]
+    kern, fwd = _fwd_launcher(x.dtype)
     for e in range(n_echoes):
-        rc = fwd(x.data_ptr() + 4 * e * echo_stride, ne * echo_stride,
-                 k_merged.data_ptr(), bias.data_ptr(),
+        rc = fwd(x.data_ptr() + x.element_size() * e * echo_stride,
+                 ne * echo_stride, k_merged.data_ptr(), bias.data_ptr(),
                  hs[e - 1].data_ptr() if e else None,
-                 cs[e - 1].data_ptr() if e else None,
-                 hs[e].data_ptr(), cs[e].data_ptr(), nb, cin, f, h, w,
-                 int(e > 0), dev.index, stream)
-        CONVLSTM_KERNEL.launches += 1
-        check_launch(CONVLSTM_KERNEL, rc)
+                 cs[e - 1].data_ptr() if e and not bf16 else None,
+                 c32[(e - 1) % 2].data_ptr() if e and bf16 else None,
+                 hs[e].data_ptr(), cs[e].data_ptr(),
+                 c32[e % 2].data_ptr() if bf16 and e + 1 < n_echoes
+                 else None,
+                 nb, cin, f, h, w, int(e > 0), dev.index, stream)
+        kern.launches += 1
+        check_launch(kern, rc)
     return hs, cs
 
 
 def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
     """The reverse sweep of `csrc/convlstm_bwd.cu` around the state stacks
-    hs, cs (echoes 0 .. ne-2, (≥1, nb, F, H, W) float32): (dx or None, dk,
-    db). The caller has checked every argument."""
+    hs, cs (echoes 0 .. ne-2, (≥1, nb, F, H, W) in x's dtype): (dx or
+    None, dk, db). The caller has checked every argument. In the bf16
+    storage mode dL/dh, dL/dc and dL/dgates are float32 (g widened), x, k,
+    the bias, the stacks, dx, dk and db bf16."""
     nb, ne, h, w, cin = x.shape
     f = k_merged.shape[3] // 4
     dev = x.device
     c = cin + f
+    bf16 = x.dtype == torch.bfloat16
+    kern = CONVLSTM_BWD_BF16_KERNEL if bf16 else CONVLSTM_BWD_KERNEL
+    step = kern.fn("convlstm_echo_bwd_bf16" if bf16 else "convlstm_echo_bwd")
+    item = x.element_size()
     stream = torch.cuda.current_stream(dev).cuda_stream
     echo_stride = h * w * cin
     x_b = ne * echo_stride
     dgates = torch.empty((nb, h, w, 4 * f), dtype=torch.float32, device=dev)
-    dh_in = g.contiguous()
+    dh_in = g.float().contiguous()
     dh_bufs = [torch.empty_like(dh_in) for _ in range(2)]
     dc_bufs = [torch.empty_like(dh_in) for _ in range(2)]
     dc_in = None
@@ -339,31 +490,31 @@ def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
                        device=dev)
     part_b = torch.zeros((n_slots, 4 * f), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
-    step = CONVLSTM_BWD_KERNEL.fn("convlstm_echo_bwd")
     for e in range(ne - 1, -1, -1):
         has_state = e > 0
         dh_out, dc_out = dh_bufs[e % 2], dc_bufs[e % 2]
         rc = step(
-            x.data_ptr() + 4 * e * echo_stride, x_b, k_merged.data_ptr(),
+            x.data_ptr() + item * e * echo_stride, x_b, k_merged.data_ptr(),
             bias.data_ptr(),
             hs[e - 1].data_ptr() if has_state else None,
             cs[e - 1].data_ptr() if has_state else None,
             dh_in.data_ptr(), None if dc_in is None else dc_in.data_ptr(),
             dgates.data_ptr(), dc_out.data_ptr() if has_state else None,
             dh_out.data_ptr() if has_state else None,
-            dx.data_ptr() + 4 * e * echo_stride if need_dx else None, x_b,
-            part.data_ptr(), part_b.data_ptr(), n_slots, nb, cin, f, h, w,
-            int(has_state), dev.index, stream)
-        CONVLSTM_BWD_KERNEL.launches += 1
-        check_launch(CONVLSTM_BWD_KERNEL, rc)
+            dx.data_ptr() + item * e * echo_stride if need_dx else None,
+            x_b, part.data_ptr(), part_b.data_ptr(), n_slots, nb, cin, f, h,
+            w, int(has_state), dev.index, stream)
+        kern.launches += 1
+        check_launch(kern, rc)
         dh_in, dc_in = dh_out, dc_out
     dk = torch.empty_like(k_merged)
     db = torch.empty_like(bias)
-    rc = CONVLSTM_BWD_KERNEL.fn("convlstm_bwd_reduce")(
+    rc = kern.fn("convlstm_bwd_reduce_bf16" if bf16
+                 else "convlstm_bwd_reduce")(
         part.data_ptr(), part_b.data_ptr(), dk.data_ptr(), db.data_ptr(),
         n_slots, part.shape[1], 4 * f, dev.index, stream)
-    CONVLSTM_BWD_KERNEL.launches += 1
-    check_launch(CONVLSTM_BWD_KERNEL, rc)
+    kern.launches += 1
+    check_launch(kern, rc)
     return dx, dk, db
 
 

@@ -9,9 +9,11 @@
   at the count before the step, as optax's `scale_by_schedule` reads it.
 - `batch_iterator`: host-side shuffled batches over aligned numpy arrays.
 - `ModelState`: one net, its optimizer and the step count, as checkpointed.
+- `accumulate_microbatch_grads`: a step's gradients over equal chunks of
+  its batch, accumulated in float32 and averaged.
+- `compute_dtype`: a trainer config's CNN compute dtype (`bf16`).
 
-Not ported yet: `TrainLoop` and `accumulate_microbatch_grads` (ROADMAP
-Queue 1 item 7).
+Not ported yet: `TrainLoop` (ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -39,6 +41,47 @@ def linear_decay_schedule(lr: float, total_steps: int,
 
 # the profiler range around an optimizer step
 STEP_RANGE = "adam step"
+
+
+def compute_dtype(cfg):
+    """The nets' compute dtype of a trainer config: bfloat16 with `bf16`
+    (parameters stay float32, the physics runs in float32), else None, the
+    parameters' own dtype."""
+    return torch.bfloat16 if cfg.get("bf16") else None
+
+
+def accumulate_microbatch_grads(loss_fn, params, batch, micro: int):
+    """A step's loss, metrics and gradients over `nb // micro` equal chunks
+    of its batch (the JAX package's `accumulate_microbatch_grads`).
+
+    `loss_fn(*chunk) -> (loss, metrics)` is called on each chunk in order,
+    rows [i·micro, (i+1)·micro) of every tensor of `batch` (None entries
+    pass through), and its loss is backpropagated at once, so that only
+    one chunk's activations are alive; a chunk that needs noise draws its
+    own inside `loss_fn`, as the JAX step splits its key per chunk. The
+    gradients add up in the float32 `.grad` of `params` and are scaled by
+    1/n_chunks, as are the returned loss and metrics (detached). Batch-sum
+    terms of the loss must carry the chunk count themselves (the trainers'
+    `tv_scale`). A batch that `micro` does not divide raises ValueError."""
+    nb = next(t for t in batch if t is not None).shape[0]
+    if micro <= 0 or nb % micro:
+        raise ValueError(f"batch {nb} not divisible by microbatch {micro}")
+    n_chunks = nb // micro
+    loss_sum, metrics_sum = 0.0, {}
+    for i in range(n_chunks):
+        rows = slice(i * micro, (i + 1) * micro)
+        loss, metrics = loss_fn(*(None if t is None else t[rows]
+                                  for t in batch))
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+        for k, v in metrics.items():
+            metrics_sum[k] = metrics_sum.get(k, 0.0) + v.detach()
+    inv = 1.0 / n_chunks
+    with torch.no_grad():
+        for p in params:
+            if p.grad is not None:
+                p.grad.mul_(inv)
+    return loss_sum * inv, {k: v * inv for k, v in metrics_sum.items()}
 
 
 class Adam:

@@ -17,8 +17,11 @@ The JAX step splits a key into `rngs={"bayes": ...}`, which no layer on
 this path reads (there is no Flipout layer, and the Rician is not
 sampled): the port's step takes no generator.
 
-Not ported yet (ROADMAP Queue 1 item 8): bf16 and remat
-(NotImplementedError).
+With `bf16` the UNet computes in bfloat16 (its ConvLSTM front in the
+kernels' bf16 storage mode) while its parameters stay float32; its point
+output and the Rician head's (ν, σ) are upcast to float32 before the
+magnitude fit, as in the JAX package. `remat` rematerializes its blocks in
+the backward.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from ..cli.common import resolve_device
 from ..losses import total_variation_2d
 from ..models import UNet
 from ..ops import cse_mag_fused, synthesize_fused
-from .common import ModelState, linear_decay_schedule, make_adam
+from ..prob import Rician
+from .common import (ModelState, compute_dtype, linear_decay_schedule,
+                     make_adam)
 
 DEFAULTS = dict(
     dataset="Mag-300", n_echoes=6, field=1.5, training_mode="supervised",
@@ -44,22 +49,15 @@ DEFAULTS = dict(
 MagState = ModelState  # the UNet, its optimizer and the step count
 
 
-def _check_ported(cfg) -> None:
-    unported = [k for k in ("bf16", "remat") if cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"mag settings {unported} are not ported yet (ROADMAP Queue 1 "
-            f"item 8)")
-
-
 def build_model(cfg) -> UNet:
-    """The R2* net on the echo magnitudes (Cin = 1)."""
-    _check_ported(cfg)
+    """The R2* net on the echo magnitudes (Cin = 1), in the config's compute
+    dtype (`bf16`) and with its `remat`."""
     return UNet(1, n_out=1, bayesian=cfg["main_loss"] == "Rice",
                 me_layer=True,
                 te_input=cfg["training_mode"] == "supervised",
                 filters=cfg["n_G_filters"], output_activation="sigmoid",
-                self_attention=cfg["D1_SelfAttention"])
+                self_attention=cfg["D1_SelfAttention"],
+                dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
 
 
 def _point_loss(name):
@@ -78,7 +76,6 @@ def make_loss_fn(cfg, model):
     """The loss as `loss_fn(B, te) -> (loss, metrics)` over the model's
     current parameters. B (nb, ≥3, H, W, 2) ground-truth maps, te (nb, ne,
     1)."""
-    _check_ported(cfg)
     rice = cfg["main_loss"] == "Rice"
     supervised = cfg["training_mode"] == "supervised"
     loss_alt = _point_loss(cfg["main_loss"])
@@ -89,6 +86,9 @@ def make_loss_fn(cfg, model):
         a_mag = torch.sqrt(torch.sum(torch.square(A), dim=-1, keepdim=True))
         keep = torch.mean(a_mag, dim=1, keepdim=True) >= 5e-2
         out = model(a_mag, te[..., 0]) if supervised else model(a_mag)
+        # the physics in float32 (a bf16 net's outputs upcast)
+        out = Rician(out.nu.float(), out.sigma.float()) if rice \
+            else out.float()
         if rice:
             r2_nu, r2_point = out.nu, out.mean()
             r2s_nu = r2_nu

@@ -10,8 +10,10 @@ with the bipolar-gradient regularizers (the x-gradient sign and the
 left/right symmetry of the bipolar phase map). Both nets train under one
 Adam.
 
-Not ported yet (ROADMAP Queue 1 item 7): bf16 and remat
-(NotImplementedError).
+With `bf16` both nets compute in bfloat16 (their ConvLSTM fronts in the
+kernels' bf16 storage mode) while their parameters stay float32, and their
+outputs are upcast to float32 before the physics, as in the JAX package;
+`remat` rematerializes their blocks in the backward.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from .. import physics
 from ..cli.common import resolve_device
 from ..losses import l1_mean, total_variation_2d
 from ..models import UNet
-from .common import Adam, linear_decay_schedule, make_adam
+from .common import Adam, compute_dtype, linear_decay_schedule, make_adam
 
 DEFAULTS = dict(
     dataset="WF-IDEAL", is_phantom=False, grad_mode="bipolar", n_echoes=6,
@@ -62,26 +64,19 @@ class SingleState:
         self.step = int(state["step"])
 
 
-def _check_ported(cfg) -> None:
-    unported = [k for k in ("bf16", "remat") if cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"single settings {unported} are not ported yet (ROADMAP Queue 1 "
-            f"item 7)")
-
-
 def build_models(cfg):
     """(g_mag, g_pha): G_mag on the echo magnitudes (3 sigmoid channels
     |W|, |F|, R2*) and G_pha on their phases (φ_W, φ_F, φ and, bipolar, the
-    readout phase: linear), both Cin = 1 with the ConvLSTM front."""
-    _check_ported(cfg)
+    readout phase: linear), both Cin = 1 with the ConvLSTM front, in the
+    config's compute dtype (`bf16`) and with its `remat`."""
     bipolar = cfg["grad_mode"] == "bipolar"
+    kw = dict(dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
     g_mag = UNet(1, n_out=3, me_layer=True, filters=cfg["n_G_filters"],
                  output_activation="sigmoid",
-                 self_attention=cfg["D1_SelfAttention"])
+                 self_attention=cfg["D1_SelfAttention"], **kw)
     g_pha = UNet(1, n_out=4 if bipolar else 3, me_layer=True,
                  filters=cfg["n_G_filters"], output_activation="none",
-                 self_attention=cfg["D2_SelfAttention"])
+                 self_attention=cfg["D2_SelfAttention"], **kw)
     return g_mag, g_pha
 
 

@@ -15,8 +15,12 @@ the diagnostic `WF_loss` fits ρ from A and the predicted maps
 it feeds a metric, not the loss, so no gradient flows through it, as in the
 JAX package. CPU tensors run both kernels' plain versions.
 
-Not ported yet (ROADMAP Queue 1 item 7): bf16, remat and `microbatch > 0`
-(gradient accumulation), which raise NotImplementedError. The JAX
+With `bf16` the generator computes in bfloat16 while its parameters stay
+float32, and its output is upcast to float32 before the losses and the fit,
+as in the JAX package; `remat` rematerializes its blocks in the backward.
+With `microbatch` > 0 the step accumulates its gradients over chunks of that
+many slices (`common.accumulate_microbatch_grads`), each drawing its own
+input noise, the batch-sum terms (TV, L1) scaled by the chunk count. The JAX
 package's data-parallel mesh (`data_mesh_for_batch`, `shard_batch`) has no
 counterpart here: one card runs the step (ROADMAP Queue 1 item 12).
 """
@@ -30,7 +34,8 @@ from ..data import layouts
 from ..losses import l1_mean, total_variation_2d
 from ..models import MDWFNet, UNet, VETNet
 from ..ops import fit_rho_fused, synthesize_fused
-from .common import ModelState, linear_decay_schedule, make_adam
+from .common import (ModelState, accumulate_microbatch_grads, compute_dtype,
+                     linear_decay_schedule, make_adam)
 
 DEFAULTS = dict(
     dataset="WF-sup", data_size=192, DL_gen=False, DL_partial_real=0,
@@ -46,14 +51,6 @@ DEFAULTS = dict(
 SupState = ModelState  # the generator, its optimizer and the step count
 
 
-def _check_ported(cfg) -> None:
-    unported = [k for k in ("bf16", "remat", "microbatch") if cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"sup settings {unported} are not ported yet (ROADMAP Queue 1 "
-            f"item 7: microbatching, bf16, remat)")
-
-
 def build_model(cfg):
     """The generator, as the JAX package selects it. `multi-decod` is
     MDWF-Net for WF-PM and else the two-decoder PM generator (VET-Net
@@ -62,16 +59,17 @@ def build_model(cfg):
     JAX package. `U-Net` has heads 4 × tanh (WFc), 4 × relu (WF-PM) or
     2 × relu. Every net takes the legacy 2·n_echoes input channels.
     multi-decod with WFc and any other G_model (the reference's MEBCRN
-    among them) raise NameError, as in the JAX package."""
-    _check_ported(cfg)
+    among them) raise NameError, as in the JAX package. Each in the
+    config's compute dtype (`bf16`) and with its `remat`."""
     cin = 2 * cfg["n_echoes"]
+    kw = dict(dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
     if cfg["G_model"] == "multi-decod":
         if cfg["out_vars"] == "WF-PM":
             return MDWFNet(cin, filters=cfg["n_G_filters"],
                            n_echoes=cfg["n_echoes"],
                            wf_self_attention=cfg["D1_SelfAttention"],
                            r2_self_attention=cfg["D2_SelfAttention"],
-                           fm_self_attention=cfg["D3_SelfAttention"])
+                           fm_self_attention=cfg["D3_SelfAttention"], **kw)
         if cfg["out_vars"] == "WFc":
             raise NameError("out_vars='WFc' requires G_model='U-Net' "
                             "(the reference's multi-decod generator has "
@@ -79,7 +77,7 @@ def build_model(cfg):
         return VETNet(cin, me_layer=False, te_input=False, n_out=1,
                       filters=cfg["n_G_filters"],
                       r2_self_attention=cfg["D1_SelfAttention"],
-                      fm_self_attention=cfg["D2_SelfAttention"])
+                      fm_self_attention=cfg["D2_SelfAttention"], **kw)
     if cfg["G_model"] == "U-Net":
         if cfg["out_vars"] == "WFc":
             n_out, out_activ = 4, "tanh"
@@ -89,7 +87,7 @@ def build_model(cfg):
             n_out, out_activ = 2, "relu"
         return UNet(cin, n_out=n_out, me_layer=False,
                     filters=cfg["n_G_filters"], output_activation=out_activ,
-                    self_attention=cfg["D1_SelfAttention"])
+                    self_attention=cfg["D1_SelfAttention"], **kw)
     raise NameError(
         f"Unrecognized generator {cfg['G_model']!r} (note: the reference's "
         "'MEBCRN' option is dead code — dl.MEBCRN does not exist)")
@@ -115,7 +113,6 @@ def make_loss_fn(cfg, model, tv_scale: float = 1.0):
     noise (nb, H, W, 2·ne) standard normal in the legacy layout, needed
     when `sigma_noise` > 0 (the caller draws it; tests pass the JAX
     package's). `tv_scale` multiplies the batch-sum terms (TV, L1)."""
-    _check_ported(cfg)
     out_vars = cfg["out_vars"]
     # resynthesized only where both TE1 and dTE differ from the default
     # protocol, at the batch's own TE train (the JAX package's rule)
@@ -205,13 +202,38 @@ def draw_noise(cfg, A, generator: torch.Generator):
                        device=A.device)
 
 
+def make_grad_fn(cfg, model):
+    """The gradients as `grad_fn(A, B, te, noise) -> (loss, metrics)`: they
+    are left in the parameters' `.grad` (which the caller zeroes). With
+    `microbatch` > 0 over chunks of that many slices
+    (`accumulate_microbatch_grads`, the batch-sum terms scaled by the chunk
+    count), chunk i taking noise rows [i·micro, (i+1)·micro); else one
+    backward of the full batch."""
+    micro = int(cfg.get("microbatch") or 0)
+    params = list(model.parameters())
+
+    def grad_fn(A, B, te, noise=None):
+        n_chunks = A.shape[0] // micro if micro else 1
+        loss_fn = make_loss_fn(cfg, model, tv_scale=float(n_chunks))
+        if micro:
+            return accumulate_microbatch_grads(loss_fn, params,
+                                               (A, B, te, noise), micro)
+        loss, metrics = loss_fn(A, B, te, noise)
+        loss.backward()
+        return loss, metrics
+
+    return grad_fn
+
+
 def make_train_step(cfg, model):
     """(train_step, tx): `train_step(state, (A, B, te), generator) ->
     (state, metrics)` draws the input noise from `generator` (on A's
-    device) and takes one Adam step on the loss (the linear-decay
-    schedule); tx is the optimizer recipe `params -> Adam`. The state is
-    updated in place and returned; metrics carry `G_loss`."""
-    loss_fn = make_loss_fn(cfg, model)
+    device; under `microbatch`, chunk by chunk, each its own) and takes one
+    Adam step on the loss (the linear-decay schedule); tx is the optimizer
+    recipe `params -> Adam`. The state is updated in place and returned;
+    metrics carry `G_loss`."""
+    grad_fn = make_grad_fn(cfg, model)
+    micro = int(cfg.get("microbatch") or 0)
     total_steps = cfg.get("total_steps", cfg["epochs"])
     schedule = linear_decay_schedule(
         cfg["lr"], total_steps,
@@ -221,8 +243,12 @@ def make_train_step(cfg, model):
     def train_step(state: SupState, batch, generator: torch.Generator):
         A, B, te = batch
         state.opt.zero_grad()
-        loss, metrics = loss_fn(A, B, te, draw_noise(cfg, A, generator))
-        loss.backward()
+        noise = None
+        if cfg["sigma_noise"] > 0.0:
+            step = micro or A.shape[0]
+            noise = torch.cat([draw_noise(cfg, A[i:i + step], generator)
+                               for i in range(0, A.shape[0], step)])
+        loss, metrics = grad_fn(A, B, te, noise)
         state.opt.step()
         state.step += 1
         metrics["G_loss"] = loss

@@ -24,8 +24,15 @@ G_A2B's first two channels are regressed on |W|, |F| directly (MDWF-Net
 then raises, as its legacy-layout net cannot take the 5-D echoes; the JAX
 package raises there too).
 
-Not ported yet (ROADMAP Queue 1 item 7): `microbatch > 0` (gradient
-accumulation), bf16 and remat. Those settings raise NotImplementedError.
+With `bf16` the generators compute in bfloat16 (their ConvLSTM fronts in
+the kernels' bf16 storage mode) while their parameters stay float32, and
+their outputs are upcast to float32 before the masks, the losses and the
+fit, as in the JAX package; `remat` rematerializes their blocks in the
+backward. With `microbatch` > 0 G_A2B's step accumulates its gradients over
+chunks of that many slices (`common.accumulate_microbatch_grads`), each
+chunk synthesizing its acquisitions with its own noise, the TV terms
+scaled by the chunk count (`tv_scale`) so that the average is the
+full-batch loss.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from ..data.layouts import acqs_from_mebcrn
 from ..losses import total_variation_2d
 from ..models import MDWFNet, UNet, VETNet
 from ..ops import fit_rho_fused, synthesize_fused
-from .common import Adam, ModelState, linear_decay_schedule, make_adam
+from .common import (Adam, ModelState, accumulate_microbatch_grads,
+                     compute_dtype, linear_decay_schedule, make_adam)
 
 DEFAULTS = dict(
     dataset="TEaug-300", n_echoes=6, field=1.5, G_model="PM-Gen",
@@ -56,43 +64,36 @@ DEFAULTS = dict(
 _VETNET = ("PM-Gen", "VET-Net", "multi-decod")
 
 
-def _check_ported(cfg) -> None:
-    unported = [k for k in ("bf16", "remat", "microbatch") if cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"teaug settings {unported} are not ported yet (ROADMAP Queue 1 "
-            f"item 7: microbatching, bf16, remat)")
-
-
 def build_model(cfg):
     """The generator G_A2B of `cfg["G_model"]`: VET-Net or the U-Nets on
     the complex echoes (Cin = 2), MDWF-Net on the legacy 2·ne channels;
-    other names raise NameError, as in the JAX package."""
-    _check_ported(cfg)
+    other names raise NameError, as in the JAX package. Each in the
+    config's compute dtype (`bf16`) and with its `remat`."""
     g, te_input = cfg["G_model"], cfg.get("te_input", True)
+    kw = dict(dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
     if g in _VETNET:
         return VETNet(2, te_input=te_input, filters=cfg["n_G_filters"],
                       r2_self_attention=cfg["R2_SelfAttention"],
-                      fm_self_attention=cfg["FM_SelfAttention"])
+                      fm_self_attention=cfg["FM_SelfAttention"], **kw)
     if g in ("U-Net", "2U-Net"):
         return UNet(2, n_out=1 if g == "2U-Net" else 2, me_layer=True,
                     te_input=te_input, filters=cfg["n_G_filters"],
-                    self_attention=cfg["FM_SelfAttention"])
+                    self_attention=cfg["FM_SelfAttention"], **kw)
     if g == "MDWF-Net":
         return MDWFNet(2 * cfg["n_echoes"], filters=cfg["n_G_filters"],
                        te_input=te_input, n_echoes=cfg["n_echoes"],
                        r2_self_attention=cfg["R2_SelfAttention"],
-                       fm_self_attention=cfg["FM_SelfAttention"])
+                       fm_self_attention=cfg["FM_SelfAttention"], **kw)
     raise NameError(f"Unrecognized generator {g!r}")
 
 
 def build_r2_model(cfg) -> UNet:
     """The 2U-Net's second net G_A2R2: a U-Net with the ConvLSTM front on
     the echo magnitudes (Cin = 1), TE-AdaIN and a sigmoid R2* head."""
-    _check_ported(cfg)
     return UNet(1, n_out=1, me_layer=True, te_input=cfg.get("te_input", True),
                 filters=cfg["n_G_filters"], output_activation="sigmoid",
-                self_attention=cfg["R2_SelfAttention"])
+                self_attention=cfg["R2_SelfAttention"],
+                dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
 
 
 def sample_te(generator: torch.Generator, cfg, bs: int) -> torch.Tensor:
@@ -159,13 +160,13 @@ def _wf_mae(cfg, A, pm, te, B_wf_abs):
         return torch.mean(torch.abs(B_wf_abs - _magnitude(wf_hat)))
 
 
-def make_loss_fn(cfg, model, r2_model=None):
+def make_loss_fn(cfg, model, r2_model=None, tv_scale: float = 1.0):
     """The generator loss as `loss_fn(B, te, noise) -> (loss, metrics)` over
     G_A2B's current parameters. B (nb, ≥3, H, W, 2) ground-truth maps,
     te (nb, ne, 1), noise (nb, ne, H, W, 2) standard normal (the caller
     draws it; tests pass the JAX package's); `r2_model` is the 2U-Net's
-    G_A2R2."""
-    _check_ported(cfg)
+    G_A2R2. `tv_scale` multiplies the batch-sum TV terms (a microbatched
+    step's chunk count)."""
     g_model, out_vars = cfg["G_model"], cfg["out_vars"]
     zero = torch.zeros(())
 
@@ -202,8 +203,10 @@ def make_loss_fn(cfg, model, r2_model=None):
             sup = torch.mean(torch.abs(sel_w * B_pm - sel_w * pm))
             wf_mae = _wf_mae(cfg, A, pm, te, B_wf_abs)
         fm, r2 = pm[..., :1], pm[..., 1:]
-        r2_tv = torch.sum(total_variation_2d(r2[:, 0])) * cfg["R2_TV_weight"]
-        fm_tv = torch.sum(total_variation_2d(fm[:, 0])) * cfg["FM_TV_weight"]
+        r2_tv = (torch.sum(total_variation_2d(r2[:, 0])) * cfg["R2_TV_weight"]
+                 * tv_scale)
+        fm_tv = (torch.sum(total_variation_2d(fm[:, 0])) * cfg["FM_TV_weight"]
+                 * tv_scale)
         loss = sup + r2_tv + fm_tv
         return loss, {"PM_loss": sup, "WF_loss": wf_mae, "TV_R2": r2_tv,
                       "TV_FM": fm_tv, "G_loss": loss}
@@ -216,7 +219,6 @@ def make_r2_loss_fn(cfg, model, r2_model):
     metrics)` over G_A2R2's current parameters: its R2* (masked to B's
     support) against B's, plus its TV; G_A2B runs frozen, without a
     gradient; `WF_loss_aux` fits ρ̂ as the first loss's diagnostic."""
-    _check_ported(cfg)
 
     def loss_fn(B, te, noise):
         A = _synthesized(cfg, B, te, noise)
@@ -272,20 +274,48 @@ def _schedule(cfg):
         int(cfg["epoch_decay"] * total_steps / max(cfg["epochs"], 1)))
 
 
+def make_grad_fn(cfg, model, r2_model=None):
+    """G_A2B's gradients as `grad_fn(B, te, noise) -> (loss, metrics)`:
+    they are left in the parameters' `.grad` (which the caller zeroes).
+    With `microbatch` > 0 over chunks of that many slices
+    (`accumulate_microbatch_grads`, the TV terms scaled by the chunk
+    count), chunk i taking noise rows [i·micro, (i+1)·micro); else one
+    backward of the full batch."""
+    micro = int(cfg.get("microbatch") or 0)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def grad_fn(B, te, noise):
+        n_chunks = B.shape[0] // micro if micro else 1
+        loss_fn = make_loss_fn(cfg, model, r2_model,
+                               tv_scale=float(n_chunks))
+        if micro:
+            return accumulate_microbatch_grads(loss_fn, params,
+                                               (B, te, noise), micro)
+        loss, metrics = loss_fn(B, te, noise)
+        loss.backward()
+        return loss, metrics
+
+    return grad_fn
+
+
 def make_train_step(cfg, model, r2_model=None):
     """(train_step, tx): `train_step(state, (B, te), generator) -> (state,
-    metrics)` draws the noise from `generator` (`draw_noise`) and takes
-    one Adam step on G_A2B's loss (no gradient clipping, as the JAX
-    trainer); tx is the optimizer recipe `params -> Adam`. The state is
-    updated in place and returned."""
-    loss_fn = make_loss_fn(cfg, model, r2_model)
+    metrics)` draws the noise from `generator` (`draw_noise`; under
+    `microbatch`, chunk by chunk, each its own) and takes one Adam step on
+    G_A2B's loss (no gradient clipping, as the JAX trainer); tx is the
+    optimizer recipe `params -> Adam`. The state is updated in place and
+    returned."""
+    grad_fn = make_grad_fn(cfg, model, r2_model)
+    micro = int(cfg.get("microbatch") or 0)
     tx = make_adam(_schedule(cfg), cfg["beta_1"], cfg["beta_2"])
 
     def train_step(state: TEAugState, batch, generator: torch.Generator):
         B, te = batch
         state.opt.zero_grad()
-        loss, metrics = loss_fn(B, te, draw_noise(B, te, generator))
-        loss.backward()
+        chunks = range(0, B.shape[0], micro) if micro else [0]
+        noise = torch.cat([draw_noise(B[i:i + (micro or B.shape[0])], te,
+                                      generator) for i in chunks])
+        loss, metrics = grad_fn(B, te, noise)
         state.opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

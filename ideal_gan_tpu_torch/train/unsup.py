@@ -20,8 +20,11 @@ The JAX steps split a key into `rngs={"bayes": ...}`, which no layer on
 these paths reads (the AI-DEAL UNet has no Flipout layer, and no posterior
 is sampled): the port's steps take no generator.
 
-Not ported yet (ROADMAP Queue 1 item 7): bf16 and remat UNets, which raise
-NotImplementedError.
+With `bf16` both nets compute in bfloat16 (their ConvLSTM fronts in the
+kernels' bf16 storage mode) while the parameters stay float32, and the
+heads' outputs are upcast to float32 before the cycle (`_as_mean_sigma`), as
+in the JAX package; `remat` rematerializes the nets' blocks in the
+backward.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from ..losses import l1_mean, total_variation_2d, var_mse
 from ..models import UNet
 from ..ops import cycle_full_fused
 from ..prob import Normal, Rician
-from .common import SGD, Adam, linear_decay_schedule, make_adam
+from .common import (SGD, Adam, compute_dtype, linear_decay_schedule,
+                     make_adam)
 
 DEFAULTS = dict(
     dataset="Unsup-v0", n_echoes=6, field=1.5, out_vars="FM",  # FM | PM
@@ -50,25 +54,18 @@ DEFAULTS = dict(
 )
 
 
-def _check_ported(cfg) -> None:
-    unported = [k for k in ("bf16", "remat") if cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"unsup settings {unported} are not ported yet (ROADMAP Queue 1 "
-            f"item 7: bf16 / remat UNets)")
-
-
 def build_models(cfg):
     """(g_fm, g_r2): the field-map net on the complex echoes (Cin = 2, tanh
     head; a `Normal` posterior with UQ) and the R2* net on their magnitudes
-    (Cin = 1, sigmoid head; a `Rician` posterior with UQ_R2s)."""
-    _check_ported(cfg)
+    (Cin = 1, sigmoid head; a `Rician` posterior with UQ_R2s), in the
+    config's compute dtype (`bf16`) and with its `remat`."""
+    kw = dict(dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
     g_fm = UNet(2, n_out=1, bayesian=cfg["UQ"], me_layer=True,
                 filters=cfg["n_G_filters"],
-                self_attention=cfg["D1_SelfAttention"])
+                self_attention=cfg["D1_SelfAttention"], **kw)
     g_r2 = UNet(1, n_out=1, bayesian=cfg["UQ_R2s"], me_layer=True,
                 filters=cfg["n_G_filters"], output_activation="sigmoid",
-                self_attention=cfg["D2_SelfAttention"])
+                self_attention=cfg["D2_SelfAttention"], **kw)
     return g_fm, g_r2
 
 
@@ -190,7 +187,6 @@ def make_loss_fn(cfg, g_fm, g_r2):
     calib=None) -> (loss, metrics)` over the nets' current parameters (g_r2
     frozen): ‖A − Â‖², or with UQ `var_mse` on the variance propagated
     from the cycle's detached ρ and scaled by `calib` (ones where None)."""
-    _check_ported(cfg)
     uq = cfg["UQ"]
 
     def loss_fn(fm_offset, A, te, calib=None):

@@ -13,6 +13,8 @@ tolerance), 2e-5 + 2e-4·|plain| for the cycle's uniform-TE recurrence,
 1e-3 / atol 5e-4 for its kernel (voxels on the fit's thresholds, and
 ill-conditioned eigenvectors, move under another summation order), with
 at most 0.1 % of the elements beyond 1e-5 + 1e-4·|plain|; bf16 ρ stores to 2^-8 relative; the ConvLSTM
+kernels' bf16 storage mode to ne·2u·max|plain| of its bf16 plain version
+(u = 2^-8: the two round at the same points); the ConvLSTM
 forward to 1e-4 of the output scale of the plain version in float32 and in
 float64 (3xTF32 sums over K = 9·(Cin+F) in another order than cuDNN's,
 carried through the recurrence) and its backward's dx,
@@ -204,6 +206,65 @@ def test_convlstm_kernel_rejects_what_it_cannot_take(cuda):
     x, k, b = _lstm_case(nb=65536, ne=2, h=1, w=1, f=8, device=cuda)
     with pytest.raises(ValueError, match="grid"):
         ops.convlstm_forward(x, k, b)
+    assert {kn.name: kn.launches for kn in ops.KERNELS} == before
+
+
+def _bf16_gate(scale, ne):
+    """ne·2u·max|plain|, u = 2^-8: kernel and plain version round at the
+    same points, and each echo can move a value across one bf16 rounding
+    boundary (`chip_smoke.bf16_gate`)."""
+    return ne * 2 * 2.0 ** -8 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,f,ne,nb,h,w", [
+    (2, 36, 6, 2, 20, 36), (1, 36, 6, 2, 20, 36), (2, 72, 6, 1, 37, 53),
+    (3, 6, 3, 1, 15, 23), (1, 4, 1, 2, 11, 19)])
+def test_convlstm_bf16_kernels_match_plain(cuda, cin, f, ne, nb, h, w):
+    """The bf16 storage mode: forward and backward (kink-free inputs: every
+    g-gate pre-activation and cell positive) against their bf16 plain
+    versions at `_bf16_gate`, in bf16, launched on the bf16 kernels, two
+    launches bit-identical."""
+    x, k, b = _lstm_case(nb=nb, ne=ne, h=h, w=w, cin=cin, f=f, seed=cin + f,
+                         device=cuda)
+    k = k * 0.1
+    b[2 * f:3 * f] = 1.5
+    g = torch.randn((nb, h, w, f), generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    xb, kb, bb, gb = (t.to(torch.bfloat16) for t in (x, k, b, g))
+    n0 = (ops.CONVLSTM_BF16_KERNEL.launches,
+          ops.CONVLSTM_BWD_BF16_KERNEL.launches, ops.CONVLSTM_KERNEL.launches)
+    got = [ops.convlstm_forward(xb, kb, bb),
+           *ops.convlstm_backward(xb, kb, bb, gb)]
+    assert (ops.CONVLSTM_BF16_KERNEL.launches,
+            ops.CONVLSTM_BWD_BF16_KERNEL.launches,
+            ops.CONVLSTM_KERNEL.launches) == (
+                n0[0] + ne + ne - 1, n0[1] + ne + 1, n0[2])
+    again = [ops.convlstm_forward(xb, kb, bb),
+             *ops.convlstm_backward(xb, kb, bb, gb)]
+    ref = [ops.convlstm_reference(xb, kb, bb),
+           *ops.convlstm_backward_reference(xb, kb, bb, gb)]
+    torch.cuda.synchronize()
+    for name, a, a2, r in zip(("h", "dx", "dk", "db"), got, again, ref):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, a2), name
+        d = float((a.float() - r.float()).abs().max())
+        assert d <= _bf16_gate(float(r.float().abs().max()), ne), (name, d)
+
+
+@pytest.mark.cuda
+def test_convlstm_kernels_take_float32_or_bfloat16_only(cuda):
+    """float16, and x, kernel and bias in different dtypes, raise with no
+    launch counted."""
+    x, k, b = _lstm_case(f=8, device=cuda)
+    before = {kn.name: kn.launches for kn in ops.KERNELS}
+    half = [t.half() for t in (x, k, b)]
+    with pytest.raises(TypeError):
+        ops.convlstm_forward(*half)
+    with pytest.raises(TypeError):
+        ops.convlstm_forward(x.to(torch.bfloat16), k, b)
+    g = torch.zeros((2, 20, 36, 8), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        ops.convlstm_backward(*half, g)
     assert {kn.name: kn.launches for kn in ops.KERNELS} == before
 
 

@@ -370,9 +370,13 @@ def test_train_step_and_unported_settings():
     assert state.step == state.opt.count == 3
     assert all(q.grad is not None and bool(q.grad.abs().max() > 0)
                for n, q in model.lstm.named_parameters())
-    for over in (dict(bf16=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmag.build_model(dict(tmag.DEFAULTS, **over))
+    # bf16 and remat are ported: the same module tree (state-dict names),
+    # a bf16 compute dtype, and remat on the net
+    keys = set(model.state_dict())
+    for over, attr, want in ((dict(bf16=True), "dtype", torch.bfloat16),
+                             (dict(remat=True), "remat", True)):
+        net = tmag.build_model(dict(cfg, **over))
+        assert getattr(net, attr) == want and set(net.state_dict()) == keys
 
 
 # --------------------------------------------------------------------------

@@ -233,8 +233,16 @@ def test_step_matches_jax(single_case):
 
 
 def test_unported_settings_and_unknown_loss_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsingle.build_models(dict(tsingle.DEFAULTS, bf16=True))
+    """bf16 and remat are ported (both nets in bfloat16 / rematerialized,
+    their state-dict names unchanged); an unknown loss raises."""
+    small = dict(tsingle.DEFAULTS, n_G_filters=4)
+    plain = tsingle.build_models(small)
+    for over, attr, want in ((dict(bf16=True), "dtype", torch.bfloat16),
+                             (dict(remat=True), "remat", True)):
+        nets = tsingle.build_models(dict(small, **over))
+        for net, ref in zip(nets, plain):
+            assert getattr(net, attr) == want
+            assert set(net.state_dict()) == set(ref.state_dict())
     with pytest.raises(NameError, match="Main Loss"):
         tsingle.make_loss_fn(dict(tsingle.DEFAULTS, main_loss="Rice"),
                              None, None)

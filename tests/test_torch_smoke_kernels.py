@@ -2,7 +2,9 @@
 every wrapper takes its plain version: each kernel entry's control flow and
 the fields of the `kernels` line, before any chip time is spent. Imports no
 JAX. Budget: 240 s for the file on a loaded Tier-1 worker (110.4–129.5 s
-under the Tier-1 command; 3.6 s alone).
+under the Tier-1 command; 3.6 s alone; 210.1 s under it with the bf16
+entries' rehearsal on torch's default thread pool; 2.5 s on one thread
+beside five port files on six workers).
 """
 
 from pathlib import Path
@@ -24,6 +26,16 @@ def chip_smoke(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
     return chip_smoke
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The rehearsals' tensors are tiny: under the Tier-1 command's parallel
+    workers torch's thread pool costs more time than it saves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _check_entries(entries):
@@ -67,7 +79,8 @@ def test_convlstm_kernel_entries_rehearse_on_cpu(chip_smoke):
     # with the physics entries, every kernel of the port has its entry
     assert {lstm["name"], bwd["name"]} == {ops.CONVLSTM_KERNEL.name,
                                            ops.CONVLSTM_BWD_KERNEL.name}
-    assert len(ops.KERNELS) == 6
+    # and the bf16 storage mode's two (test_convlstm_bf16_entries_...)
+    assert len(ops.KERNELS) == 8
     for entry in (lstm, bwd):
         assert entry["wide"]["F"] == 8 and entry["wide"]["cin"] == 2
     assert lstm["max_abs_err"] == 0.0  # plain vs plain here
@@ -121,6 +134,53 @@ def test_convlstm_kernel_entries_rehearse_on_cpu(chip_smoke):
                 < 1e-5 * c[n]["kink_masked_scale"]
 
 
+def test_convlstm_bf16_entries_rehearse_on_cpu(chip_smoke):
+    """The bf16 storage mode's forward and backward entries: the fields of
+    the `kernels` line, the gate against the plain version (plain vs plain
+    here), the f32 and float64 witnesses and the ulp shares, the bound at
+    the dense bf16 rate, the timed backward case per shape."""
+    cpu = torch.device("cpu")
+    shapes = ((2, 6, 1), (1, 6, 1), (2, 8, 1), (1, 8, 1))
+    fwd, bwd = chip_smoke.convlstm_bf16_entries(cpu, size=12, shapes=shapes)
+    _check_entries(((fwd, 4), (bwd, 8)))
+    assert fwd["name"] == ops.CONVLSTM_BF16_KERNEL.name == "convlstm_fwd_bf16"
+    assert bwd["name"] == ops.CONVLSTM_BWD_BF16_KERNEL.name
+    assert fwd["source"] == ops.CONVLSTM_KERNEL.source
+    assert fwd["replaces"].endswith(":177") and bwd["replaces"].endswith(
+        ":517")
+    assert fwd["hmma"] is None and bwd["hmma"] is None
+    assert fwd["max_abs_err"] == bwd["max_abs_err"] == 0.0
+    assert fwd["deterministic"] and bwd["deterministic"]
+    assert fwd["wide"]["F"] == bwd["wide"]["F"] == 8
+    for c in fwd["cases"]:
+        assert c["share_beyond_1ulp"] == 0.0 and c["device_ms"] is None
+        # bf16 against the f32 and float64 plain versions: apart; the f32
+        # version's output, held to the bf16 plain version, fails the gate
+        for w in (c["vs_f32_kernel"], c["vs_plain_f64"]):
+            assert w["max_abs_err"] > 0.0
+        assert c["f32_kernel_control"]["fails"]
+        assert c["f32_kernel_control"]["share_beyond_1ulp"] \
+            > chip_smoke.BF16_ULP_SHARE
+        assert c["bound_by"] == "operations"
+        assert c["cudnn_one_echo_gate_conv_bf16_ms_partial"] > 0.0
+    assert {c["inputs"] for c in bwd["cases"]} == set(chip_smoke.KINK_FREE)
+    timed = [c for c in bwd["cases"] if "ms" in c]
+    assert len(timed) == 4 and all(c["inputs"] == "smooth" for c in timed)
+    for c in timed:
+        assert c["stages_device_ms"] is None and c["plain_ms"] > 0.0
+        for n in ("dx", "dk", "db"):
+            assert c[n]["max_abs_err"] == 0.0
+            assert c[n]["vs_plain_f64"]["max_abs_err"] > 0.0
+        assert c["f32_kernel_control_fails"]
+    # u = 2^-8 over ne = 6 echoes
+    assert chip_smoke.bf16_gate(1.0) == 6 * 2 * 2.0 ** -8
+    # the share gate alone rejects a reading within bf16_gate
+    assert chip_smoke.bf16_fails(dict(max_abs_err=0.0, scale=1.0,
+                                      share_beyond_1ulp=0.03))
+    assert not chip_smoke.bf16_fails(dict(max_abs_err=0.01, scale=1.0,
+                                          share_beyond_1ulp=0.01))
+
+
 def test_hmma_count_reads_cuobjdump(chip_smoke, monkeypatch, tmp_path):
     """`hmma_counts` counts HMMA lines per kernel in `cuobjdump -sass`."""
     from ideal_gan_tpu_torch.ops import _build
@@ -140,3 +200,6 @@ def test_hmma_count_reads_cuobjdump(chip_smoke, monkeypatch, tmp_path):
     got = chip_smoke.hmma_counts("convlstm_bwd",
                                  ["gates_mma", "dk_mma", "sum_slots"])
     assert got == {"gates_mma": 2, "dk_mma": 0, "sum_slots": 0}
+    # with an opcode, only the HMMA lines that hold it
+    assert chip_smoke.hmma_counts("convlstm_bwd", ["gates_mma"], "BF16") \
+        == {"gates_mma": 0}

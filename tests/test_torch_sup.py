@@ -242,9 +242,12 @@ def test_build_model_errors():
             jsup.build_model(cfg)
         with pytest.raises(NameError):
             tsup.build_model(cfg)
+    # bf16 and remat are ported: the same state-dict names
+    small = dict(tsup.DEFAULTS, n_G_filters=4)
+    keys = set(tsup.build_model(small).state_dict())
     for over in (dict(bf16=True), dict(remat=True), dict(microbatch=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsup.build_model(dict(tsup.DEFAULTS, **over))
+        assert set(tsup.build_model(dict(small, **over))
+                   .state_dict()) == keys
 
 
 @pytest.mark.parametrize("case", SUP_CASES)
@@ -474,11 +477,11 @@ def test_cli_trains_on_generated_shards(tmp_path):
 
 
 def test_cli_rejects_unported_settings(tmp_path):
-    for extra in (["--bf16", "true"], ["--remat", "true"],
-                  ["--microbatch", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_sup.main(SMALL + ["--synthetic", "2", "--output_base",
-                                    str(tmp_path), *extra])
+    """bf16, remat and microbatch are ported; a microbatch that does not
+    divide the batch is rejected, as in the JAX package."""
+    with pytest.raises(ValueError, match="divisible"):
+        train_sup.main(SMALL + ["--synthetic", "2", "--output_base",
+                                str(tmp_path), "--microbatch", "3"])
 
 
 def test_cli_default_device_raises_without_cuda(tmp_path):

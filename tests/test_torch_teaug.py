@@ -258,9 +258,13 @@ def test_vetnet_matches_flax(vetnet_case, te_input):
 
 
 def test_unported_settings_raise():
+    """bf16, remat and microbatch are ported: VET-Net builds with the same
+    state-dict names."""
+    small = dict(tteaug.DEFAULTS, n_G_filters=4)
+    keys = set(tteaug.build_model(small).state_dict())
     for over in (dict(microbatch=2), dict(bf16=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tteaug.build_model(dict(tteaug.DEFAULTS, **over))
+        assert set(tteaug.build_model(dict(small, **over))
+                   .state_dict()) == keys
 
 
 # --------------------------------------------------------------------------
@@ -390,7 +394,7 @@ def test_cli_default_device_raises_without_cuda(tmp_path):
 
 
 def test_cli_rejects_unported_settings(tmp_path):
-    for extra in (["--microbatch", "2"], ["--bf16", "true"],
-                  ["--remat", "true"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _cli(tmp_path, "--epochs", "1", *extra)
+    """bf16, remat and microbatch are ported; a microbatch that does not
+    divide the batch is rejected, as in the JAX package."""
+    with pytest.raises(ValueError, match="divisible"):
+        _cli(tmp_path, "--epochs", "1", "--microbatch", "3")

@@ -174,10 +174,12 @@ def test_mdwf_net_with_wf_outputs_raises(batch):
 
 
 def test_unported_settings_raise_for_the_2unet():
-    for over in (dict(microbatch=2), dict(bf16=True), dict(remat=True)):
-        for build in (tteaug.build_model, tteaug.build_r2_model):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build(dict(tteaug.DEFAULTS, G_model="2U-Net", **over))
+    # bf16, remat and microbatch are ported: the same state-dict names
+    cfg = dict(tteaug.DEFAULTS, G_model="2U-Net", n_G_filters=4)
+    for build in (tteaug.build_model, tteaug.build_r2_model):
+        keys = set(build(cfg).state_dict())
+        for over in (dict(microbatch=2), dict(bf16=True), dict(remat=True)):
+            assert set(build(dict(cfg, **over)).state_dict()) == keys
     with pytest.raises(NameError):
         tteaug.build_model(dict(tteaug.DEFAULTS, G_model="MEBCRN"))
 
