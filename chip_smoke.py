@@ -192,8 +192,10 @@ The kernels phase also holds the ConvLSTM kernels' bf16 storage mode
 at Cin 2 and 1, F=36 and F=72, nb=8, 384², against their bf16 plain
 versions at `bf16_gate` and `BF16_ULP_SHARE`, two launches bit for bit,
 with the f32 kernel and the float64 plain version as witnesses (the f32
-kernel's output, a control, must fail those gates), their bf16 HMMA count,
-times and bounds.
+kernel's output, a control, must fail those gates), times and bounds, and
+their SASS (`BF16_SASS`): each kernel must hold the bf16 tensor-core
+instruction and the staging it is built on (`BF16_CLAIMS`: HGMMA and TMA
+for the wgmma mainloop, HMMA and cp.async for the sweep's other stages).
 
 Each phase line carries its seconds. The last three lines are the card's
 `nvidia-smi` name and power limit, the `{"kernels": [...]}` summary (launches from the path that runs each kernel:
@@ -297,11 +299,11 @@ def device_ms_by(fn, dev, fragments: dict, iters: int = 3):
             for label, frag in fragments.items()}
 
 
-def hmma_counts(name: str, fragments, opcode: str = "") -> dict | None:
-    """The number of HMMA (tensor-core) instructions `cuobjdump -sass` finds
-    in each kernel of the built `csrc/<name>.cu` whose symbol holds one of
-    `fragments` (None where there is no build or no cuobjdump); with
-    `opcode`, only those whose line holds it (e.g. "BF16")."""
+def sass_counts(name: str, fragments, opcodes: dict) -> dict | None:
+    """Per kernel of the built `csrc/<name>.cu` whose symbol holds one of
+    `fragments`: for each label of `opcodes` ({label: (substring, ...)}),
+    the number of `cuobjdump -sass` instruction lines that hold every one of
+    its substrings (None where there is no build or no cuobjdump)."""
     import shutil
     from ideal_gan_tpu_torch.ops import _build
     lib = _build._lib_path(name)
@@ -310,14 +312,28 @@ def hmma_counts(name: str, fragments, opcode: str = "") -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    counts = dict.fromkeys(fragments, 0)
+    counts = {f: dict.fromkeys(opcodes, 0) for f in fragments}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
             current = next((f for f in fragments if f in line), None)
-        elif current and "HMMA" in line and opcode in line:
-            counts[current] += 1
+        elif current:
+            for label, subs in opcodes.items():
+                if all(sub in line for sub in subs):
+                    counts[current][label] += 1
     return counts
+
+
+def hmma_counts(name: str, fragments, opcode: str = "") -> dict | None:
+    """The number of tensor-core instructions (HMMA, or Hopper's warpgroup
+    HGMMA) `cuobjdump -sass` finds in each kernel of the built
+    `csrc/<name>.cu` whose symbol holds one of `fragments` (None where there
+    is no build or no cuobjdump); with `opcode`, only those whose line holds
+    it (e.g. "BF16")."""
+    got = sass_counts(name, fragments, {"HMMA": ("HMMA", opcode),
+                                        "HGMMA": ("HGMMA", opcode)})
+    return None if got is None else {k: v["HMMA"] + v["HGMMA"]
+                                     for k, v in got.items()}
 
 
 def bound(n_bytes: float, flops: float,
@@ -890,10 +906,32 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
 # at F=36 and VET-Net's and the 2U-Net R2* net's at F=72
 LSTM_BF16_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
                     (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE))
-LSTM_FWD_BF16 = "convlstm_echo_mma_bf16"
-BWD_BF16_STAGES = {"recompute": LSTM_FWD_BF16, "gates": "gates_mma_bf16",
+LSTM_FWD_BF16 = "convlstm_echo_wg_bf16"
+BWD_BF16_STAGES = {"recompute": LSTM_FWD_BF16, "gates": "gates_wg_bf16",
                    "dinp": "dinp_mma_bf16", "dk": "dk_mma_bf16",
                    "reduce": "sum_slots_bf16"}
+# the bf16 kernels' SASS: their tensor-core instructions (warpgroup HGMMA,
+# warp HMMA), staging (TMA tiled loads UTMALDG, bulk copies UBLKCP,
+# cp.async LDGSTS, ldmatrix LDSM) and 16-bit global loads (LDG.E.U16: the
+# epilogues' bias and odd-F reads; the mainloops load no operand so)
+BF16_SASS = {"HGMMA": ("HGMMA", "BF16"), "HMMA": ("HMMA", "BF16"),
+             "UTMALDG": ("UTMALDG",), "UBLKCP": ("UBLKCP",),
+             "LDGSTS": ("LDGSTS",), "LDSM": ("LDSM",),
+             "LDG16": ("LDG.E.U16",)}
+# what each bf16 kernel is built on and must show in its SASS
+BF16_CLAIMS = {LSTM_FWD_BF16: ("HGMMA", "UTMALDG", "UBLKCP", "LDSM"),
+               "gates_wg_bf16": ("HGMMA", "UTMALDG", "UBLKCP", "LDSM"),
+               "dinp_mma_bf16": ("HMMA", "LDGSTS", "LDSM"),
+               "dk_mma_bf16": ("HMMA", "LDGSTS", "LDSM")}
+
+
+def bf16_claims_missing(sass: dict | None) -> list:
+    """The (kernel, instruction) pairs of BF16_CLAIMS that `sass`
+    (`sass_counts` over BF16_SASS) lacks; none where there is no SASS."""
+    if sass is None:
+        return []
+    return [(k, op) for k, claimed in BF16_CLAIMS.items() if k in sass
+            for op in claimed if not sass[k][op]]
 
 
 def bf16_gate(scale: float) -> float:
@@ -978,8 +1016,8 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
     the plain version, ms beside the bf16 bound (989 TFLOP/s dense bf16;
     bytes at two a value), the plain version's ms, and cuDNN's one-echo
     bf16 gate convolution (forward) or weight gradient (backward) as a
-    partial yardstick; each entry the bf16 HMMA instructions
-    (HMMA.16816.F32.BF16) `cuobjdump -sass` finds in its kernels."""
+    partial yardstick; each entry its kernels' SASS counts (`BF16_SASS`),
+    held to `BF16_CLAIMS`."""
     import torch
     import torch.nn.functional as F
     from ideal_gan_tpu_torch import ops
@@ -1086,15 +1124,16 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
                                      f"kernel's output passes its gate: "
                                      f"{case}")
             torch.cuda.empty_cache()
-    hmma_fwd = hmma_counts(ops.CONVLSTM_BF16_KERNEL.lib, [LSTM_FWD_BF16],
-                           "BF16")
-    hmma_bwd = hmma_counts(ops.CONVLSTM_BWD_BF16_KERNEL.lib,
-                           ["gates_mma_bf16", "dinp_mma_bf16", "dk_mma_bf16"],
-                           "BF16")
-    for hmma in (hmma_fwd, hmma_bwd):
-        if hmma is not None and not all(hmma.values()):
-            raise AssertionError(f"a bf16 ConvLSTM kernel has no bf16 "
-                                 f"tensor-core instruction: {hmma}")
+    sass_fwd = sass_counts(ops.CONVLSTM_BF16_KERNEL.lib, [LSTM_FWD_BF16],
+                           BF16_SASS)
+    sass_bwd = sass_counts(ops.CONVLSTM_BWD_BF16_KERNEL.lib,
+                           [BWD_BF16_STAGES[n] for n in ("gates", "dinp",
+                                                          "dk")], BF16_SASS)
+    missing = bf16_claims_missing(sass_fwd) + bf16_claims_missing(sass_bwd)
+    if missing:
+        raise AssertionError(f"a bf16 ConvLSTM kernel lacks the instructions "
+                             f"it is built on: {missing} ({sass_fwd}, "
+                             f"{sass_bwd})")
     tol = ("|kernel - plain bf16| <= ne * 2u * max|plain| (u = 2^-8, "
            "bf16_gate) and at most 2 % of the elements beyond one ulp "
            "(BF16_ULP_SHARE); the f32 kernel's output fails that gate; two "
@@ -1110,7 +1149,7 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
              launches=None,
              max_abs_err=max(c["max_abs_err"] for c in fwd_cases),
              **{k: fwd_main[k] for k in keys}, library_ms=None,
-             hmma=hmma_fwd, deterministic=all(c["deterministic"]
+             sass=sass_fwd, deterministic=all(c["deterministic"]
                                               for c in fwd_cases),
              tolerance=tol, cases=fwd_cases,
              wide={k: fwd_cases[2][k] for k in ("cin", "F", "nb") + keys}),
@@ -1122,7 +1161,7 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
                              for n in ("dx", "dk", "db")),
              **{k: bwd_main[k] for k in keys},
              stages_device_ms=bwd_main["stages_device_ms"], library_ms=None,
-             hmma=hmma_bwd, deterministic=all(c["deterministic"]
+             sass=sass_bwd, deterministic=all(c["deterministic"]
                                               for c in bwd_cases),
              tolerance=tol + "; kink-free inputs", cases=bwd_cases,
              wide={k: timed[2][k] for k in ("cin", "F", "nb") + keys})]

@@ -7,11 +7,12 @@ Builds `csrc/convlstm_fwd.cu` as it is ("base") and in variants that each
 remove one part of its work (a source edit, so the variant computes wrong
 values), then times `ops.convlstm_forward` at Cin=2, F=36 and Cin=2, F=72
 (ne=6) with every variant's library in turn, in the order base .. last,
-last .. base (CUDA events, TF32 off). Prints one JSON line: the card's name
-and power limit, each variant's ptxas register and spill report, and per
-shape each variant's two times and its max |difference| from base. A
-variant whose source text is no longer in the kernel is not built; it is
-listed under "stale". The variants:
+last .. base (CUDA events, TF32 off): the float32 variants on float32
+inputs, the bf16 ones on bfloat16 inputs. Prints one JSON line: the card's
+name and power limit, each variant's ptxas register and spill report, and
+per shape and dtype each variant's two times and its max |difference| from
+base. A variant whose source text is no longer in the kernel is not built;
+it is listed under "stale". The float32 variants (the 3xTF32 mainloop):
 
 - one_product: hi·hi alone, not the three products of 3xTF32;
 - no_split: the operands passed to the tensor core unsplit (no cvt to TF32,
@@ -22,6 +23,16 @@ listed under "stale". The variants:
 - no_epilogue: the cell update computed but not stored;
 - no_staging: the shared-memory stages never loaded;
 - three_blocks: `__launch_bounds__` asking for three blocks an SM.
+
+The bf16 variants (the wgmma mainloop, `gate_mainloop_wg`):
+
+- bf16_no_staging: no TMA box or weight copy issued (each stage's barrier
+  completes at once on whatever the ring holds);
+- bf16_no_mma: no wgmma issued (the fragments are still loaded);
+- bf16_no_epilogue: the cell computed, nothing stored;
+- bf16_chunks16: the base library with every K chunk 16 channels wide (Cp
+  rounded up to 16: at F=36 48 channels, not 32 + an 8-channel chunk), a
+  plan and not a source edit.
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ import torch
 
 from .. import ops
 from ..ops import _build
+from ..ops import convlstm as cl
 from .common import parse_flags, resolve_device
+from .time_convlstm import event_ms
 
 _PRODUCTS = """#pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -64,10 +77,17 @@ _SPLIT = """    hi[i] = to_tf32(v);
     lo[i] = to_tf32(v - __uint_as_float(hi[i]));"""
 _NO_SPLIT = """    hi[i] = __float_as_uint(v);
     lo[i] = hi[i];"""
-_STORE = """          store_f(ea.h_next, o, go * leaky_relu(cn));
-          if (ea.c_next) store_f(ea.c_next, o, cn);"""
+_STORE = """          store_f(ea.h_next, o, c.o * leaky_relu(c.c));
+          if (ea.c_next) store_f(ea.c_next, o, c.c);"""
 _LOAD = "        gates_load(a, buf, 8 * s, ceff, b, ty0, tx0, j0);"
 _BOUNDS = "__launch_bounds__(kWarps * 32, 2)"
+_COPIES = """    mbar_expect_tx(bar, boxes * kBox + wbytes);
+    for (int h = 0; h < boxes; ++h)
+      tma_box(st + h * kBoxPad, &a.in, 16 * s + 8 * h, tx0 - 1, ty0 - 1, b,
+              bar);
+    bulk_copy(st + kPatch, w + (long long)s * 9 * 512 * NG, wbytes, bar);"""
+_WGMMA = "    wgmma_rs(acc, fa[s], desc + ((s * 1024 * NG) >> 4));"
+_H_STORE = "        uint16_t* hp = ea.h_next + pix * ea.h_stride + f0;"
 
 # name: (edits of convlstm_tile.cuh, edits of convlstm_fwd.cu)
 VARIANTS = {
@@ -78,12 +98,24 @@ VARIANTS = {
                               (_SPLIT, _NO_SPLIT)), ()),
     "no_round": (((_PRODUCTS, _PRODUCTS.replace("d[mi][q]", "acc[mi][jj][q]")
                    .replace("mma_zero(", "mma(")), (_ROUND, "")), ()),
-    "no_epilogue": ((), ((_STORE, "          if (cn == 1234.5f) "
-                                  "ea.h_next[o] = go;"),)),
+    "no_epilogue": ((), ((_STORE, "          if (c.c == 1234.5f) "
+                                  "ea.h_next[o] = c.o;"),)),
     "no_staging": (((_LOAD, "        if (s < 0) " + _LOAD.strip()
                      + "\n        __pipeline_commit();"),), ()),
     "three_blocks": ((), ((_BOUNDS, _BOUNDS.replace("2)", "3)")),)),
 }
+# the bf16 variants, timed on bf16 inputs against the same base
+BF16_VARIANTS = {
+    "bf16_no_staging": (((_COPIES, "    mbar_expect_tx(bar, 0 * (boxes + "
+                                  "wbytes));"),), ()),
+    "bf16_no_mma": (((_WGMMA, "    if (fa[s][0] == 0x7fc00001u) acc[0] += "
+                              "1.f;"),), ()),
+    "bf16_no_epilogue": ((), ((_H_STORE, "        if (hv[0] == 1234.5f) "
+                                         "ea.h_next[0] = 0;\n        continue;"
+                                         "\n" + _H_STORE),)),
+}
+# a plan variant of the base library: every K chunk 16 channels
+PLAN_VARIANTS = ("bf16_chunks16",)
 
 
 def _edit(text: str, edits):
@@ -104,7 +136,7 @@ def build_variants(names) -> tuple[dict, list]:
     fwd = (_build.CSRC / "convlstm_fwd.cu").read_text()
     procs, stale = {}, []
     for name in names:
-        tile_edits, fwd_edits = VARIANTS[name]
+        tile_edits, fwd_edits = {**VARIANTS, **BF16_VARIANTS}[name]
         sources = _edit(tile, tile_edits), _edit(fwd, fwd_edits)
         if None in sources:
             stale.append(name)
@@ -123,25 +155,21 @@ def build_variants(names) -> tuple[dict, list]:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for sym, (res, args) in ops.CONVLSTM_KERNEL._signatures.items():
-            getattr(lib, sym).restype = res
-            getattr(lib, sym).argtypes = args
+        for kern in (ops.CONVLSTM_KERNEL, ops.CONVLSTM_BF16_KERNEL):
+            for sym, (res, args) in kern._signatures.items():
+                getattr(lib, sym).restype = res
+                getattr(lib, sym).argtypes = args
         built[name] = (lib, [ln.strip() for ln in out.splitlines()
                              if "registers" in ln or "spill" in ln])
     return built, stale
 
 
-def _time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _chunks16(plan):
+    """`plan` (ops.convlstm._bf16_plan) with Cp rounded up to 16."""
+    def chunks16(cin, f):
+        cp, gpb, cpb = plan(cin, f)
+        return -(-cp // 16) * 16, gpb, cpb
+    return chunks16
 
 
 def main(argv=None):
@@ -152,13 +180,23 @@ def main(argv=None):
         raise SystemExit("ablate_convlstm measures the card: --device cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    built, stale = build_variants(list(VARIANTS))
-    names = list(built)
-    kernel = ops.CONVLSTM_KERNEL
-    kernel.fn("convlstm_echo_fwd")  # sets up the wrapper's own library
-    own = kernel._lib
+    built, stale = build_variants(list(VARIANTS) + list(BF16_VARIANTS))
+    kernels = (ops.CONVLSTM_KERNEL, ops.CONVLSTM_BF16_KERNEL)
+    kernels[0].fn("convlstm_echo_fwd")  # set up the wrappers' own library
+    kernels[1].fn("convlstm_echo_fwd_bf16")
+    own = kernels[0]._lib
+    plan = cl._bf16_plan
     nb, size = cfg["batch_size"], cfg["data_size"]
     shapes = []
+
+    def use(name):
+        """Point both wrappers at a variant's library (a plan variant: the
+        base library with its plan)."""
+        lib = built["base" if name in PLAN_VARIANTS else name][0]
+        for kern in kernels:
+            kern._lib = lib
+        cl._bf16_plan = _chunks16(plan) if name in PLAN_VARIANTS else plan
+
     try:
         for cin, f in ((2, 36), (2, 72)):
             gen = torch.Generator().manual_seed(cfg["seed"])
@@ -167,30 +205,40 @@ def main(argv=None):
             k = (torch.randn((3, 3, cin + f, 4 * f), generator=gen)
                  * (2.0 / (9 * (cin + f))) ** 0.5).to(dev)
             b = (torch.randn((4 * f,), generator=gen) * 0.1).to(dev)
+            for dtype, variants in (
+                    (torch.float32, [n for n in VARIANTS if n in built]),
+                    (torch.bfloat16, ["base"] + [n for n in BF16_VARIANTS
+                                                 if n in built]
+                     + list(PLAN_VARIANTS))):
+                xd, kd, bd = (t.to(dtype) for t in (x, k, b))
 
-            def call():
-                return ops.convlstm_forward(x, k, b)
+                def call():
+                    return ops.convlstm_forward(xd, kd, bd)
 
-            times = {n: [] for n in names}
-            for name in names + names[::-1]:
-                kernel._lib = built[name][0]
-                times[name].append(_time_ms(call, cfg["iters"]))
-            kernel._lib = built["base"][0]
-            ref = call()
-            diff = {}
-            for name in names:
-                kernel._lib = built[name][0]
-                diff[name] = float((call() - ref).abs().max())
-            shapes.append(dict(cin=cin, F=f, nb=nb, size=size, ne=6,
-                               ms=times, max_abs_diff_vs_base=diff))
+                times = {n: [] for n in variants}
+                for name in variants + variants[::-1]:
+                    use(name)
+                    times[name].append(event_ms(call, cfg["iters"]))
+                use("base")
+                ref = call().float()
+                diff = {}
+                for name in variants:
+                    use(name)
+                    diff[name] = float((call().float() - ref).abs().max())
+                use("base")
+                shapes.append(dict(cin=cin, F=f, nb=nb, size=size, ne=6,
+                                   dtype=str(dtype).split(".")[-1],
+                                   ms=times, max_abs_diff_vs_base=diff))
     finally:
-        kernel._lib = own
+        for kern in kernels:
+            kern._lib = own
+        cl._bf16_plan = plan
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "stale": stale,
-                      "ptxas": {n: built[n][1] for n in names},
+                      "ptxas": {n: built[n][1] for n in built},
                       "shapes": shapes}))
 
 

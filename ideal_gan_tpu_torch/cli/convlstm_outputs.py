@@ -4,7 +4,8 @@ their sources bit for bit (on a card).
     python ideal_gan_tpu_torch/cli/convlstm_outputs.py --out new.pt
     PYTHONPATH=<other checkout> \\
         python ideal_gan_tpu_torch/cli/convlstm_outputs.py --out old.pt
-    python ideal_gan_tpu_torch/cli/convlstm_outputs.py --compare new.pt old.pt
+    python ideal_gan_tpu_torch/cli/convlstm_outputs.py --compare new.pt old.pt \
+        [--dtype float32]
     python ideal_gan_tpu_torch/cli/convlstm_outputs.py --sass \\
         ideal_gan_tpu_torch/_build <other checkout>/ideal_gan_tpu_torch/_build
 
@@ -14,8 +15,8 @@ that checkout's `csrc/`). `--out` runs the forward (h) and the backward (dx,
 dk, db) on seeded inputs at nb=2, 384², 6 echoes, Cin 2 and 1, F=36 and 72,
 in float32 and, where that checkout has the bf16 storage mode, in
 bfloat16, and saves them. `--compare` prints one JSON line: for every
-output both files hold, whether the two are bit-identical, and fails
-unless all are. `--sass` compares the float32 kernels' SASS in two build
+output both files hold (with `--dtype`, of that dtype only), whether the
+two are bit-identical, and fails unless all are. `--sass` compares the float32 kernels' SASS in two build
 directories (`cuobjdump -sass`, instruction text without addresses and
 encodings) and prints, per kernel, whether it is the same and how many
 instructions each has.
@@ -106,6 +107,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="save the outputs of this run here")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
                    help="two saved runs to hold bit for bit")
+    p.add_argument("--dtype", help="with --compare: only the outputs of this "
+                                   "dtype (float32 or bfloat16)")
     p.add_argument("--sass", nargs=2, metavar=("DIR_A", "DIR_B"),
                    help="two build directories whose float32 kernels' SASS "
                         "to compare")
@@ -119,7 +122,8 @@ def main(argv=None) -> int:
         return 0
     if args.compare:
         a, b = (torch.load(f) for f in args.compare)
-        same = compare(a, b)
+        same = {k: v for k, v in compare(a, b).items()
+                if args.dtype is None or k.startswith(args.dtype + " ")}
         print(json.dumps({"files": args.compare, "outputs": len(same),
                           "bit_identical": same}))
         return 0 if same and all(same.values()) else 1

@@ -62,7 +62,7 @@ from .profile_infer import category
 
 CATEGORIES = (
     ("convlstm_fwd kernel", ("convlstm_echo",)),
-    ("convlstm_bwd (a) gates", ("gates_mma",)),
+    ("convlstm_bwd (a) gates", ("gates_mma", "gates_wg")),
     ("convlstm_bwd (b) dinp", ("dinp_mma",)),
     ("convlstm_bwd (c) dk", ("dk_mma",)),
     ("convlstm_bwd reduce", ("sum_slots",)),

@@ -85,16 +85,13 @@
 // The TPU kernel's whole-recurrence VMEM state, taint fronts and dx
 // overlap-add have no counterpart: per-echo launches need none of them.
 //
-// The bf16 storage mode (`convlstm_echo_bwd_bf16`: gates_mma_bf16,
-// dinp_mma_bf16, dk_mma_bf16, sum_slots_bf16) is the TPU kernel's bf16
-// reverse sweep, the same templates on S = the bits of bf16: k, x and the
-// state stacks are bf16; dL/dh, dL/dc and dL/dz stay f32 in device memory,
-// and dL/dz is rounded to bf16 where it becomes an operand of (b) and (c)
-// (at the fragment); db is summed from the f32 dL/dz beside (c)'s MMAs (no
-// bias column); dx leaves in bf16, the dk/db partials in f32, dk and db in
-// bf16. Each product is one m16n8k16 bf16 MMA with f32 accumulation. Only
-// the stages' inner steps (3xTF32 k8 against bf16 k16 fragments) and
-// loaders differ between the two modes.
+// The bf16 storage mode (`convlstm_echo_bwd_bf16`: gates_wg_bf16,
+// dinp_mma_bf16, dk_mma_bf16; `convlstm_bwd_reduce_bf16`: sum_slots_bf16)
+// is the TPU kernel's bf16 reverse sweep on kernels of its own, written for
+// Hopper (see the bf16 section below): k, x and the state stacks are bf16;
+// dL/dh and dL/dc stay f32; dL/dz is rounded to bf16 once, by stage (a),
+// which also sums db from the f32 dL/dz; dx leaves in bf16, the dk partials
+// in f32, dk and db in bf16. The float32 kernels above are unchanged by it.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -116,24 +113,18 @@ constexpr int CS = 24;       // (c): patch stride per pixel (16 channels)
 
 // ---------------------------------------------------------------- (a)
 
-// x, k, the bias and the state stacks stored as S (float, or bf16 bits);
-// dL/dh, dL/dc and dL/dz are float32 in both modes
-template <class S>
-struct GatesArgsT {
-  GateConvT<S> conv;    // x_e, k, h_{e-1} and the shape
-  const S* bias;
-  const S* c_prev;      // (nb, F, H, W), unused without state
+struct GatesArgs {
+  GateConv conv;        // x_e, k, h_{e-1} and the shape
+  const float* bias;
+  const float* c_prev;  // (nb, F, H, W), unused without state
   const float* dh;      // dL/dh_e (nb, H, W, F)
   const float* dc;      // dL/dc_e (nb, H, W, F), null at the last echo
   float* dgates;        // dL/dz (nb, H, W, 4F)
   float* dc_prev;       // dL/dc_{e-1} (nb, H, W, F), null at echo 0
 };
-using GatesArgs = GatesArgsT<float>;
 
-template <class S>
-__device__ __forceinline__ void gates_body(const GatesArgsT<S>& ga,
-                                           float* smem) {
-  const GateConvT<S>& a = ga.conv;
+__device__ __forceinline__ void gates_body(const GatesArgs& ga, float* smem) {
+  const GateConv& a = ga.conv;
   const int tiles_x = (a.W + T - 1) / T;
   const int tx0 = (blockIdx.y % tiles_x) * T;
   const int ty0 = (blockIdx.y / tiles_x) * T;
@@ -189,42 +180,36 @@ __device__ __forceinline__ void gates_body(const GatesArgsT<S>& ga,
             dc[e] = ga.dc ? ga.dc[at + e] : 0.f;
           }
         }
-        float out[5][2];  // dz_i, dz_f, dz_g, dz_o, dc_{e-1}
+        float out[2][5];  // dz_i, dz_f, dz_g, dz_o, dc_{e-1}
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int r = 2 * h + e;
-          const float zg = acc[mi][jj][2][r] + bias[2][e];
-          const float gi = sigmoid(acc[mi][jj][0][r] + bias[0][e]);
-          const float gf = sigmoid(acc[mi][jj][1][r] + bias[1][e]);
-          const float gg = leaky_relu(zg);
-          const float go = sigmoid(acc[mi][jj][3][r] + bias[3][e]);
+          const float be[4] = {bias[0][e], bias[1][e], bias[2][e],
+                               bias[3][e]};
+          Cell c = cell_gates(acc[mi][jj][0][r], acc[mi][jj][1][r],
+                              acc[mi][jj][2][r], acc[mi][jj][3][r], be);
           const float cp =
               a.has_state && e < ne
                   ? load_f(ga.c_prev, ((long long)b * a.F + f0 + e) * hw +
                                           (long long)y * a.W + xx)
                   : 0.f;
-          const float cn = gf * cp + gi * gg;
-          const float dct = dc[e] + dh[e] * go * leaky_relu_grad(cn);
-          out[0][e] = dct * gg * gi * (1.f - gi);
-          out[1][e] = dct * cp * gf * (1.f - gf);
-          out[2][e] = dct * gi * leaky_relu_grad(zg);
-          out[3][e] = dh[e] * leaky_relu(cn) * go * (1.f - go);
-          out[4][e] = dct * gf;
+          cell_state(c, cp);
+          cell_grad(c, cp, dh[e], dc[e], out[e]);
         }
         float* dg = ga.dgates + pix * 4 * a.F + f0;
         if (pair && ne == 2) {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             *reinterpret_cast<float2*>(dg + q * a.F) =
-                make_float2(out[q][0], out[q][1]);
+                make_float2(out[0][q], out[1][q]);
           if (ga.dc_prev)
             *reinterpret_cast<float2*>(ga.dc_prev + at) =
-                make_float2(out[4][0], out[4][1]);
+                make_float2(out[0][4], out[1][4]);
         } else {
           for (int e = 0; e < ne; ++e) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) dg[q * a.F + e] = out[q][e];
-            if (ga.dc_prev) ga.dc_prev[at + e] = out[4][e];
+            for (int q = 0; q < 4; ++q) dg[q * a.F + e] = out[e][q];
+            if (ga.dc_prev) ga.dc_prev[at + e] = out[e][4];
           }
         }
       }
@@ -237,35 +222,21 @@ __global__ void __launch_bounds__(kWarps * 32, 2) gates_mma(GatesArgs ga) {
   gates_body(ga, smem);
 }
 
-// stage (a) in the bf16 storage mode: the bf16 gate mainloop; the epilogue
-// reads the bias and c_{e-1} (the stack's bf16 copy) as f32 and writes
-// dL/dz and dL/dc_{e-1} in f32, as the TPU kernel's f32 dgates and dc
-__global__ void __launch_bounds__(kWarps * 32, 2)
-    gates_mma_bf16(GatesArgsT<uint16_t> ga) {
-  extern __shared__ float smem[];
-  gates_body(ga, smem);
-}
-
 // ---------------------------------------------------------------- (b)
 
-// k and dx stored as S; dL/dz and dL/dh float32 in both modes
-template <class S>
-struct DinpArgsT {
+struct DinpArgs {
   const float* dg;  // (nb, H, W, 4F)
-  const S* k;       // (3, 3, Cin+F, 4F)
-  S* dx;            // echo e of dx (nb, ne, H, W, Cin), may be null
+  const float* k;   // (3, 3, Cin+F, 4F)
+  float* dx;        // echo e of dx (nb, ne, H, W, Cin), may be null
   long long dx_b;   // batch stride of dx (elements)
   float* dh;        // dL/dh_{e-1} (nb, H, W, F), may be null
   int cin, F, H, W, c0, nco, cpb;  // output channels [c0, c0 + nco)
 };
-using DinpArgs = DinpArgsT<float>;
 
-// A stage in 32-bit words: the dgates patch (float32 in both modes; bf16
-// rounds it at the fragment) and the flipped weights, float32 rows of 8
-// gates (stride PS) or bf16 pairs of consecutive gates (4 words a row).
-template <class S>
+// A stage in floats: the dgates patch and the flipped weights, rows of 8
+// gates (stride PS).
 __host__ __device__ inline int dinp_stage(int cpb) {
-  return P * P * PS + 9 * cpb * (sizeof(S) == 2 ? 4 : PS);
+  return P * P * PS + 9 * cpb * PS;
 }
 
 // the flipped weights ws[t][j][n] = k[8 - t][c][n0 + n] of the block's
@@ -285,34 +256,9 @@ __device__ __forceinline__ void dinp_load_w(const DinpArgs& a, float* ws,
   }
 }
 
-// bf16: word (tap, j, p) = k[8 - tap][c_j][n0 + 2p, n0 + 2p + 1]; 4
-// consecutive gates are 8 bytes, aligned (N % 4 == 0, n0 % 8 == 0)
-__device__ __forceinline__ void dinp_load_w(const DinpArgsT<uint16_t>& a,
-                                            float* buf, int n0, int cbase) {
-  const int N = 4 * a.F;
-  const int C = a.cin + a.F;
-  uint32_t* ws = reinterpret_cast<uint32_t*>(buf);
-  for (int i = threadIdx.x; i < 9 * a.cpb * 2; i += blockDim.x) {
-    const int half = i & 1;
-    const int r = i >> 1;  // tap * cpb + j
-    const int tap = r / a.cpb;
-    const int c = cbase + (r - tap * a.cpb);
-    const int n = n0 + 4 * half;
-    uint32_t* dst = ws + r * 4 + 2 * half;
-    if (n < N && c < a.c0 + a.nco) {
-      __pipeline_memcpy_async(dst, a.k + ((long long)(8 - tap) * C + c) * N + n,
-                              8);
-    } else {
-      dst[0] = 0u;
-      dst[1] = 0u;
-    }
-  }
-}
-
 // Stage gates [n0, n0 + 8) of the dgates patch and the flipped weights of
 // the block's output channels.
-template <class S>
-__device__ __forceinline__ void dinp_load(const DinpArgsT<S>& a, float* buf,
+__device__ __forceinline__ void dinp_load(const DinpArgs& a, float* buf,
                                           int n0, int b, int ty0, int tx0,
                                           int cbase) {
   const int N = 4 * a.F;
@@ -378,54 +324,7 @@ __device__ __forceinline__ void dinp_step(const DinpArgs& a,
   }
 }
 
-// One stage of (b), bf16: 5 k16 steps of two taps (the tenth zero), the
-// f32 dgates packed into bf16 pairs at the fragment.
-__device__ __forceinline__ void dinp_step(const DinpArgsT<uint16_t>& a,
-                                          const float* patch, int nt,
-                                          float (&acc)[2][NT][4]) {
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x >> 2) & 7;
-  const int t = threadIdx.x & 3;
-  const uint32_t* ws = reinterpret_cast<const uint32_t*>(patch + P * P * PS);
-#pragma unroll 1
-  for (int tp = 0; tp < 5; ++tp) {
-    const int t0 = 2 * tp, t1 = 2 * tp + 1;  // tap 9 is zero
-    uint32_t fa[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      // gates 2t, 2t+1 of pixels g and g + 8, taps t0 and t1
-      const float* p0 =
-          patch + ((2 * warp + mi + t0 / 3) * P + t0 % 3 + g) * PS + 2 * t;
-      fa[mi][0] = pack_bf16(p0[0], p0[1]);
-      fa[mi][1] = pack_bf16(p0[8 * PS], p0[8 * PS + 1]);
-      if (t1 < 9) {
-        const float* p1 =
-            patch + ((2 * warp + mi + t1 / 3) * P + t1 % 3 + g) * PS + 2 * t;
-        fa[mi][2] = pack_bf16(p1[0], p1[1]);
-        fa[mi][3] = pack_bf16(p1[8 * PS], p1[8 * PS + 1]);
-      } else {
-        fa[mi][2] = fa[mi][3] = 0u;
-      }
-    }
-    uint32_t fb[NT][2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < nt) {
-        fb[j][0] = ws[(t0 * a.cpb + 8 * j + g) * 4 + t];
-        fb[j][1] = t1 < 9 ? ws[(t1 * a.cpb + 8 * j + g) * 4 + t] : 0u;
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        if (j < nt) mma_bf16(acc[mi][j], fa[mi], fb[j]);
-  }
-}
-
-template <class S>
-__device__ __forceinline__ void dinp_body(const DinpArgsT<S>& a,
-                                          float* smem) {
+__device__ __forceinline__ void dinp_body(const DinpArgs& a, float* smem) {
   const int tiles_x = (a.W + T - 1) / T;
   const int tx0 = (blockIdx.x % tiles_x) * T;
   const int ty0 = (blockIdx.x / tiles_x) * T;
@@ -445,7 +344,7 @@ __device__ __forceinline__ void dinp_body(const DinpArgsT<S>& a,
       for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
 
   ring(
-      smem, dinp_stage<S>(a.cpb), (4 * a.F + 7) / 8,
+      smem, dinp_stage(a.cpb), (4 * a.F + 7) / 8,
       [&](int s, float* buf) { dinp_load(a, buf, 8 * s, b, ty0, tx0, cbase); },
       [&](const float* patch) { dinp_step(a, patch, nt, acc); });
 
@@ -476,46 +375,25 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dinp_mma(DinpArgs a) {
   dinp_body(a, smem);
 }
 
-__global__ void __launch_bounds__(kWarps * 32, 2)
-    dinp_mma_bf16(DinpArgsT<uint16_t> a) {
-  extern __shared__ float smem[];
-  dinp_body(a, smem);
-}
-
 // ---------------------------------------------------------------- (c)
 
-// x and h_{e-1} stored as S; dL/dz and the slot partials float32
-template <class S>
-struct DkArgsT {
-  const S* x;  // echo e of x (nb, ne, H, W, Cin)
+struct DkArgs {
+  const float* x;  // echo e of x (nb, ne, H, W, Cin)
   long long x_b;
-  const S* h_prev;      // (nb, F, H, W), null at echo 0
+  const float* h_prev;  // (nb, F, H, W), null at echo 0
   const float* dg;      // (nb, H, W, 4F)
   float* part;          // (S, 9, C, 4F) slot partials of dk
   float* part_b;        // (S, 4F) slot partials of db
   int nb, cin, F, H, W, ceff;
 };
-using DkArgs = DkArgsT<float>;
 
 constexpr int kDkStage = RY * T * DS + (RY + 2) * P * CS;
 
-// an input value into the staged patch: float32 by cp.async, bf16 widened
-// to f32 (exactly)
-__device__ __forceinline__ void stage_in(float* dst, const float* src,
-                                         bool in) {
-  copy4(dst, src, in);
-}
-__device__ __forceinline__ void stage_in(float* dst, const uint16_t* src,
-                                         bool in) {
-  *dst = in ? bf2f(*src) : 0.f;
-}
-
 // Stage pixel chunk (b, rows y0 .. y0 + RY - 1, columns x0 .. x0 + 15): its
 // dgates rows [m0, m0 + 144) and the (RY + 2) x 18 input patch of channels
-// [cp0, cp0 + 16). Float32 stages channel C as 1 (the bias column: db is
-// the centre tap's column); bf16 sums db from the f32 dgates instead.
-template <class S>
-__device__ __forceinline__ void dk_load(const DkArgsT<S>& a, float* buf,
+// [cp0, cp0 + 16), channel C as 1 (the bias column: db is the centre tap's
+// column).
+__device__ __forceinline__ void dk_load(const DkArgs& a, float* buf,
                                         int b, int y0, int x0, int m0,
                                         int cp0) {
   const int N = 4 * a.F;
@@ -543,18 +421,18 @@ __device__ __forceinline__ void dk_load(const DkArgsT<S>& a, float* buf,
     const int xx = x0 + (pix - py * P) - 1;
     const int c = cp0 + cc;
     float* dst = ps + pix * CS + cc;
-    if (sizeof(S) == 4 && c == C) {
+    if (c == C) {
       *dst = 1.f;  // the bias column
       continue;
     }
     const bool in = c < a.ceff && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
-    const S* src =
+    const float* src =
         !in ? nullptr
         : c < a.cin
             ? a.x + b * a.x_b + ((long long)y * a.W + xx) * a.cin + c
             : a.h_prev + ((long long)b * a.F + (c - a.cin)) * hw +
                   (long long)y * a.W + xx;
-    stage_in(dst, src, in);
+    copy4(dst, src, in);
   }
   __pipeline_commit();
 }
@@ -608,52 +486,8 @@ __device__ __forceinline__ void dk_step(const DkArgs&, const float* ds,
   }
 }
 
-// One chunk of (c), bf16: RY k16 steps, one chunk row of 16 pixels each,
-// the dgates and the widened inputs packed into bf16 pairs at the fragment.
-__device__ __forceinline__ void dk_step(const DkArgsT<uint16_t>&,
-                                        const float* ds, const bool (&used)[2],
-                                        int mw, int dy, float (&d)[3][6][4]) {
-  const int g = (threadIdx.x >> 2) & 7;
-  const int t = threadIdx.x & 3;
-  const float* ps = ds + RY * T * DS;
-#pragma unroll 1
-  for (int row = 0; row < RY; ++row) {  // 16 pixels of chunk row
-    uint32_t fa[3][4];
-#pragma unroll
-    for (int mi = 0; mi < 3; ++mi) {
-      // gates m, m + 8 of pixels 2t, 2t + 1 (and + 8)
-      const float* dz = ds + (16 * row + 2 * t) * DS + mw + 16 * mi + g;
-      fa[mi][0] = pack_bf16(dz[0], dz[DS]);
-      fa[mi][1] = pack_bf16(dz[8], dz[DS + 8]);
-      fa[mi][2] = pack_bf16(dz[8 * DS], dz[9 * DS]);
-      fa[mi][3] = pack_bf16(dz[8 * DS + 8], dz[9 * DS + 8]);
-    }
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      if (!used[o]) continue;
-      uint32_t fb[3][2];
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float* p = ps + ((row + dy) * P + 2 * t + dx) * CS + 8 * o + g;
-        fb[dx][0] = pack_bf16(p[0], p[CS]);
-        fb[dx][1] = pack_bf16(p[8 * CS], p[9 * CS]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          mma_bf16(d[mi][2 * dx + o], fa[mi], fb[dx]);
-    }
-  }
-}
-
-// block (slot, channel pair, gate chunk): 9 warps, warp (dy, third). In the
-// bf16 mode the block that holds channel C sums db from the staged f32
-// dgates beside the MMAs: thread (half, row) sums 64 of the chunk's 128
-// pixels of its gate row.
-template <class S>
-__device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
-  constexpr bool bf16 = sizeof(S) == 2;
+// block (slot, channel pair, gate chunk): 9 warps, warp (dy, third)
+__device__ __forceinline__ void dk_body(const DkArgs& a, float* smem) {
   const int N = 4 * a.F;
   const int C = a.cin + a.F;
   const int slot = blockIdx.x;
@@ -670,16 +504,15 @@ __device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
   const int S_ = gridDim.x;
   const bool rows = m0 + mw < N;  // the warp has gate rows to sum
   // octets of the block's 16 channels with a channel to sum: below ceff,
-  // or (float32) the bias column C; padding past C and echo 0's zero
-  // state are skipped
+  // or the bias column C; padding past C and echo 0's zero state are
+  // skipped
   bool used[2];
 #pragma unroll
   for (int o = 0; o < 2; ++o) {
     const int c = cp0 + 8 * o;
-    used[o] = c < a.ceff || (!bf16 && c <= C && C < c + 8);
+    used[o] = c < a.ceff || (c <= C && C < c + 8);
   }
-  const bool bias_block = bf16 && cp0 <= C && C < cp0 + 16;
-  if (!used[0] && !used[1] && !bias_block) return;
+  if (!used[0] && !used[1]) return;
 
   float acc[3][6][4];
 #pragma unroll
@@ -688,9 +521,6 @@ __device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
     for (int j = 0; j < 6; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
-  float db = 0.f;
-  const int db_row = threadIdx.x % kGateRows;
-  const int db_px = (threadIdx.x / kGateRows) * (RY * T / 2);
 
   ring(
       smem, kDkStage, slot < n_chunks ? (n_chunks - 1 - slot) / S_ + 1 : 0,
@@ -701,12 +531,6 @@ __device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
         dk_load(a, buf, by / ys, (by % ys) * RY, xq * T, m0, cp0);
       },
       [&](const float* ds) {
-        if (bias_block) {
-          float sum = 0.f;
-          for (int px = db_px; px < db_px + RY * T / 2; ++px)
-            sum += ds[px * DS + db_row];
-          db += sum;
-        }
         if (!rows) return;
         // this chunk's sums on the tensor core from zero, then rounded into
         // the FP32 accumulators: a slot walks thousands of pixels an echo,
@@ -726,13 +550,6 @@ __device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[mi][j][r] += d[mi][j][r];
       });
-  if (bias_block) {  // the ring ended synchronised: smem is free
-    smem[threadIdx.x] = db;
-    __syncthreads();
-    if (threadIdx.x < kGateRows && m0 + threadIdx.x < N)
-      a.part_b[(long long)slot * N + m0 + threadIdx.x] +=
-          smem[threadIdx.x] + smem[threadIdx.x + kGateRows];
-  }
   if (!rows) return;
 
   float* part = a.part + (long long)slot * 9 * C * N;
@@ -749,7 +566,7 @@ __device__ __forceinline__ void dk_body(const DkArgsT<S>& a, float* smem) {
         if (n >= N) continue;
         if (c < a.ceff) {
           part[((long long)tap * C + c) * N + n] += acc[mi][j][r];
-        } else if (!bf16 && c == C && tap == 4) {
+        } else if (c == C && tap == 4) {
           part_b[n] += acc[mi][j][r];
         }
       }
@@ -760,18 +577,9 @@ __global__ void __launch_bounds__(9 * 32, 1) dk_mma(DkArgs a) {
   dk_body(a, smem);
 }
 
-__global__ void __launch_bounds__(9 * 32, 1) dk_mma_bf16(DkArgsT<uint16_t> a) {
-  extern __shared__ float smem[];
-  dk_body(a, smem);
-}
-
-// dk[i] = sum over slots of part[s][i], in slot order; db likewise; stored
-// as S.
-template <class S>
-__device__ __forceinline__ void sum_slots_body(const float* part,
-                                               const float* part_b, S* dk,
-                                               S* db, int n_slots,
-                                               long long K, int N) {
+// dk[i] = sum over slots of part[s][i], in slot order; db likewise
+__global__ void sum_slots(const float* part, const float* part_b, float* dk,
+                          float* db, int n_slots, long long K, int N) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < K) {
     float s = 0.f;
@@ -785,60 +593,35 @@ __device__ __forceinline__ void sum_slots_body(const float* part,
   }
 }
 
-__global__ void sum_slots(const float* part, const float* part_b, float* dk,
-                          float* db, int n_slots, long long K, int N) {
-  sum_slots_body(part, part_b, dk, db, n_slots, K, N);
-}
-
-__global__ void sum_slots_bf16(const float* part, const float* part_b,
-                               uint16_t* dk, uint16_t* db, int n_slots,
-                               long long K, int N) {
-  sum_slots_body(part, part_b, dk, db, n_slots, K, N);
-}
-
 // output channels per dinp block: octets, at most kCols, spread evenly
+// (ops/convlstm.py::_dinp_cpb computes the same for the bf16 packing)
 int dinp_cpb(int nco) {
   const int oct = (nco + 7) / 8;
   const int chunks = (oct + kCols / 8 - 1) / (kCols / 8);
   return 8 * ((oct + chunks - 1) / chunks);
 }
 
-template <class S>
-int echo_bwd(const S* x, long long x_b, const S* k, const S* bias,
-             const S* h_prev, const S* c_prev, const float* dh,
+int echo_bwd(const float* x, long long x_b, const float* k, const float* bias,
+             const float* h_prev, const float* c_prev, const float* dh,
              const float* dc, float* dgates, float* dc_prev, float* dh_prev,
-             S* dx, long long dx_b, float* part, float* part_b, int n_slots,
-             int nb, int cin, int F, int H, int W, int has_state, int device,
-             void* stream) {
+             float* dx, long long dx_b, float* part, float* part_b,
+             int n_slots, int nb, int cin, int F, int H, int W, int has_state,
+             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);
 
-  // the storage type's kernels
-  void (*gates)(GatesArgsT<S>);
-  void (*dinp)(DinpArgsT<S>);
-  void (*dk)(DkArgsT<S>);
-  if constexpr (sizeof(S) == 2) {
-    gates = gates_mma_bf16;
-    dinp = dinp_mma_bf16;
-    dk = dk_mma_bf16;
-  } else {
-    gates = gates_mma;
-    dinp = dinp_mma;
-    dk = dk_mma;
-  }
-
   const int gpb = gates_gpb(F);
-  GatesArgsT<S> ga{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
-                   bias, c_prev, dh, dc, dgates, dc_prev};
-  size_t bytes = gates_smem_bytes<S>(gpb);
-  err = allow_smem(gates, bytes);
+  GatesArgs ga{{x, x_b, k, h_prev, cin, F, H, W, has_state, gpb},
+               bias, c_prev, dh, dc, dgates, dc_prev};
+  size_t bytes = gates_smem_bytes(gpb);
+  err = allow_smem(gates_mma, bytes);
   if (err != cudaSuccess) return (int)err;
   // channel chunks fastest: the blocks that stage one tile's input patch
   // run together and share it in L2
-  gates<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb), kWarps * 32, bytes,
-          st>>>(ga);
+  gates_mma<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles, nb), kWarps * 32,
+              bytes, st>>>(ga);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -846,67 +629,546 @@ int echo_bwd(const S* x, long long x_b, const S* k, const S* bias,
   const int c1 = has_state ? cin + F : cin;
   if (c1 > c0) {
     const int cpb = dinp_cpb(c1 - c0);
-    DinpArgsT<S> d{dgates, k, dx, dx_b, has_state ? dh_prev : nullptr,
-                   cin,    F, H,  W,    c0,
-                   c1 - c0, cpb};
-    bytes = 2 * (size_t)dinp_stage<S>(cpb) * sizeof(float);
-    err = allow_smem(dinp, bytes);
+    DinpArgs d{dgates, k, dx, dx_b, has_state ? dh_prev : nullptr,
+               cin,    F, H,  W,    c0,
+               c1 - c0, cpb};
+    bytes = 2 * (size_t)dinp_stage(cpb) * sizeof(float);
+    err = allow_smem(dinp_mma, bytes);
     if (err != cudaSuccess) return (int)err;
-    dinp<<<dim3(tiles, (c1 - c0 + cpb - 1) / cpb, nb), kWarps * 32, bytes,
-           st>>>(d);
+    dinp_mma<<<dim3(tiles, (c1 - c0 + cpb - 1) / cpb, nb), kWarps * 32, bytes,
+               st>>>(d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
 
-  DkArgsT<S> kd{x, x_b, has_state ? h_prev : nullptr, dgates, part, part_b,
-                nb, cin, F, H, W, has_state ? cin + F : cin};
+  DkArgs kd{x, x_b, has_state ? h_prev : nullptr, dgates, part, part_b,
+            nb, cin, F, H, W, has_state ? cin + F : cin};
   bytes = 2 * (size_t)kDkStage * sizeof(float);
-  err = allow_smem(dk, bytes);
+  err = allow_smem(dk_mma, bytes);
   if (err != cudaSuccess) return (int)err;
-  dk<<<dim3(n_slots, (cin + F + 1 + 15) / 16,
-            (4 * F + kGateRows - 1) / kGateRows),
-       9 * 32, bytes, st>>>(kd);
+  dk_mma<<<dim3(n_slots, (cin + F + 1 + 15) / 16,
+                (4 * F + kGateRows - 1) / kGateRows),
+           9 * 32, bytes, st>>>(kd);
   return (int)cudaGetLastError();
 }
 
-template <class S>
-int bwd_reduce(const float* part, const float* part_b, S* dk, S* db,
-               int n_slots, long long K, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const long long n = K > N ? K : N;
-  void (*reduce)(const float*, const float*, S*, S*, int, long long, int);
-  if constexpr (sizeof(S) == 2) {
-    reduce = sum_slots_bf16;
-  } else {
-    reduce = sum_slots;
+// ---------------------------------------------------------------- bf16
+//
+// The bf16 storage mode's reverse sweep. The echo's input is the bf16
+// channels-last buffer of the forward (x_e, h_{e-1}, zero padding: the
+// recompute's stack), c_{e-1} the stack's bf16 copy (nb, H, W, F).
+//  (a) gates_wg_bf16: the forward's mainloop (gate_mainloop_wg) and the
+//      cell's derivative in the epilogue; it writes dL/dz rounded to bf16
+//      (nearest even), channels-last (nb, H, W, np), np = 4F rounded up to
+//      16, and adds db's partial of its 16x8 tile, summed from the f32
+//      dL/dz in a fixed order, into its own row of an (nb * tiles, 4F)
+//      buffer.
+//  (b) dinp_mma_bf16 and (c) dk_mma_bf16 read only bf16 operands, staged
+//      with 16-byte cp.async (zero fill outside the image) in a ring of two
+//      and fed to m16n8k16 bf16 MMAs by ldmatrix (.trans where the operand
+//      is pixel-major: (c)'s dL/dz and input patch). (b)'s flipped weights
+//      come pre-packed (ops/convlstm.py::_pack_dinp_weights) as the exact
+//      stage image, one contiguous run a stage.
+// Their inner loops hold no conversion. Bound on an H100: the necessary
+// work (one forward, dinp and dk) is 1.72 TFLOP at Cin=2, F=36, nb=8,
+// 384^2, ne=6 (6.75 at F=72), 1.74 ms (6.83) at 989 TFLOP/s dense bf16:
+// operations, not bytes, bound it. What holds each stage is in PERF.md.
+
+// (a) in the bf16 storage mode
+struct GatesArgsB {
+  WgConv conv;             // the input buffer's map, the packed weights
+  const uint16_t* bias;    // (4F,)
+  const uint16_t* c_prev;  // (nb, H, W, F), unused without state
+  const float* dh;         // dL/dh_e (nb, H, W, F)
+  const float* dc;         // dL/dc_e (nb, H, W, F), null at the last echo
+  uint16_t* dz;            // dL/dz in bf16 (nb, H, W, np)
+  float* dc_prev;          // dL/dc_{e-1} (nb, H, W, F), null at echo 0
+  float* part_db;          // (nb * 16x8 tiles, 4F) db partials, added to
+  int np, has_state;
+};
+
+template <int NG>
+__device__ __forceinline__ void gates_body_wg(const GatesArgsB& ga,
+                                              uint8_t* smem) {
+  const WgConv& a = ga.conv;
+  const int tiles_x = (a.W + T - 1) / T;
+  const int tx0 = (blockIdx.y % tiles_x) * T;
+  const int ty0 = (blockIdx.y / tiles_x) * TH;
+  const int j0 = blockIdx.x * a.gpb;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const int y = ty0 + warp;  // the warp's tile row
+
+  float acc[16 * NG];
+  gate_mainloop_wg<NG>(a, smem, b, ty0, tx0, acc);
+
+  // thread (g, t) holds channels f0 = 8*(j0+jj) + 2t and f0 + 1 of pixels
+  // g and g + 8 of its row, all 4 gates; with F even the two move as one
+  // word
+  const bool pairs = a.F % 2 == 0;
+  float dbs[NG][4][2];
+#pragma unroll
+  for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dbs[jj][q][0] = dbs[jj][q][1] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < NG; ++jj) {
+    const int f0 = 8 * (j0 + jj) + 2 * t;
+    if (f0 >= a.F) continue;
+    const bool two = f0 + 1 < a.F;
+    float bias[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        bias[e][q] = bf2f(ga.bias[q * a.F + min(f0 + e, a.F - 1)]);
+    {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int xx = tx0 + g + 8 * h;
+        if (y >= a.H || xx >= a.W) continue;
+        const long long pix = ((long long)b * a.H + y) * a.W + xx;
+        const long long at = pix * a.F + f0;  // (pixel, f0) in dh, dc, c
+        float dh[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
+        if (pairs) {
+          const float2 v = *reinterpret_cast<const float2*>(ga.dh + at);
+          dh[0] = v.x;
+          dh[1] = v.y;
+          if (ga.dc) {
+            const float2 u = *reinterpret_cast<const float2*>(ga.dc + at);
+            dc[0] = u.x;
+            dc[1] = u.y;
+          }
+        } else {
+          for (int e = 0; e < (two ? 2 : 1); ++e) {
+            dh[e] = ga.dh[at + e];
+            dc[e] = ga.dc ? ga.dc[at + e] : 0.f;
+          }
+        }
+        float cps[2] = {0.f, 0.f};  // c_{e-1}
+        if (ga.has_state && pairs) {
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(ga.c_prev + at);
+          cps[0] = bf2f(v & 0xffffu);
+          cps[1] = bf2f(v >> 16);
+        } else if (ga.has_state) {
+          for (int e = 0; e < (two ? 2 : 1); ++e)
+            cps[e] = bf2f(ga.c_prev[at + e]);
+        }
+        float out[2][5];  // dz_i, dz_f, dz_g, dz_o, dc_{e-1}
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 2 * h + e;
+          const Cell c = cell(acc[(4 * jj) * 4 + r], acc[(4 * jj + 1) * 4 + r],
+                              acc[(4 * jj + 2) * 4 + r],
+                              acc[(4 * jj + 3) * 4 + r], bias[e], cps[e]);
+          cell_grad(c, cps[e], dh[e], dc[e], out[e]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dbs[jj][q][0] += out[0][q];
+          if (two) dbs[jj][q][1] += out[1][q];
+        }
+        uint16_t* dz = ga.dz + pix * ga.np + f0;
+        if (pairs) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<uint32_t*>(dz + q * a.F) =
+                pack_bf16(out[0][q], out[1][q]);
+          if (ga.dc_prev)
+            *reinterpret_cast<float2*>(ga.dc_prev + at) =
+                make_float2(out[0][4], out[1][4]);
+        } else {
+          for (int e = 0; e < (two ? 2 : 1); ++e) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dz[q * a.F + e] = f2bf(out[e][q]);
+            if (ga.dc_prev) ga.dc_prev[at + e] = out[e][4];
+          }
+        }
+      }
+    }
   }
-  reduce<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-           static_cast<cudaStream_t>(stream)>>>(part, part_b, dk, db, n_slots,
-                                                K, N);
-  return (int)cudaGetLastError();
+
+  // db: the block's sum over its pixels, lanes of one t, then the 8 warps
+  // in order (the mainloop ended synchronised: the ring is free)
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = dbs[jj][q][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red[warp * 128 + (4 * jj + q) * 8 + 2 * t + e] = v;
+      }
+  __syncthreads();
+  if (threadIdx.x < 32 * NG) {
+    const int n = threadIdx.x;
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[w * 128 + n];
+    const int f = 8 * (j0 + (n >> 5)) + (n & 7);
+    if (f < a.F)
+      ga.part_db[((long long)b * gridDim.y + blockIdx.y) * 4 * a.F +
+                 ((n >> 3) & 3) * a.F + f] += s;
+  }
+}
+
+__global__ void __launch_bounds__(256, 2)
+    gates_wg_bf16(const __grid_constant__ GatesArgsB ga) {
+  extern __shared__ __align__(128) uint8_t smem_wg[];
+  const int groups = (ga.conv.F + 7) / 8 - (int)blockIdx.x * ga.conv.gpb;
+  switch (min(ga.conv.gpb, groups)) {
+    case 1:
+      gates_body_wg<1>(ga, smem_wg);
+      break;
+    case 2:
+      gates_body_wg<2>(ga, smem_wg);
+      break;
+    default:  // one instantiation per group count, 1 .. kMaxGroups
+      gates_body_wg<kMaxGroups>(ga, smem_wg);
+  }
+}
+
+// (b) in the bf16 storage mode
+struct DinpArgsB {
+  const uint16_t* dz;  // (nb, H, W, np)
+  const uint16_t* w;   // the packed flipped weights, block after block
+  uint16_t* dx;        // echo e of dx (nb, ne, H, W, Cin), may be null
+  long long dx_b;      // batch stride of dx (elements)
+  float* dh;           // dL/dh_{e-1} (nb, H, W, F), may be null
+  // output channels [c0, c1); block y is channel block cb0 + y of cpb
+  int cin, F, H, W, np, c0, c1, cpb, cb0;
+};
+
+constexpr int kDinpPatch = 2 * P * P * 16;  // two 8-gate halves, 16 B a px
+
+// a (b) stage in bytes: the dz patch and 9 taps x cpb channels x 16 gates
+__host__ __device__ inline int dinp_stage_bf16(int cpb) {
+  return kDinpPatch + 9 * cpb * 32;
+}
+
+// Stage gates [16 s, 16 s + 16) of the dz patch ([half][pixel][8 gates])
+// and their packed weights (tap, n8 tile, k half, 8 channels x 8 gates).
+__device__ __forceinline__ void dinp_load_bf16(const DinpArgsB& a,
+                                               uint8_t* buf, int s, int b,
+                                               int ty0, int tx0,
+                                               const uint16_t* w) {
+  for (int i = threadIdx.x; i < 2 * P * P; i += blockDim.x) {
+    const int half = i / (P * P);
+    const int pix = i - half * (P * P);
+    const int py = pix / P;
+    const int y = ty0 + py - 1;
+    const int xx = tx0 + (pix - py * P) - 1;
+    const bool in = y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+    cp16(buf + i * 16,
+         in ? a.dz + (((long long)b * a.H + y) * a.W + xx) * a.np + 16 * s +
+                  8 * half
+            : a.dz,
+         in);
+  }
+  const uint16_t* ws = w + (long long)s * 9 * a.cpb * 16;
+  for (int i = threadIdx.x; i < 9 * a.cpb * 2; i += blockDim.x)
+    cp16(buf + kDinpPatch + i * 16, ws + i * 8, true);
+  __pipeline_commit();
+}
+
+// One stage of (b): 9 taps of one k16 step (16 gates) each.
+__device__ __forceinline__ void dinp_step_bf16(const uint8_t* st, int cpb,
+                                               int nt,
+                                               float (&acc)[2][NT][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int x = lane & 15, hi = lane >> 4;
+  const uint32_t patch = smem_u32(st);
+  // lane l < 16 addresses row l % 8 of k half l / 8 of an n8 tile
+  const uint32_t ws = patch + kDinpPatch + (lane & 15) * 16;
+#pragma unroll 3
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+    uint32_t fa[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(fa[mi], patch + hi * (P * P * 16) +
+                          ((2 * warp + mi + dy) * P + x + dx) * 16);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) continue;
+      uint32_t fb[2];
+      ldsm_x2(fb, ws + (tap * (cpb / 8) + j) * 256);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][j], fa[mi], fb);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    dinp_mma_bf16(DinpArgsB a) {
+  extern __shared__ __align__(128) uint8_t smem_b[];
+  const int tiles_x = (a.W + T - 1) / T;
+  const int tx0 = (blockIdx.x % tiles_x) * T;
+  const int ty0 = (blockIdx.x / tiles_x) * T;
+  const int b = blockIdx.z;
+  const int cb = a.cb0 + blockIdx.y;
+  const int cbase = cb * a.cpb;
+  const int nt = min(a.cpb / 8, (a.c1 - cbase + 7) / 8);
+  const int n_s = a.np / 16;
+  const uint16_t* w = a.w + (long long)cb * n_s * 9 * a.cpb * 16;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+
+  ring(
+      reinterpret_cast<float*>(smem_b), dinp_stage_bf16(a.cpb) / 4, n_s,
+      [&](int s, float* buf) {
+        dinp_load_bf16(a, reinterpret_cast<uint8_t*>(buf), s, b, ty0, tx0, w);
+      },
+      [&](const float* st) {
+        dinp_step_bf16(reinterpret_cast<const uint8_t*>(st), a.cpb, nt, acc);
+      });
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int y = ty0 + 2 * warp + mi;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int xx = tx0 + g + 8 * (r >> 1);
+        const int c = cbase + 8 * j + 2 * t + (r & 1);
+        if (j >= nt || c < a.c0 || c >= a.c1 || y >= a.H || xx >= a.W)
+          continue;
+        const long long pix = (long long)y * a.W + xx;
+        if (c < a.cin) {
+          if (a.dx) a.dx[b * a.dx_b + pix * a.cin + c] = f2bf(acc[mi][j][r]);
+        } else if (a.dh) {
+          a.dh[((long long)b * a.H * a.W + pix) * a.F + (c - a.cin)] =
+              acc[mi][j][r];
+        }
+      }
+    }
+  }
+}
+
+// (c) in the bf16 storage mode
+struct DkArgsB {
+  const uint16_t* inp;  // the echo's input buffer (nb, H, W, cp)
+  const uint16_t* dz;   // (nb, H, W, np)
+  float* part;          // (S, 9, C, 4F) slot partials of dk
+  int nb, F, H, W, cp, np, C, ceff;
+};
+
+constexpr int kDkDz = kGateRows / 8 * RY * T * 16;  // [octet][pixel][8 gates]
+constexpr int kDkPatch = 2 * (RY + 2) * P * 16;     // [half][pixel][8 ch]
+constexpr int kDkStageB = kDkDz + kDkPatch;         // bytes
+
+// Stage pixel chunk (b, rows y0 .. y0 + RY - 1, columns x0 .. x0 + 15): its
+// dz rows [m0, m0 + 144) and the (RY + 2) x 18 input patch of channels
+// [cp0, cp0 + 16), both zero outside.
+__device__ __forceinline__ void dk_load_bf16(const DkArgsB& a, uint8_t* buf,
+                                             int b, int y0, int x0, int m0,
+                                             int cp0) {
+  for (int i = threadIdx.x; i < kGateRows / 8 * RY * T; i += blockDim.x) {
+    const int o = i / (RY * T);
+    const int px = i - o * (RY * T);
+    const int y = y0 + px / T;
+    const int xx = x0 + px % T;
+    const int m = m0 + 8 * o;
+    const bool in = y < a.H && xx < a.W && m < a.np;
+    cp16(buf + i * 16,
+         in ? a.dz + (((long long)b * a.H + y) * a.W + xx) * a.np + m : a.dz,
+         in);
+  }
+  uint8_t* ps = buf + kDkDz;
+  for (int i = threadIdx.x; i < 2 * (RY + 2) * P; i += blockDim.x) {
+    const int half = i / ((RY + 2) * P);
+    const int pix = i - half * ((RY + 2) * P);
+    const int py = pix / P;
+    const int y = y0 + py - 1;
+    const int xx = x0 + (pix - py * P) - 1;
+    const int c = cp0 + 8 * half;
+    const bool in = c < a.cp && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+    cp16(ps + i * 16,
+         in ? a.inp + (((long long)b * a.H + y) * a.W + xx) * a.cp + c
+            : a.inp,
+         in);
+  }
+  __pipeline_commit();
+}
+
+// One chunk of (c): RY k16 steps, one chunk row of 16 pixels each. A (16
+// gates x 16 pixels) and B (16 pixels x 8 channels) by ldmatrix.trans.
+__device__ __forceinline__ void dk_step_bf16(const uint8_t* st,
+                                             const bool (&used)[2], int mw,
+                                             int dy, float (&d)[3][6][4]) {
+  const int lane = threadIdx.x & 31;
+  const int i8 = lane & 7, mat = lane >> 3;
+  const uint32_t ds = smem_u32(st);
+  const uint32_t ps = ds + kDkDz;
+#pragma unroll 1
+  for (int row = 0; row < RY; ++row) {
+    // A: matrices (gates 0-7, px 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+    uint32_t fa[3][4];
+#pragma unroll
+    for (int mi = 0; mi < 3; ++mi)
+      ldsm_x4_t(fa[mi], ds + (((mw + 16 * mi) / 8 + (mat & 1)) * RY * T +
+                              16 * row + 8 * (mat >> 1) + i8) * 16);
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      // B: matrices (octet 0, px 0-7), (0, 8-15), (1, 0-7), (1, 8-15)
+      uint32_t fb[4];
+      ldsm_x4_t(fb, ps + ((mat >> 1) * (RY + 2) * P + (row + dy) * P +
+                          8 * (mat & 1) + i8 + dx) * 16);
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        if (!used[o]) continue;
+        const uint32_t b2[2] = {fb[2 * o], fb[2 * o + 1]};
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi) mma_bf16(d[mi][2 * dx + o], fa[mi], b2);
+      }
+    }
+  }
+}
+
+// block (slot, 16 channels, 144 gate rows): 9 warps, warp (dy, third)
+__global__ void __launch_bounds__(9 * 32, 1) dk_mma_bf16(DkArgsB a) {
+  extern __shared__ __align__(128) uint8_t smem_c[];
+  const int N = 4 * a.F;
+  const int slot = blockIdx.x;
+  const int cp0 = blockIdx.y * 16;
+  const int m0 = blockIdx.z * kGateRows;
+  const int warp = threadIdx.x >> 5;
+  const int dy = warp / 3;
+  const int mw = (warp - 3 * dy) * 48;  // the warp's first gate row
+  const int g = (threadIdx.x >> 2) & 7;
+  const int t = threadIdx.x & 3;
+  const int xs = (a.W + T - 1) / T;
+  const int ys = (a.H + RY - 1) / RY;
+  const int n_chunks = a.nb * ys * xs;
+  const int S_ = gridDim.x;
+  const bool rows = m0 + mw < N;  // the warp has gate rows to sum
+  // octets of the block's 16 channels below ceff (padding past C and echo
+  // 0's zero state are skipped)
+  const bool used[2] = {cp0 < a.ceff, cp0 + 8 < a.ceff};
+
+  float acc[3][6][4];
+#pragma unroll
+  for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+
+  ring(
+      reinterpret_cast<float*>(smem_c), kDkStageB / 4,
+      slot < n_chunks ? (n_chunks - 1 - slot) / S_ + 1 : 0,
+      [&](int s, float* buf) {
+        const int chunk = slot + s * S_;
+        const int xq = chunk % xs;
+        const int by = chunk / xs;
+        dk_load_bf16(a, reinterpret_cast<uint8_t*>(buf), by / ys,
+                     (by % ys) * RY, xq * T, m0, cp0);
+      },
+      [&](const float* st) {
+        if (!rows) return;
+        // this chunk's sums on the tensor core from zero, then rounded into
+        // the FP32 accumulators (a slot walks thousands of pixels an echo)
+        float d[3][6][4];
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) d[mi][j][r] = 0.f;
+        dk_step_bf16(reinterpret_cast<const uint8_t*>(st), used, mw, dy, d);
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mi][j][r] += d[mi][j][r];
+      });
+  if (!rows) return;
+
+  float* part = a.part + (long long)slot * 9 * a.C * N;
+#pragma unroll
+  for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = m0 + mw + 16 * mi + g + 8 * (r >> 1);
+        const int c = cp0 + 8 * (j & 1) + 2 * t + (r & 1);
+        const int tap = dy * 3 + (j >> 1);
+        if (n < N && c < a.ceff)
+          part[((long long)tap * a.C + c) * N + n] += acc[mi][j][r];
+      }
+}
+
+// The first dk_blocks blocks: dk[i] = the sum of part[s][i] over the dk
+// slots in order. The others, 8 columns each: db[n] = the sum of
+// part_db[j][n] over the pixel tiles (nb x 1152 rows at 384^2), 32 row
+// lanes each summing every 32nd row in order, then a fixed tree over the
+// lanes. Both stored as bf16.
+__global__ void __launch_bounds__(256)
+    sum_slots_bf16(const float* part, int n_slots, long long K,
+                   const float* part_db, int n_db, int N, uint16_t* dk,
+                   uint16_t* db, int dk_blocks) {
+  if ((int)blockIdx.x < dk_blocks) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < K) {
+      float s = 0.f;
+      for (int j = 0; j < n_slots; ++j) s += part[j * K + i];
+      dk[i] = f2bf(s);
+    }
+    return;
+  }
+  __shared__ float red[32][8];
+  const int col = threadIdx.x & 7, lane = threadIdx.x >> 3;
+  const int n = ((int)blockIdx.x - dk_blocks) * 8 + col;
+  float s = 0.f;
+  if (n < N) {
+#pragma unroll 8
+    for (int j = lane; j < n_db; j += 32) s += part_db[(long long)j * N + n];
+  }
+  red[lane][col] = s;
+  __syncthreads();
+  for (int w = 16; w > 0; w >>= 1) {
+    if (lane < w) red[lane][col] += red[lane + w][col];
+    __syncthreads();
+  }
+  if (lane == 0 && n < N) db[n] = f2bf(red[0][col]);
 }
 
 }  // namespace
 
-// Largest shared memory any block of the backward needs at (cin, F): the
-// float32 stages', which the bf16 ones do not exceed.
+// Largest shared memory any float32 block of the backward needs at (cin, F).
 extern "C" long long convlstm_bwd_smem_bytes(int cin, int F) {
-  const size_t a = gates_smem_bytes<float>(gates_gpb(F));
+  const size_t a = gates_smem_bytes(gates_gpb(F));
   const size_t b =
-      2 * (size_t)dinp_stage<float>(dinp_cpb(cin + F)) * sizeof(float);
+      2 * (size_t)dinp_stage(dinp_cpb(cin + F)) * sizeof(float);
   const size_t c = 2 * (size_t)kDkStage * sizeof(float);
   return (long long)(a > b ? (a > c ? a : c) : (b > c ? b : c));
 }
 
-// One echo e of the reverse sweep: (a) dgates and dc_{e-1}, (b) dh_{e-1} and
-// (when dx is not null) dx_e, (c) dk/db slot partials. Null pointers: dc at
-// the last echo; h_prev, c_prev, dc_prev and dh_prev at echo 0 (has_state
-// 0). dh, dc, dgates, dc_prev and dh_prev are channels-last (nb, H, W, ·);
-// h_prev and c_prev are the forward kernel's (nb, F, H, W). Returns the
-// first cudaError_t of the launches (0 on success). The caller checks
-// convlstm_bwd_smem_bytes against a block's shared memory.
+// One echo e of the float32 reverse sweep: (a) dgates and dc_{e-1}, (b)
+// dh_{e-1} and (when dx is not null) dx_e, (c) dk/db slot partials. Null
+// pointers: dc at the last echo; h_prev, c_prev, dc_prev and dh_prev at echo
+// 0 (has_state 0). dh, dc, dgates, dc_prev and dh_prev are channels-last
+// (nb, H, W, ·); h_prev and c_prev are the forward kernel's (nb, F, H, W).
+// Returns the first cudaError_t of the launches (0 on success). The caller
+// checks convlstm_bwd_smem_bytes against a block's shared memory.
 extern "C" int convlstm_echo_bwd(
     const float* x, long long x_b, const float* k, const float* bias,
     const float* h_prev, const float* c_prev, const float* dh,
@@ -924,30 +1186,108 @@ extern "C" int convlstm_bwd_reduce(const float* part, const float* part_b,
                                    float* dk, float* db, int n_slots,
                                    long long K, int N, int device,
                                    void* stream) {
-  return bwd_reduce(part, part_b, dk, db, n_slots, K, N, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  const long long n = K > N ? K : N;
+  sum_slots<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+              static_cast<cudaStream_t>(stream)>>>(part, part_b, dk, db,
+                                                   n_slots, K, N);
+  return (int)cudaGetLastError();
 }
 
-// One echo of the reverse sweep in the bf16 storage mode: x, k, the bias,
-// h_prev, c_prev (the recompute's bf16 stacks) and dx are bf16; dh, dc,
-// dgates, dc_prev, dh_prev and the partials f32. Arguments otherwise as
-// convlstm_echo_bwd.
+// One echo e of the reverse sweep in the bf16 storage mode. inp: the echo's
+// input buffer (nb, H, W, cp), x_e and h_{e-1} (the recompute's stack);
+// w, wb: the packed weights of (a) (_pack_gate_weights at gpb) and (b)
+// (_pack_dinp_weights at cpb); c_prev: the stack's bf16 c_{e-1} (nb, H, W,
+// F); dh, dc, dc_prev, dh_prev f32 (nb, H, W, F); dz bf16 (nb, H, W, np),
+// np = 4F rounded up to 16 (columns past 4F zero); dx bf16 (nb, ne, H, W,
+// Cin), echo e; part (n_slots, 9, C, 4F) and part_db (nb * 16x8 pixel
+// tiles, 4F) f32 partials, added to. Null pointers as convlstm_echo_bwd. Returns the first
+// cudaError_t of the map or the launches.
 extern "C" int convlstm_echo_bwd_bf16(
-    const uint16_t* x, long long x_b, const uint16_t* k, const uint16_t* bias,
-    const uint16_t* h_prev, const uint16_t* c_prev, const float* dh,
-    const float* dc, float* dgates, float* dc_prev, float* dh_prev,
-    uint16_t* dx, long long dx_b, float* part, float* part_b, int n_slots,
-    int nb, int cin, int F, int H, int W, int has_state, int device,
-    void* stream) {
-  return echo_bwd(x, x_b, k, bias, h_prev, c_prev, dh, dc, dgates, dc_prev,
-                  dh_prev, dx, dx_b, part, part_b, n_slots, nb, cin, F, H, W,
-                  has_state, device, stream);
+    const uint16_t* inp, const uint16_t* w, const uint16_t* wb,
+    const uint16_t* bias, const uint16_t* c_prev, const float* dh,
+    const float* dc, uint16_t* dz, float* dc_prev, float* dh_prev,
+    uint16_t* dx, long long dx_b, float* part, float* part_db, int n_slots,
+    int nb, int cin, int F, int H, int W, int cp, int gpb, int cpb,
+    int has_state, int device, void* stream) {
+  // the plan (ops/convlstm.py::_bf16_plan) must fit the compiled tiles
+  if (gpb < 1 || gpb > kMaxGroups || cp % 8 != 0 || cp < cin + F ||
+      cpb < 8 || cpb > kCols || cpb % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = ((W + T - 1) / T) * ((H + T - 1) / T);  // (b): 16x16
+  const int tiles8 = ((W + T - 1) / T) * ((H + TH - 1) / TH);  // (a): 16x8
+  const int np = (4 * F + 15) / 16 * 16;
+
+  GatesArgsB ga{};
+  const int rc = encode_input_map(&ga.conv.in, inp, cp, W, H, nb);
+  if (rc != 0) return rc;
+  ga.conv.w = w;
+  ga.conv.F = F;
+  ga.conv.H = H;
+  ga.conv.W = W;
+  ga.conv.cp = cp;
+  ga.conv.gpb = gpb;
+  ga.conv.n_chunks = has_state ? (cp + 15) / 16 : (cin + 15) / 16;
+  ga.conv.k16 = 9 * (cp / 16) + (cp % 16 ? 5 : 0);
+  ga.bias = bias;
+  ga.c_prev = c_prev;
+  ga.dh = dh;
+  ga.dc = dc;
+  ga.dz = dz;
+  ga.dc_prev = dc_prev;
+  ga.part_db = part_db;
+  ga.np = np;
+  ga.has_state = has_state;
+  size_t bytes = wg_smem_bytes(gpb);
+  err = allow_smem(gates_wg_bf16, bytes);
+  if (err != cudaSuccess) return (int)err;
+  gates_wg_bf16<<<dim3(((F + 7) / 8 + gpb - 1) / gpb, tiles8, nb), 256, bytes,
+                  st>>>(ga);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int c0 = dx ? 0 : cin;
+  const int c1 = has_state ? cin + F : cin;
+  if (c1 > c0) {
+    DinpArgsB d{dz, wb, dx, dx_b, has_state ? dh_prev : nullptr,
+                cin, F, H, W, np, c0, c1, cpb, c0 / cpb};
+    bytes = 2 * (size_t)dinp_stage_bf16(cpb);
+    err = allow_smem(dinp_mma_bf16, bytes);
+    if (err != cudaSuccess) return (int)err;
+    dinp_mma_bf16<<<dim3(tiles, (c1 - 1) / cpb - c0 / cpb + 1, nb),
+                    kWarps * 32, bytes, st>>>(d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  DkArgsB kd{inp, dz, part, nb, F, H, W, cp, np, cin + F,
+             has_state ? cin + F : cin};
+  bytes = 2 * (size_t)kDkStageB;
+  err = allow_smem(dk_mma_bf16, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dk_mma_bf16<<<dim3(n_slots, (kd.ceff + 15) / 16,
+                     (4 * F + kGateRows - 1) / kGateRows),
+                9 * 32, bytes, st>>>(kd);
+  return (int)cudaGetLastError();
 }
 
-// dk (3, 3, C, 4F) and db (4F) in bf16 from the slot partials.
-extern "C" int convlstm_bwd_reduce_bf16(const float* part,
-                                        const float* part_b, uint16_t* dk,
-                                        uint16_t* db, int n_slots,
-                                        long long K, int N, int device,
+// dk (3, 3, C, 4F) and db (4F) in bf16 from the partials: part (n_slots, K)
+// and part_db (n_db, N).
+extern "C" int convlstm_bwd_reduce_bf16(const float* part, int n_slots,
+                                        long long K, const float* part_db,
+                                        int n_db, int N, uint16_t* dk,
+                                        uint16_t* db, int device,
                                         void* stream) {
-  return bwd_reduce(part, part_b, dk, db, n_slots, K, N, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int dk_blocks = (int)((K + 255) / 256);
+  sum_slots_bf16<<<dk_blocks + (N + 7) / 8, 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      part, n_slots, K, part_db, n_db, N, dk, db, dk_blocks);
+  return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 `ideal_gan_tpu/models/convlstm.py`).
 
 Consumes (nb, ne, H, W, Cin) echoes and returns the final hidden state as
-NCHW (nb, F, H, W). The parameters keep the reference's split, an input
+a contiguous NCHW (nb, F, H, W) tensor (the bf16 kernel's channels-last
+result copied into it, the float32 kernel's taken as it is). The parameters keep the reference's split, an input
 convolution with bias and a recurrent convolution without, and are merged
 along the input-channel axis at call time into one (3, 3, Cin+F, 4F) kernel,
 so that each echo is a single convolution over concat(x_e, h). Gate order is
@@ -52,7 +53,10 @@ class ConvLSTM(nn.Module):
             x.to(dtype).contiguous(), self.merged_kernel().to(dtype),
             self.input_conv.bias.to(dtype).contiguous(), self.activation,
             self.recurrent_activation)
-        return hidden.permute(0, 3, 1, 2)
+        # NCHW for the net: in float32 a view of the kernel's NCHW buffer;
+        # the bf16 kernel's (nb, H, W, F) result is copied here, so the
+        # net's cuDNN convolutions and norms keep the layout they had
+        return hidden.permute(0, 3, 1, 2).contiguous()
 
     def init_params(self, generator: torch.Generator) -> None:
         w = self.input_conv.weight

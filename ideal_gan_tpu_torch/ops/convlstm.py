@@ -5,8 +5,8 @@
 `torch.autograd.Function` that saves only (x, k_merged, bias), as the JAX
 package's custom VJP does. Its forward is `convlstm_forward`, which launches
 the hand-written kernel `csrc/convlstm_fwd.cu` (a 3xTF32 implicit GEMM on
-the tensor cores with the cell in its epilogue; one bf16 MMA a product in
-the bf16 storage mode) once per echo for CUDA
+the tensor cores with the cell in its epilogue; in the bf16 storage mode a
+wgmma mainloop over TMA-staged patches) once per echo for CUDA
 tensors; its backward is `convlstm_backward`, which recomputes the per-echo
 states with that kernel and runs the reverse sweep of `csrc/convlstm_bwd.cu`
 (whose gate stage shares the forward's mainloop, `csrc/convlstm_tile.cuh`).
@@ -14,9 +14,11 @@ CPU tensors take the plain versions, `convlstm_reference` and
 `convlstm_backward_reference`; a CUDA tensor the kernels cannot take
 raises. Layouts follow the JAX package at this boundary: x (nb, ne, H, W,
 Cin), merged kernel (3, 3, Cin+F, 4F) HWIO, bias (4F,), result (nb, H, W,
-F). The result is a channels-last view of an NCHW buffer, so `.permute(0,
-3, 1, 2)` gives the contiguous (nb, F, H, W) tensor the rest of the UNet
-uses.
+F). In float32 the result is a channels-last view of an NCHW buffer, so
+`.permute(0, 3, 1, 2)` gives the contiguous (nb, F, H, W) tensor the rest of
+the UNet uses; in bfloat16 it is a contiguous (nb, H, W, F) tensor, whose
+permute is an NCHW tensor in channels-last memory (`models/convlstm.py`
+says who copies it).
 
 Both kernels take float32 or bfloat16 (x, k_merged and bias in one dtype).
 The bfloat16 storage mode is the TPU kernels' bf16 form, and the plain
@@ -30,11 +32,22 @@ bf16 before both of its products (dk's f32 sum and the transposed
 convolution into dx and dh), rounds dx to bf16 per echo, and returns dk and
 db in bf16.
 
+The bf16 kernels keep their state channels-last (`_bf16_plan`): each echo
+reads one bf16 input buffer (nb, H, W, Cp) whose channels [0, Cin) hold
+x_e, [Cin, Cin+F) h_{e-1} and the rest zeros, Cp = Cin+F rounded up to 8.
+The forward's epilogue writes h_e straight into the next echo's buffer (x is
+copied in beside it), c and the backward's stacks are (nb, H, W, F), and the
+backward's recompute fills one such buffer per echo, which the reverse
+sweep then reads. The weights are packed once per call, by reshapes and
+permutes only, into the shared-memory images the kernels copy whole:
+`_pack_gate_weights` (the forward and the sweep's gate stage, wgmma's B
+operand) and `_pack_dinp_weights` (the sweep's transposed convolution).
+
 The TPU kernels' block search (9 MiB VMEM budget, halo efficiency floor),
 taint fronts, dx overlap-add, routing switch and viability gate have no
 counterpart: the per-echo kernels take any Cin and F, and any nb, H, W up
 to the launch grid's limits (at most 65535 images, and 65535 16×16 pixel
-tiles an image).
+tiles an image; 16×8 tiles for the bf16 gate kernels).
 """
 
 from __future__ import annotations
@@ -51,9 +64,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-_FWD_ARGS = (_I, [_P, _L] + [_P] * 8 + [_I] * 7 + [_P])
 CONVLSTM_KERNEL = Kernel("convlstm_fwd", {
-    "convlstm_echo_fwd": _FWD_ARGS,
+    "convlstm_echo_fwd": (_I, [_P, _L] + [_P] * 6 + [_I] * 7 + [_P]),
     "convlstm_smem_bytes": (_L, [_I]),
 })
 CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
@@ -64,18 +76,27 @@ CONVLSTM_BWD_KERNEL = Kernel("convlstm_bwd", {
 })
 # the bf16 storage mode: the same sources, launches counted apart
 CONVLSTM_BF16_KERNEL = Kernel("convlstm_fwd", {
-    "convlstm_echo_fwd_bf16": _FWD_ARGS,
+    "convlstm_echo_fwd_bf16": (_I, [_P] * 6 + [_L] + [_P] * 2 + [_I] * 9
+                               + [_P]),
 }, name="convlstm_fwd_bf16")
 CONVLSTM_BWD_BF16_KERNEL = Kernel("convlstm_bwd", {
-    "convlstm_echo_bwd_bf16": (_I, [_P, _L] + [_P] * 10 + [_L, _P, _P]
-                               + [_I] * 8 + [_P]),
-    "convlstm_bwd_reduce_bf16": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
+    "convlstm_echo_bwd_bf16": (_I, [_P] * 11 + [_L, _P, _P] + [_I] * 11
+                               + [_P]),
+    "convlstm_bwd_reduce_bf16": (_I, [_P, _I, _L, _P, _I, _I, _P, _P, _I,
+                                      _P]),
 }, name="convlstm_bwd_bf16")
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 227 * 1024
 # the kernels' grids: 16×16 pixel tiles in y, images in z (_TILE must equal
 # T in csrc/convlstm_tile.cuh)
 _TILE = 16
+# the bf16 kernels' blocks: 16x8 pixel tiles and at most 3 groups of 8
+# hidden channels in a gate block (TH, kMaxGroups in csrc/convlstm_tile.cuh),
+# at most 40 output channels in a transposed-convolution block (kCols in
+# csrc/convlstm_bwd.cu)
+_TILE_ROWS = 8
+_GROUPS_BF16 = 3
+_COLS_DINP = 40
 _MAX_GRID_YZ = 65535
 # the profiler range around the backward's state recompute (forward kernel)
 RECOMPUTE_RANGE = "convlstm backward state recompute"
@@ -328,7 +349,9 @@ def _check(x, k_merged, bias, activation, recurrent_activation):
         raise ValueError(f"convlstm kernel: computes leaky_relu / sigmoid "
                          f"gates, not {activation!r} / "
                          f"{recurrent_activation!r}")
-    tiles = -(-h // _TILE) * -(-w // _TILE)
+    # the bf16 gate kernels' tiles are 16x8 (the others' 16x16)
+    tile_h = _TILE_ROWS if x.dtype == torch.bfloat16 else _TILE
+    tiles = -(-h // tile_h) * -(-w // _TILE)
     if tiles > _MAX_GRID_YZ or nb > _MAX_GRID_YZ:
         raise ValueError(f"convlstm kernel: {nb} images of {tiles} pixel "
                          f"tiles exceed the launch grid's {_MAX_GRID_YZ}")
@@ -357,8 +380,11 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
                                   recurrent_activation)
     nb, ne, h, w, cin, f = _check(x, k_merged, bias, activation,
                                   recurrent_activation)
+    if x.dtype == torch.bfloat16:
+        return _forward_bf16(x, k_merged, bias)
     k_merged = _aligned(k_merged)
-    kern, launch = _fwd_launcher(x.dtype)
+    kern = CONVLSTM_KERNEL
+    launch = kern.fn("convlstm_echo_fwd")
     # ping-pong state, separate buffers so the returned hidden state keeps
     # only its own alive
     h_buf, c_buf = [[torch.empty((nb, f, h, w), dtype=x.dtype,
@@ -372,25 +398,117 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
         rc = launch(
             x.data_ptr() + x.element_size() * e * echo_stride,
             ne * echo_stride, k_merged.data_ptr(), bias.data_ptr(),
-            h_buf[src].data_ptr(), c_buf[src].data_ptr(), None,
+            h_buf[src].data_ptr(), c_buf[src].data_ptr(),
             h_buf[dst].data_ptr(), None if last else c_buf[dst].data_ptr(),
-            None, nb, cin, f, h, w, int(e > 0), x.device.index, stream)
+            nb, cin, f, h, w, int(e > 0), x.device.index, stream)
         kern.launches += 1
         check_launch(kern, rc)
     return h_buf[ne % 2].permute(0, 2, 3, 1)
 
 
-def _fwd_launcher(dtype):
-    """(counter, ctypes function) of the forward kernel for a storage
-    dtype: `convlstm_echo_fwd` (float32) or `convlstm_echo_fwd_bf16`. Both
-    take (x_e, x batch stride, k, bias, h_prev, c_prev, c_prev32, h_next,
-    c_next, c_next32, nb, Cin, F, H, W, has_state, device, stream); the
-    float32 cell-chain pointers c_prev32 and c_next32 are the bf16
-    recompute's and null otherwise."""
-    if dtype == torch.bfloat16:
-        return (CONVLSTM_BF16_KERNEL,
-                CONVLSTM_BF16_KERNEL.fn("convlstm_echo_fwd_bf16"))
-    return CONVLSTM_KERNEL, CONVLSTM_KERNEL.fn("convlstm_echo_fwd")
+def _dinp_cpb(nco):
+    """Output channels per transposed-convolution block for nco channels:
+    octets, at most _COLS_DINP, spread evenly (`dinp_cpb` in
+    csrc/convlstm_bwd.cu)."""
+    octets = -(-nco // 8)
+    chunks = -(-octets // (_COLS_DINP // 8))
+    return 8 * -(-octets // chunks)
+
+
+def _bf16_plan(cin, f):
+    """(Cp, gpb, cpb) of the bf16 kernels at Cin, F: the input buffer's
+    channels (Cin+F rounded up to 8: whole 16-byte pixel rows; its K chunks
+    are 16 channels, the last one 8 when Cp % 16 = 8), the groups of 8
+    hidden channels a gate block (at most _GROUPS_BF16, spread evenly over
+    the blocks: N = 32·gpb ≤ 96 keeps two blocks on an SM), and the output
+    channels a transposed-convolution block."""
+    c = cin + f
+    groups = -(-f // 8)
+    blocks = -(-groups // _GROUPS_BF16)
+    return -(-c // 8) * 8, -(-groups // blocks), _dinp_cpb(c)
+
+
+def _pack_gate_weights(k_merged, gpb, cp):
+    """k_merged (3, 3, Cin+F, 4F) as the bf16 gate kernels' shared-memory
+    image, a flat tensor: column block after column block (gpb groups of 8
+    hidden channels, the last one fewer; a block's columns n = 32·jj + 8·q +
+    r are gate q of hidden channel 8·(gpb·block + jj) + r), in each the
+    channel chunks of 16 (the last one 8 when Cp % 16 = 8), in each its k16
+    steps, each step the K-major core matrices of wgmma's B operand:
+    [n8 tile][k half][8 columns][8 k]. A 16-channel chunk's step s is tap s
+    (k = channel − c0); the 8-channel chunk's step s is taps 2s (first k
+    half) and 2s + 1 (second; the tenth tap zero). Channels past Cin+F and
+    hidden channels past F are zero. Layout only: no value changes."""
+    c, n4 = k_merged.shape[2], k_merged.shape[3]
+    f = n4 // 4
+    groups = -(-f // 8)
+    w = k_merged.reshape(9, c, 4, f)
+    w = F.pad(w, (0, 8 * groups - f, 0, 0, 0, cp - c))
+    w = w.reshape(9, cp, 4, groups, 8)
+    n16 = cp // 16
+    parts = []
+    for j0 in range(0, groups, gpb):
+        ng = min(gpb, groups - j0)
+        wb = w[:, :, :, j0:j0 + ng].permute(0, 1, 3, 2, 4) \
+            .reshape(9, cp, 32 * ng)
+        if n16:  # (tap, chunk, k, n) -> (chunk, tap, n8 tile, k half, r, k)
+            t = wb[:, :16 * n16].reshape(9, n16, 2, 8, 4 * ng, 8)
+            parts.append(t.permute(1, 0, 4, 2, 5, 3).reshape(-1))
+        if cp % 16:  # (tap, k, n) -> (step, n8 tile, tap of the step, r, k)
+            t = F.pad(wb[:, 16 * n16:], (0, 0, 0, 0, 0, 1))
+            t = t.reshape(5, 2, 8, 4 * ng, 8)
+            parts.append(t.permute(0, 3, 1, 4, 2).reshape(-1))
+    return torch.cat(parts)
+
+
+def _pack_dinp_weights(k_merged, cpb):
+    """k_merged (3, 3, C, 4F) as the bf16 transposed convolution's
+    shared-memory image, a flat tensor: per block of cpb output channels,
+    per chunk of 16 gates (4F rounded up to 16), per tap t the flipped
+    k[8 − t], as [n8 tile of channels][gate half][8 channels][8 gates] (the
+    m16n8k16 B operand that ldmatrix reads). Channels past C and gates past
+    4F are zero. Layout only: no value changes."""
+    c, n4 = k_merged.shape[2], k_merged.shape[3]
+    np_ = -(-n4 // 16) * 16
+    blocks = -(-c // cpb)
+    w = k_merged.reshape(9, c, n4).flip(0)
+    w = F.pad(w, (0, np_ - n4, 0, blocks * cpb - c))
+    # (tap, block, tile, r, chunk, half, gate) -> (block, chunk, tap, tile,
+    # half, r, gate)
+    w = w.reshape(9, blocks, cpb // 8, 8, np_ // 16, 2, 8)
+    return w.permute(1, 4, 0, 2, 5, 3, 6).reshape(-1)
+
+
+def _forward_bf16(x, k_merged, bias):
+    """The bf16 forward on the card: ping-pong input buffers (nb, H, W, Cp),
+    x_e copied into each echo's before its launch, h_e written by the kernel
+    into the next one's (the last into the result), c in (nb, H, W, F)."""
+    nb, ne, h, w, cin = x.shape
+    f = k_merged.shape[3] // 4
+    dev = x.device
+    cp, gpb, _ = _bf16_plan(cin, f)
+    wpack = _pack_gate_weights(k_merged, gpb, cp)
+    bufs = [torch.zeros((nb, h, w, cp), dtype=x.dtype, device=dev)
+            for _ in range(min(ne, 2))]
+    cs = [torch.empty((nb, h, w, f), dtype=x.dtype, device=dev)
+          for _ in range(min(ne - 1, 2))]
+    out = torch.empty((nb, h, w, f), dtype=x.dtype, device=dev)
+    kern = CONVLSTM_BF16_KERNEL
+    launch = kern.fn("convlstm_echo_fwd_bf16")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for e in range(ne):
+        buf = bufs[e % 2]
+        buf[..., :cin].copy_(x[:, e])
+        last = e == ne - 1
+        rc = launch(
+            buf.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
+            cs[(e - 1) % 2].data_ptr() if e else None, None,
+            out.data_ptr() if last else bufs[(e + 1) % 2].data_ptr() + 2 * cin,
+            f if last else cp, None if last else cs[e % 2].data_ptr(), None,
+            nb, cin, f, h, w, cp, gpb, int(e > 0), dev.index, stream)
+        kern.launches += 1
+        check_launch(kern, rc)
+    return out
 
 
 def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
@@ -423,6 +541,13 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
     if smem > _MAX_SMEM:
         raise ValueError(f"convlstm backward: Cin+F={cin + f} needs {smem} B "
                          f"of shared memory, more than a block has")
+    if x.dtype == torch.bfloat16:
+        cp, gpb, _ = _bf16_plan(cin, f)
+        wpack = _pack_gate_weights(k_merged, gpb, cp)
+        with torch.profiler.record_function(RECOMPUTE_RANGE):
+            stack, cs = _kernel_states_bf16(x, wpack, bias, cp, gpb)
+        return _reverse_sweep_bf16(x, k_merged, bias, g, stack, cs, wpack,
+                                   need_dx)
     k_merged = _aligned(k_merged)
     # the per-echo states the reverse sweep linearises around
     with torch.profiler.record_function(RECOMPUTE_RANGE):
@@ -431,11 +556,9 @@ def convlstm_backward(x, k_merged, bias, g, activation="leaky_relu",
 
 
 def _kernel_states(x, k_merged, bias, n_echoes):
-    """The forward kernel's h_e, c_e for e < n_echoes, as two (max(n_echoes,
-    1), nb, F, H, W) stacks in x's dtype. The bf16 storage mode runs its
-    recompute form: the cell chain carried in two float32 buffers, a bf16
-    copy of each c_e in the stack. The caller has checked x, k_merged
-    (16-byte aligned) and bias."""
+    """The float32 forward kernel's h_e, c_e for e < n_echoes, as two
+    (max(n_echoes, 1), nb, F, H, W) stacks. The caller has checked x,
+    k_merged (16-byte aligned) and bias."""
     nb, ne, h, w, cin = x.shape
     f = k_merged.shape[3] // 4
     dev = x.device
@@ -444,44 +567,121 @@ def _kernel_states(x, k_merged, bias, n_echoes):
     hs = torch.empty((max(n_echoes, 1), nb, f, h, w), dtype=x.dtype,
                      device=dev)
     cs = torch.empty_like(hs)
-    bf16 = x.dtype == torch.bfloat16
-    c32 = [torch.empty((nb, f, h, w), dtype=torch.float32, device=dev)
-           for _ in range(min(n_echoes - 1, 2) if bf16 else 0)]
-    kern, fwd = _fwd_launcher(x.dtype)
+    kern = CONVLSTM_KERNEL
+    fwd = kern.fn("convlstm_echo_fwd")
     for e in range(n_echoes):
         rc = fwd(x.data_ptr() + x.element_size() * e * echo_stride,
                  ne * echo_stride, k_merged.data_ptr(), bias.data_ptr(),
                  hs[e - 1].data_ptr() if e else None,
-                 cs[e - 1].data_ptr() if e and not bf16 else None,
-                 c32[(e - 1) % 2].data_ptr() if e and bf16 else None,
+                 cs[e - 1].data_ptr() if e else None,
                  hs[e].data_ptr(), cs[e].data_ptr(),
-                 c32[e % 2].data_ptr() if bf16 and e + 1 < n_echoes
-                 else None,
                  nb, cin, f, h, w, int(e > 0), dev.index, stream)
         kern.launches += 1
         check_launch(kern, rc)
     return hs, cs
 
 
+def _kernel_states_bf16(x, wpack, bias, cp, gpb):
+    """The bf16 recompute: (the (ne, nb, H, W, Cp) stack of every echo's
+    input buffer, x_e and h_{e-1}; the (max(ne-1, 1), nb, H, W, F) bf16
+    copies of c_e), from ne-1 launches of the forward kernel's recompute
+    form (the cell chain carried in two float32 buffers)."""
+    nb, ne, h, w, cin = x.shape
+    f = bias.shape[0] // 4
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    stack = torch.zeros((ne, nb, h, w, cp), dtype=x.dtype, device=dev)
+    stack[..., :cin] = x.permute(1, 0, 2, 3, 4)
+    cs = torch.empty((max(ne - 1, 1), nb, h, w, f), dtype=x.dtype,
+                     device=dev)
+    c32 = [torch.empty((nb, h, w, f), dtype=torch.float32, device=dev)
+           for _ in range(min(ne - 2, 2))]
+    kern = CONVLSTM_BF16_KERNEL
+    fwd = kern.fn("convlstm_echo_fwd_bf16")
+    for e in range(ne - 1):
+        rc = fwd(stack[e].data_ptr(), wpack.data_ptr(), bias.data_ptr(),
+                 None, c32[(e - 1) % 2].data_ptr() if e else None,
+                 stack[e + 1].data_ptr() + 2 * cin, cp, cs[e].data_ptr(),
+                 c32[e % 2].data_ptr() if e + 2 < ne else None,
+                 nb, cin, f, h, w, cp, gpb, int(e > 0), dev.index, stream)
+        kern.launches += 1
+        check_launch(kern, rc)
+    return stack, cs
+
+
+def _reverse_sweep_bf16(x, k_merged, bias, g, stack, cs, wpack, need_dx):
+    """The bf16 reverse sweep of `csrc/convlstm_bwd.cu` around the
+    recompute's stack and c copies: (dx or None, dk, db) in bf16. dL/dh and
+    dL/dc are float32 (g widened), dL/dz bf16 (nb, H, W, 4F rounded up to
+    16), the dk partials per slot and the db partials per pixel tile
+    float32."""
+    nb, ne, h, w, cin = x.shape
+    f = k_merged.shape[3] // 4
+    dev = x.device
+    cp, gpb, cpb = _bf16_plan(cin, f)
+    wb = _pack_dinp_weights(k_merged, cpb)
+    kern = CONVLSTM_BWD_BF16_KERNEL
+    step = kern.fn("convlstm_echo_bwd_bf16")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    echo_stride = h * w * cin
+    np_ = -(-4 * f // 16) * 16
+    # columns past 4F are read as (b)'s K: zeros
+    dz = (torch.zeros if np_ > 4 * f else torch.empty)(
+        (nb, h, w, np_), dtype=x.dtype, device=dev)
+    dh_in = g.float().contiguous()
+    dh_bufs = [torch.empty_like(dh_in) for _ in range(2)]
+    dc_bufs = [torch.empty_like(dh_in) for _ in range(2)]
+    dc_in = None
+    n_slots = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    part = torch.zeros((n_slots, 9 * (cin + f) * 4 * f), dtype=torch.float32,
+                       device=dev)
+    tiles = -(-h // _TILE_ROWS) * -(-w // _TILE)
+    part_db = torch.zeros((nb * tiles, 4 * f), dtype=torch.float32,
+                          device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    for e in range(ne - 1, -1, -1):
+        has_state = e > 0
+        dh_out, dc_out = dh_bufs[e % 2], dc_bufs[e % 2]
+        rc = step(
+            stack[e].data_ptr(), wpack.data_ptr(), wb.data_ptr(),
+            bias.data_ptr(), cs[e - 1].data_ptr() if has_state else None,
+            dh_in.data_ptr(), None if dc_in is None else dc_in.data_ptr(),
+            dz.data_ptr(), dc_out.data_ptr() if has_state else None,
+            dh_out.data_ptr() if has_state else None,
+            dx.data_ptr() + 2 * e * echo_stride if need_dx else None,
+            ne * echo_stride, part.data_ptr(), part_db.data_ptr(), n_slots,
+            nb, cin, f, h, w, cp, gpb, cpb, int(has_state), dev.index,
+            stream)
+        kern.launches += 1
+        check_launch(kern, rc)
+        dh_in, dc_in = dh_out, dc_out
+    dk = torch.empty_like(k_merged)
+    db = torch.empty_like(bias)
+    rc = kern.fn("convlstm_bwd_reduce_bf16")(
+        part.data_ptr(), n_slots, part.shape[1], part_db.data_ptr(),
+        part_db.shape[0], 4 * f, dk.data_ptr(), db.data_ptr(), dev.index,
+        stream)
+    kern.launches += 1
+    check_launch(kern, rc)
+    return dx, dk, db
+
+
 def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
-    """The reverse sweep of `csrc/convlstm_bwd.cu` around the state stacks
-    hs, cs (echoes 0 .. ne-2, (≥1, nb, F, H, W) in x's dtype): (dx or
-    None, dk, db). The caller has checked every argument. In the bf16
-    storage mode dL/dh, dL/dc and dL/dgates are float32 (g widened), x, k,
-    the bias, the stacks, dx, dk and db bf16."""
+    """The float32 reverse sweep of `csrc/convlstm_bwd.cu` around the state
+    stacks hs, cs (echoes 0 .. ne-2, (≥1, nb, F, H, W)): (dx or None, dk,
+    db). The caller has checked every argument."""
     nb, ne, h, w, cin = x.shape
     f = k_merged.shape[3] // 4
     dev = x.device
     c = cin + f
-    bf16 = x.dtype == torch.bfloat16
-    kern = CONVLSTM_BWD_BF16_KERNEL if bf16 else CONVLSTM_BWD_KERNEL
-    step = kern.fn("convlstm_echo_bwd_bf16" if bf16 else "convlstm_echo_bwd")
+    kern = CONVLSTM_BWD_KERNEL
+    step = kern.fn("convlstm_echo_bwd")
     item = x.element_size()
     stream = torch.cuda.current_stream(dev).cuda_stream
     echo_stride = h * w * cin
     x_b = ne * echo_stride
     dgates = torch.empty((nb, h, w, 4 * f), dtype=torch.float32, device=dev)
-    dh_in = g.float().contiguous()
+    dh_in = g.contiguous()
     dh_bufs = [torch.empty_like(dh_in) for _ in range(2)]
     dc_bufs = [torch.empty_like(dh_in) for _ in range(2)]
     dc_in = None
@@ -509,8 +709,7 @@ def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
         dh_in, dc_in = dh_out, dc_out
     dk = torch.empty_like(k_merged)
     db = torch.empty_like(bias)
-    rc = kern.fn("convlstm_bwd_reduce_bf16" if bf16
-                 else "convlstm_bwd_reduce")(
+    rc = kern.fn("convlstm_bwd_reduce")(
         part.data_ptr(), part_b.data_ptr(), dk.data_ptr(), db.data_ptr(),
         n_slots, part.shape[1], 4 * f, dev.index, stream)
     kern.launches += 1

@@ -219,12 +219,20 @@ def _bf16_gate(scale, ne):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,f,ne,nb,h,w", [
     (2, 36, 6, 2, 20, 36), (1, 36, 6, 2, 20, 36), (2, 72, 6, 1, 37, 53),
-    (3, 6, 3, 1, 15, 23), (1, 4, 1, 2, 11, 19)])
+    (3, 6, 3, 1, 15, 23), (1, 4, 1, 2, 11, 19),
+    # Cp = Cin+F exactly 16 (one 16-channel chunk) and 32; 17 (a 16- and an
+    # 8-channel chunk, Cp 24); a 1x1 image (every tile a corner tile, the
+    # TMA box almost all fill); 9 groups in 3 column blocks at 384²
+    (2, 14, 3, 1, 17, 33), (2, 30, 2, 2, 16, 16), (3, 14, 3, 1, 18, 17),
+    (1, 8, 2, 3, 1, 1), (2, 72, 2, 1, 384, 384)])
 def test_convlstm_bf16_kernels_match_plain(cuda, cin, f, ne, nb, h, w):
     """The bf16 storage mode: forward and backward (kink-free inputs: every
     g-gate pre-activation and cell positive) against their bf16 plain
     versions at `_bf16_gate`, in bf16, launched on the bf16 kernels, two
-    launches bit-identical."""
+    launches bit-identical. The cases hit the edges of the channels-last
+    buffer's K chunks (Cp = Cin+F rounded up to 8, chunks of 16 and a last
+    one of 8), of the TMA box at the image's corners and of the column
+    blocks."""
     x, k, b = _lstm_case(nb=nb, ne=ne, h=h, w=w, cin=cin, f=f, seed=cin + f,
                          device=cuda)
     k = k * 0.1
@@ -266,6 +274,34 @@ def test_convlstm_kernels_take_float32_or_bfloat16_only(cuda):
     with pytest.raises(TypeError):
         ops.convlstm_backward(*half, g)
     assert {kn.name: kn.launches for kn in ops.KERNELS} == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drift", ["gpb", "cpb", "cp"])
+def test_convlstm_bf16_entries_reject_a_plan_their_tiles_do_not_fit(
+        cuda, monkeypatch, drift):
+    """The bf16 entries check the plan that `_bf16_plan` mirrors from the
+    compiled constants (more than kMaxGroups groups a gate block, more than
+    kCols output channels a dinp block, an input buffer narrower than
+    Cin+F) and raise through check_launch instead of computing wrong
+    values."""
+    from ideal_gan_tpu_torch.ops import convlstm as cl
+    plan = cl._bf16_plan
+
+    def drifted(cin, f):
+        cp, gpb, cpb = plan(cin, f)
+        return {"gpb": (cp, 4, cpb), "cpb": (cp, gpb, 48),
+                "cp": (cp // 16 * 16, gpb, cpb)}[drift]
+
+    monkeypatch.setattr(cl, "_bf16_plan", drifted)
+    x, k, b = (t.to(torch.bfloat16) for t in _lstm_case(f=36, device=cuda))
+    with pytest.raises(RuntimeError, match="error code"):
+        if drift == "cpb":
+            g = torch.ones((2, 20, 36, 36), dtype=torch.bfloat16, device=cuda)
+            ops.convlstm_backward(x, k, b, g)
+        else:
+            ops.convlstm_forward(x, k, b)
+    torch.cuda.synchronize()
 
 
 def test_kink_masked_gradient_leaves_no_gradient_at_the_kink():

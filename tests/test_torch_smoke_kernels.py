@@ -148,7 +148,7 @@ def test_convlstm_bf16_entries_rehearse_on_cpu(chip_smoke):
     assert fwd["source"] == ops.CONVLSTM_KERNEL.source
     assert fwd["replaces"].endswith(":177") and bwd["replaces"].endswith(
         ":517")
-    assert fwd["hmma"] is None and bwd["hmma"] is None
+    assert fwd["sass"] is None and bwd["sass"] is None
     assert fwd["max_abs_err"] == bwd["max_abs_err"] == 0.0
     assert fwd["deterministic"] and bwd["deterministic"]
     assert fwd["wide"]["F"] == bwd["wide"]["F"] == 8
@@ -182,7 +182,9 @@ def test_convlstm_bf16_entries_rehearse_on_cpu(chip_smoke):
 
 
 def test_hmma_count_reads_cuobjdump(chip_smoke, monkeypatch, tmp_path):
-    """`hmma_counts` counts HMMA lines per kernel in `cuobjdump -sass`."""
+    """`hmma_counts` counts HMMA and HGMMA lines per kernel in `cuobjdump
+    -sass`; `sass_counts` the lines that hold each label's substrings, and
+    `bf16_claims_missing` names the instructions a bf16 kernel lacks."""
     from ideal_gan_tpu_torch.ops import _build
     lib = tmp_path / "lib.so"
     lib.write_bytes(b"")
@@ -193,7 +195,12 @@ def test_hmma_count_reads_cuobjdump(chip_smoke, monkeypatch, tmp_path):
                     "  /*0020*/ FADD R1, R2, R3 ;\n"
                     "  /*0030*/ HMMA.1684.F32.TF32 R4, R8, R12, R4 ;\n"
                     "  Function : _ZN4anon9sum_slotsE\n"
-                    "  /*0010*/ FADD R1, R2, R3 ;\nX\n")
+                    "  /*0010*/ FADD R1, R2, R3 ;\n"
+                    "  Function : _ZN4anon13gates_wg_bf16E\n"
+                    "  /*0010*/ UTMALDG.4D [UR8], [UR4] ;\n"
+                    "  /*0020*/ HGMMA.64x96x16.F32.BF16 R24, gdesc[UR4], "
+                    "R24 ;\n"
+                    "  /*0030*/ LDSM.16.M88.4 R4, [R2] ;\nX\n")
     tool.chmod(0o755)
     monkeypatch.setattr(_build, "_lib_path", lambda name: lib)
     monkeypatch.setenv("PATH", f"{tmp_path}:/usr/bin:/bin")
@@ -203,3 +210,13 @@ def test_hmma_count_reads_cuobjdump(chip_smoke, monkeypatch, tmp_path):
     # with an opcode, only the HMMA lines that hold it
     assert chip_smoke.hmma_counts("convlstm_bwd", ["gates_mma"], "BF16") \
         == {"gates_mma": 0}
+    assert chip_smoke.hmma_counts("convlstm_bwd", ["gates_wg_bf16"],
+                                  "BF16") == {"gates_wg_bf16": 1}
+    sass = chip_smoke.sass_counts("convlstm_bwd", ["gates_wg_bf16"],
+                                  chip_smoke.BF16_SASS)
+    assert sass == {"gates_wg_bf16": dict(HGMMA=1, HMMA=0, UTMALDG=1,
+                                          UBLKCP=0, LDGSTS=0, LDSM=1,
+                                          LDG16=0)}
+    assert chip_smoke.bf16_claims_missing(sass) == [("gates_wg_bf16",
+                                                     "UBLKCP")]
+    assert chip_smoke.bf16_claims_missing(None) == []
