@@ -3,7 +3,10 @@
 AI-DEAL serving, magnitude training, Mag serving, VET-Net serving,
 supervised training with 2D-Net serving, the other TE-augmentation
 generators, AI-DEAL's uncertainty path (UQ training, σ-calibration,
-PDFF-var serving) and the single-subject trainer on one NVIDIA card.
+PDFF-var serving), the single-subject trainer, the trainers' options, the
+run record (settings, summaries, checkpoints, preemption, TrainLoop) and
+the ROI evaluation (in-vivo ROI bias, the vial phantom) on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -186,6 +189,45 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             --microbatch 2` (F=72, f32, one epoch), then the microbatched
             gradients held to the full batch's on the same noise (loss
             2e-5, gradients 2e-2 of scale) and both steps timed.
+14. record  the run record at full width: `cli.train_sup --G_model U-Net
+            --out_vars PM` (F=72, 44 synthetic 384² slices, batch 2: 4 held
+            out, 20 steps an epoch) for 2 epochs, counted; fails unless
+            settings.yml reads back equal to the flags over `sup.DEFAULTS`,
+            every metric of each epoch's last step equals its `G_losses/*`
+            scalar (float32) in the train and validation event files at
+            steps 20 and 40, the last epoch's checkpoint is there, and a
+            rerun to 3 epochs under `--profile_dir` resumes from epoch 2,
+            runs only the third (summary at 60) and writes a
+            `torch.profiler` trace with device kernels; the fit kernel once
+            a step. Then `train.common.TrainLoop` with the AI-DEAL FM step
+            (F=36, batch 2, 10 steps an epoch, a checkpoint every epoch):
+            2 epochs (the cycle and both ConvLSTM kernels every step, a
+            summary at step 20), then 3, which must skip the 2 finished.
+            Reports the step's ms with and without `RunRecord.step` in
+            turns (`record_cost`).
+15. preempt `cli.train_sup` (U-Net PM, F=72, 4 slices at batch 2, 500
+            epochs) in a subprocess, SIGTERM after its "epoch 2/" line;
+            fails unless it exits 0 with "preempted: checkpointed epoch N",
+            ckpt-N is on disk, and a rerun to N + 1 epochs prints "resumed
+            from epoch N" and exits 0.
+16. roi      `cli.roi_analysis.main --model_sel AI-DEAL` (F=36, 16
+            synthetic 384² slices, `--infer_batch 8`, TF32 on) served from
+            the train phase's run, two ROIs a slice from `save_crops`,
+            counted; fails unless its workbook, read back by `read_xlsx`,
+            equals `roi_stats` of the maps `infer_maps` returned, the fit
+            and ConvLSTM forward ran once a chunk, and, as e2e compares,
+            the first chunk served again with TF32 off has its ROI PDFF
+            within 5e-3 of the CPU's where the ROI's median |W+F| > 0.2
+            (the counted run's gap to the CPU is reported).
+17. phantom  the port's 11-vial phantom (`cli.phantom_parity`, 192×128)
+            at 1.5 T and 3 T, TF32 on, each counted: the synthesis, fit
+            and magnitude fit kernels once each, every vial median of both
+            paths within 5e-4 PDFF of `PHANTOM_PARITY.json`'s `repo` value,
+            the complex path within 0.03 of the ground truth, and the
+            medians with TF32 off equal to these; then
+            `cli.roi_realphantom`'s GraphCuts path on the 1.5 T phantom
+            with the 11 vial ROIs, whose workbook must hold 11 vials. The
+            44 medians are printed.
 
 The kernels phase also holds the ConvLSTM kernels' bf16 storage mode
 (`convlstm_bf16_entries`): the forward and the backward (kink-free inputs)
@@ -203,8 +245,9 @@ the train phase for the cycle and the ConvLSTM backward, teaug for the
 synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
 the magnitude fit, the options phase's bf16 AI-DEAL run for the bf16
 ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
-counts of the sup, teaug_gens, uq, single and options runs) and `{"ok": true,
-"device": {...}}`.
+counts of the sup, teaug_gens, uq, single and options runs, and of
+roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run) and
+record_cli) and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2042,7 +2085,7 @@ def vetnet_serve_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
     stays float32); the phase-constrained fit of the card's (φ, R2*) on
     the CPU, against the card's fit of them; and the served maps' distance
     from those of the seeded initial weights at the experiment's settings
-    (its `settings.json` without its checkpoints), which shows the
+    (its `settings.yml` without its checkpoints), which shows the
     checkpoint was read."""
     import shutil
 
@@ -2100,7 +2143,7 @@ def vetnet_serve_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
             phase_constraint=True).numpy()
     seeded = out_dir / "seeded"
     seeded.mkdir()
-    shutil.copy(exp / "settings.json", seeded)
+    shutil.copy(exp / "settings.yml", seeded)
     seeded_maps = serve(dict(cfg, experiment_dir=str(seeded)), dev)
 
     # PDFF = |F|/|W+F| is ill-conditioned where the fitted water and fat
@@ -2429,7 +2472,7 @@ def sup_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
                                   field=cfg["field"]).numpy()
     seeded = out_dir / "seeded"
     seeded.mkdir()
-    shutil.copy(exp / "settings.json", seeded)
+    shutil.copy(exp / "settings.yml", seeded)
     seeded_maps = serve(dict(cfg, experiment_dir=str(seeded)), dev)
 
     # PDFF = |F|/|W+F| where |W+F| > 0.2, as the other serving phases; ρ
@@ -3236,6 +3279,478 @@ def check_options(o: dict) -> None:
                              f"disagree: {m['parity']}")
 
 
+# the run-record CLI: U-Net PM at F=72, 44 slices at batch 2 hold out 4 for
+# validation and leave 40 for 20 steps an epoch, so each epoch's last step
+# is a summary step
+RECORD_SLICES, RECORD_BATCH = 44, 2
+
+
+def _summary_gaps(scalars: dict, epochs: list, steps_per_epoch: int,
+                  name: str = "G_losses") -> dict:
+    """For each summary step that ends an epoch, the metrics of that
+    epoch's record (its last step's) against the event file's scalars:
+    {tag: |float32(metric) − scalar|}, and the tags the file misses."""
+    import numpy as np
+    gaps, missing = {}, []
+    for ep in epochs:
+        step = ep["epoch"] * steps_per_epoch
+        for k, v in ep.items():
+            if not isinstance(v, float) or k == "seconds":
+                continue
+            got = dict(scalars.get(f"{name}/{k}", []))
+            if step not in got:
+                missing.append(f"{name}/{k}@{step}")
+                continue
+            gaps[f"{name}/{k}@{step}"] = abs(float(np.float32(v)) - got[step])
+    return dict(max_gap=max(gaps.values(), default=None), compared=len(gaps),
+                missing=missing)
+
+
+def trainloop_run(dev, out_dir: Path, size: int, f: int, batch: int,
+                  steps: int = 10) -> dict:
+    """`train.common.TrainLoop` driving the AI-DEAL FM step (the cycle and
+    both ConvLSTM kernels) for 2 epochs of `steps` steps with a checkpoint
+    every epoch, counted, then again for 3 epochs: it must resume from
+    epoch 2 and run only the third."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train import unsup
+    from ideal_gan_tpu_torch.train.common import TrainLoop, batch_iterator
+    from ideal_gan_tpu_torch.utils.summary import read_scalars
+
+    cfg = dict(unsup.DEFAULTS, n_G_filters=f, batch_size=batch,
+               total_steps=3 * steps)
+    acqs, _, te = load_cohorts(dict(cfg, synthetic=batch * steps,
+                                    data_size=size))
+    g_fm, g_r2 = unsup.build_models(cfg)
+    step_fn, tx = unsup.make_train_step(cfg, g_fm, g_r2)
+    state = unsup.init_state(cfg, g_fm, g_r2, tx,
+                             torch.Generator().manual_seed(0), dev)
+    calls = []
+
+    def step(st, b):
+        calls.append(1)
+        return step_fn(st, b)
+
+    def batches():
+        return batch_iterator((acqs, te), batch, np.random.default_rng(0))
+
+    runs = []
+    for epochs in (2, 3):
+        loop = TrainLoop(step, str(out_dir), epoch_ckpt=1, device=dev)
+        calls.clear()
+        _, wall, launches = counted(dev, lambda: loop.run(state, epochs,
+                                                          batches))
+        runs.append(dict(steps=len(calls), wall_s=wall, launches=launches,
+                         checkpoints=loop.record.ckpt.steps()))
+    scalars = read_scalars(out_dir / "summaries" / "train")
+    return dict(runs=runs, summary_steps=sorted(
+        {st for v in scalars.values() for st, _ in v}),
+        summary_tags=len(scalars), steps_per_epoch=steps)
+
+
+def record_cost(dev, state, out_dir: Path, size: int, f: int, batch: int,
+                steps: int = 40) -> dict:
+    """The U-Net PM step's ms on a fixed batch without and with the run
+    record's per-step call (`RunRecord.step`: host floats and a summary
+    every 20 steps), `steps` steps a run, in turns off, on, on, off after
+    a warm-up run, each run ending in a synchronisation."""
+    import torch
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.train.common import RunRecord
+    from ideal_gan_tpu_torch.train import sup
+
+    cfg = dict(sup.DEFAULTS, n_G_filters=f, G_model="U-Net", out_vars="PM")
+    step_fn, _ = sup.make_train_step(cfg, state.model)
+    data = load_cohorts(dict(cfg, synthetic=batch, data_size=size))
+    bt = tuple(torch.from_numpy(x).to(dev) for x in data)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    record = RunRecord(dict(output_dir=str(out_dir), epochs=1, epoch_ckpt=1),
+                       state, 1)
+
+    def run(on: bool) -> float:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        st = state
+        for _ in range(steps):
+            st, metrics = step_fn(st, bt, gen)
+            if on:
+                record.step(metrics)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    try:
+        run(False)
+        times = {"off": [], "on": []}
+        for on in (False, True, True, False):
+            times["on" if on else "off"].append(run(on))
+    finally:
+        record.close()
+    return dict(ms_per_step=times, steps_per_run=steps,
+                summaries_written=record.gstep // 20)
+
+
+def record_phase(dev, out_dir: Path, size: int = SIZE, f: int = F_TEAUG,
+                 n: int = RECORD_SLICES, batch: int = RECORD_BATCH,
+                 loop_f: int = F_MAIN, loop_steps: int = 10,
+                 cost_steps: int = 40) -> dict:
+    """The run record: `cli.train_sup --G_model U-Net --out_vars PM` for 2
+    epochs of 20 steps (counted), its settings.yml read back, its G_losses
+    scalars (train and validation) against the epoch records at the
+    summary steps, its checkpoints; a rerun for a third epoch under
+    `--profile_dir` that must resume from epoch 2 and write a trace with
+    device kernels; `TrainLoop` on the card (`trainloop_run`); the step's
+    cost of the record (`record_cost`)."""
+    import json as _json
+
+    from ideal_gan_tpu_torch.cli import train_sup
+    from ideal_gan_tpu_torch.train import sup
+    from ideal_gan_tpu_torch.utils import Checkpoint, Config
+    from ideal_gan_tpu_torch.utils.summary import read_scalars
+
+    flags = dict(synthetic=n, data_size=size, batch_size=batch,
+                 n_G_filters=f, G_model="U-Net", out_vars="PM", epochs=2,
+                 epoch_ckpt=2, seed=0, device=str(dev),
+                 output_base=str(out_dir))
+    argv = [x for k, v in flags.items() for x in (f"--{k}", str(v))]
+    result, wall, launches = counted(dev, lambda: train_sup.main(argv))
+    exp = out_dir / sup.DEFAULTS["dataset"]
+    saved = Config.load(exp / "settings.yml")
+    settings_diff = {k: (saved.get(k), v)
+                     for k, v in {**sup.DEFAULTS, **flags}.items()
+                     if saved.get(k) != v}
+    spe = result["epochs"][0]["steps"]
+    train_gaps = _summary_gaps(read_scalars(exp / "summaries" / "train"),
+                               result["epochs"], spe)
+    val_scalars = read_scalars(exp / "summaries" / "validation")
+    val_gaps = _summary_gaps(val_scalars, [dict(epoch=e["epoch"], **e["val"])
+                                           for e in result["epochs"]], spe)
+    ckpts = Checkpoint(exp / "checkpoints").steps()
+
+    prof = out_dir / "profile"
+    flags3 = dict(flags, epochs=3, profile_dir=str(prof))
+    argv3 = [x for k, v in flags3.items() for x in (f"--{k}", str(v))]
+    again, wall3, launches3 = counted(dev, lambda: train_sup.main(argv3))
+    trace = prof / "trace.json"
+    events = _json.loads(trace.read_text())["traceEvents"] \
+        if trace.exists() else []
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    resumed_gaps = _summary_gaps(read_scalars(exp / "summaries" / "train"),
+                                 again["epochs"], spe)
+    loop = trainloop_run(dev, out_dir / "loop", size, loop_f, batch,
+                         loop_steps)
+    resumed_step = again["state"].step
+    cost = record_cost(dev, again["state"], out_dir / "cost", size, f, batch,
+                       cost_steps)
+    return dict(record_cost=cost, launches=launches, wall_s=wall,
+                steps_per_epoch=spe,
+                epochs=result["epochs"], settings_diff=settings_diff,
+                summaries=train_gaps, validation=val_gaps,
+                checkpoints=ckpts, resumed_epochs=[e["epoch"] for e in
+                                                   again["epochs"]],
+                resumed_step=resumed_step,
+                resumed_summaries=resumed_gaps, resumed_wall_s=wall3,
+                resumed_launches=launches3,
+                checkpoints_after_resume=Checkpoint(
+                    exp / "checkpoints").steps(),
+                trace_events=len(events), trace_kernels=kernels,
+                trainloop=loop, config=dict(size=size, F=f, slices=n,
+                                            batch=batch))
+
+
+def check_record(r: dict, on_card: bool = True) -> None:
+    """The record phase's gates: settings read back equal; every metric of
+    the epochs' last steps equals its scalar in the train and validation
+    event files (float32); checkpoints at the last epoch before and after
+    the resume, which ran only the third epoch; a trace (with device
+    kernels on the card); TrainLoop's 20 + 10 steps, its summary at step
+    20, checkpoints 1–3 and the AI-DEAL kernels in its first run; the fit
+    kernel once a step of the CLI's run."""
+    if r["settings_diff"]:
+        raise AssertionError(f"settings.yml differs: {r['settings_diff']}")
+    for k in ("summaries", "validation", "resumed_summaries"):
+        g = r[k]
+        if g["missing"] or not g["compared"] or g["max_gap"] != 0.0:
+            raise AssertionError(f"record {k}: event scalars differ from "
+                                 f"the step metrics: {g}")
+    if r["steps_per_epoch"] != 20 or 2 not in r["checkpoints"] \
+            or r["resumed_epochs"] != [3] or r["resumed_step"] != 60 \
+            or 3 not in r["checkpoints_after_resume"]:
+        raise AssertionError(f"record: checkpoints or resume wrong: "
+                             f"{r['steps_per_epoch']} steps an epoch, "
+                             f"{r['checkpoints']}, resumed "
+                             f"{r['resumed_epochs']} at step "
+                             f"{r['resumed_step']}, "
+                             f"{r['checkpoints_after_resume']}")
+    if not r["trace_events"] or (on_card and not r["trace_kernels"]):
+        raise AssertionError(f"record: --profile_dir trace has "
+                             f"{r['trace_events']} events, "
+                             f"{r['trace_kernels']} kernels")
+    loop = r["trainloop"]
+    first, second = loop["runs"]
+    n = loop["steps_per_epoch"]
+    if (first["steps"], second["steps"]) != (2 * n, n) \
+            or loop["summary_steps"] != [20] \
+            or second["checkpoints"] != [1, 2, 3]:
+        raise AssertionError(f"TrainLoop: steps {first['steps']}, "
+                             f"{second['steps']}, summaries at "
+                             f"{loop['summary_steps']}, checkpoints "
+                             f"{second['checkpoints']}")
+    steps = 2 * r["steps_per_epoch"]
+    if first["launches"]["ideal_cycle"] < 2 * n or any(
+            first["launches"][k] < 2 * n
+            for k in ("convlstm_fwd", "convlstm_bwd")) \
+            or r["launches"]["ideal_fit"] < steps:
+        raise AssertionError(f"record skipped kernels: TrainLoop "
+                             f"{first['launches']}, CLI {r['launches']}")
+
+
+def _reader(stream, lines):
+    for line in stream:
+        lines.put(line)
+    lines.put(None)
+
+
+def preempt_phase(dev, out_dir: Path, size: int = SIZE, f: int = F_TEAUG,
+                  timeout: float = 600.0) -> dict:
+    """`cli.train_sup` (U-Net PM, 4 slices at batch 2, 500 epochs) in a
+    subprocess, SIGTERM after its "epoch 2/" line; then a rerun to one
+    epoch past the preemption checkpoint."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    args = [sys.executable, "-m", "ideal_gan_tpu_torch.cli.train_sup",
+            "--synthetic", "4", "--data_size", str(size), "--batch_size",
+            "2", "--n_G_filters", str(f), "--G_model", "U-Net", "--out_vars",
+            "PM", "--epochs", "500", "--epoch_ckpt", "100", "--device",
+            str(dev), "--output_base", str(out_dir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=_reader, args=(proc.stdout, lines),
+                     daemon=True).start()
+    out, signalled = [], False
+    try:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(), 0))
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            out.append(line)
+            if line.startswith("epoch 2/"):
+                proc.send_signal(signal.SIGTERM)
+                signalled = True
+                break
+        rc = proc.wait(timeout=timeout)
+        while (line := lines.get(timeout=timeout)) is not None:
+            out.append(line)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(out)
+    m = re.search(r"preempted: checkpointed epoch (\d+), exiting", text)
+    epoch = int(m.group(1)) if m else None
+    ckdir = out_dir / "WF-sup" / "checkpoints"
+    ckpts = sorted(int(p.stem.split("-")[1]) for p in ckdir.glob("ckpt-*.pt"))
+    resume = None
+    if epoch is not None:
+        args[args.index("--epochs") + 1] = str(epoch + 1)
+        res = subprocess.run(args, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        resume = dict(rc=res.returncode, resumed=f"resumed from epoch "
+                      f"{epoch}" in res.stdout, tail=res.stdout[-400:])
+    return dict(signalled=signalled, rc=rc, preempted_epoch=epoch,
+                checkpoints=ckpts, resume=resume, tail=text[-400:],
+                wall_s=time.perf_counter() - t0)
+
+
+def check_preempt(p: dict) -> None:
+    """Exit 0 after the signal, "preempted: checkpointed epoch N", its
+    checkpoint on disk, and a rerun that resumed from it and exited 0."""
+    r = p["resume"]
+    if not p["signalled"] or p["rc"] != 0 or p["preempted_epoch"] is None \
+            or p["preempted_epoch"] not in p["checkpoints"] or r is None \
+            or r["rc"] != 0 or not r["resumed"]:
+        raise AssertionError(f"preemption: {p}")
+
+
+def roi_crops(n: int, size: int, seed: int = 7):
+    """Two ROI anchors a slice for `n` slices, inside the synthetic
+    cohort's body ellipse."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = int(0.3 * size), int(0.6 * size)
+    return (np.arange(n), rng.integers(lo, hi, size=(n, 2)),
+            rng.integers(lo, hi, size=(n, 2)))
+
+
+def roi_phase(dev, out_dir: Path, exp_dir: Path, size: int = SIZE,
+              n: int = 16, batch: int = NB_SERVE) -> dict:
+    """`cli.roi_analysis.main --model_sel AI-DEAL` served from `exp_dir`
+    (the train phase's run) on `n` synthetic slices with two ROIs a slice,
+    counted, at the run's TF32 setting; its workbook read back against
+    `roi_stats` of the maps `infer_maps` returned; then, as the e2e phase
+    compares, the first chunk served again with TF32 off and its ROI values
+    against the CPU's where the ROI's median |W+F| (CPU) > 0.2, the e2e
+    phase's threshold (random nets make water and fat cancel at single
+    voxels), and the counted run's ROI values against the CPU's beside
+    them (not gated: cuDNN's TF32 convolutions)."""
+    import numpy as np
+    from ideal_gan_tpu_torch.cli import roi_analysis
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.eval import roi as roi_mod
+    from ideal_gan_tpu_torch.eval.export import read_xlsx, save_crops
+
+    crops = out_dir / "crops.npy"
+    frms, c1, c2 = roi_crops(n, size)
+    save_crops(str(crops), frms, c1, c2)
+    argv = ["--model_sel", "AI-DEAL", "--experiment_dir", str(exp_dir),
+            "--synthetic", str(n), "--data_size", str(size), "--infer_batch",
+            str(batch), "--crops_file", str(crops), "--dataset", "roi",
+            "--device", str(dev), "--output_base", str(out_dir)]
+    res, wall, launches = counted(dev, lambda: roi_analysis.main(argv))
+    maps = res["maps"]
+    pdff = roi_mod.maps_to_display(maps)[0]
+    want_m = roi_mod.roi_stats(pdff, str(crops))
+    want_r = roi_mod.roi_stats(res["stack_gt"], str(crops))
+    book = read_xlsx(str(res["xlsx"]))
+    want_rows = {
+        sheet: [[s, r, m, m - r] for s, r, m in zip(want_m.slices, vr, vm)]
+        for sheet, vm, vr in (("RHL", want_m.values_1, want_r.values_1),
+                              ("LHL", want_m.values_2, want_r.values_2))}
+    workbook_equal = all(book[k][1:] == v for k, v in want_rows.items())
+
+    cfg = dict(roi_analysis.DEFAULTS, experiment_dir=str(exp_dir),
+               synthetic=n, data_size=size)
+    acqs, _, te = load_cohorts(cfg)
+    a, t = acqs[:batch], te[:batch]
+    set_tf32(False)
+    try:
+        card = roi_analysis._per_slice(
+            roi_analysis.make_infer_run(cfg, a, dev), a, t, batch, dev)[0]
+    finally:
+        set_tf32(True)
+    cpu = roi_analysis._per_slice(roi_analysis.make_infer_run(cfg, a, "cpu"),
+                                  a, t, batch, "cpu")[0]
+    pdff_card = roi_mod.maps_to_display(card)[0]
+    pdff_cpu = roi_mod.maps_to_display(cpu)[0]
+    w_f = cpu[:, 0] + cpu[:, 1]
+    tot = np.abs(w_f[..., 0] + 1j * w_f[..., 1])
+    gaps, tf32_gaps, skipped = [], [], 0
+    for i in range(batch):
+        for lx, sy in (c1[i], c2[i]):
+            box = np.s_[sy:sy + 9, lx:lx + 9]
+            if np.median(tot[i][box]) <= 0.2:
+                skipped += 1
+                continue
+            want = roi_mod.roi_median(pdff_cpu[i], lx, sy)
+            gaps.append(abs(roi_mod.roi_median(pdff_card[i], lx, sy) - want))
+            tf32_gaps.append(abs(roi_mod.roi_median(pdff[i], lx, sy) - want))
+    return dict(launches=launches, wall_s=wall, rois=2 * n,
+                workbook_equal=workbook_equal,
+                mean_bias=float(np.mean(res["errors"])),
+                within_envelope=res["within"],
+                roi_max_abs_err_vs_cpu=max(gaps, default=None),
+                roi_tf32_max_abs_diff_vs_cpu=max(tf32_gaps, default=None),
+                rois_compared=len(gaps), rois_not_compared=skipped,
+                finite=bool(np.isfinite(maps).all()))
+
+
+def check_roi(r: dict, batch: int = NB_SERVE, n: int = 16) -> None:
+    """The workbook equals `roi_stats` of the served maps; the card's ROI
+    PDFF within the e2e phase's 5e-3 of the CPU's where the ROI's median
+    |W+F| > 0.2; the fit and ConvLSTM forward once a chunk (12 a
+    chunk)."""
+    chunks = -(-n // batch)
+    if not r["workbook_equal"] or not r["finite"]:
+        raise AssertionError(f"roi workbook or maps wrong: {r}")
+    if not r["rois_compared"] or r["roi_max_abs_err_vs_cpu"] > 5e-3:
+        raise AssertionError(f"card and CPU ROI values disagree: {r}")
+    if r["launches"]["ideal_fit"] < chunks \
+            or r["launches"]["convlstm_fwd"] < 12 * chunks:
+        raise AssertionError(f"roi path skipped kernels: {r['launches']}")
+
+
+def phantom_phase(dev, out_dir: Path) -> dict:
+    """The port's phantom (`cli.phantom_parity`) at 1.5 T and 3 T on the
+    card at the run's TF32 setting, each field counted: synthesis, the
+    complex fit and the magnitude fit kernels; the 44 vial medians against
+    `PHANTOM_PARITY.json`; the same with TF32 off, as a witness that the
+    setting no longer moves them (the kernels' small matrices are built by
+    torch matmuls at full precision); then `cli.roi_realphantom`'s
+    GraphCuts path on the 1.5 T phantom with the 11 vial ROIs, which
+    writes its workbook."""
+    import numpy as np
+    from ideal_gan_tpu_torch.cli import phantom_parity as pp
+    from ideal_gan_tpu_torch.cli import roi_realphantom
+    from ideal_gan_tpu_torch.cli.common import setup_experiment
+    from ideal_gan_tpu_torch.eval.export import read_xlsx, save_crops
+
+    ref = json.loads(pp.PARITY_FILE.read_text())
+    fields = {}
+    for key in pp.FIELDS:
+        res, wall, launches = counted(dev, lambda: pp.field_result(key, dev,
+                                                                   ref))
+        fields[key] = dict(launches=launches, wall_s=wall, **res)
+    set_tf32(False)
+    try:
+        off = {key: pp.field_result(key, dev, ref)["medians"]
+               for key in pp.FIELDS}
+    finally:
+        set_tf32(True)
+    tf32_moves = max(abs(a - b) for key in pp.FIELDS
+                     for path, meds in off[key].items()
+                     for a, b in zip(meds, fields[key]["medians"][path]))
+    crops = out_dir / "vials.npy"
+    c1 = pp.vial_crops()
+    save_crops(str(crops), np.zeros(len(c1), int), c1, [(-1, -1)] * len(c1))
+    cfg = setup_experiment(roi_realphantom.DEFAULTS, [
+        "--crops_file", str(crops), "--device", str(dev), "--output_base",
+        str(out_dir)])
+    acqs, maps, te, _ = pp.build_phantom(1.5, dev)
+    gc = roi_realphantom.evaluate(cfg, acqs.cpu().numpy(),
+                                  maps.cpu().numpy(), te.cpu().numpy())
+    sheet = read_xlsx(str(gc["xlsx"]))["Phantom"]
+    return dict(fields=fields, gt=list(pp.GT_VALS),
+                tf32_off_max_median_diff=tf32_moves,
+                graphcuts_bias={str(g): b for g, b in gc["bias"].items()},
+                graphcuts_rows=len(sheet) - 1)
+
+
+def check_phantom(p: dict) -> None:
+    """Every vial median within `phantom_parity.PARITY_TOL` (5e-4) of
+    PHANTOM_PARITY.json's, the complex path within 0.03 of the ground
+    truth, one launch of each of the three kernels a field, the medians
+    with TF32 off equal to these, and 11 vials in the GraphCuts
+    workbook."""
+    from ideal_gan_tpu_torch.cli import phantom_parity as pp
+    for key, f in p["fields"].items():
+        if not pp.passes(f):
+            raise AssertionError(f"phantom {key}: {f}")
+        if any(f["launches"][k] != 1 for k in
+               ("ideal_forward", "ideal_fit", "ideal_mag_fit")):
+            raise AssertionError(f"phantom {key} skipped kernels: "
+                                 f"{f['launches']}")
+    if p["tf32_off_max_median_diff"] != 0.0:
+        raise AssertionError(f"the TF32 setting moves the phantom's medians "
+                             f"by {p['tf32_off_max_median_diff']}")
+    if p["graphcuts_rows"] != 11:
+        raise AssertionError(f"GraphCuts workbook: {p['graphcuts_rows']} "
+                             "vials")
+
+
 def main() -> int:
     try:
         import torch
@@ -3267,8 +3782,11 @@ def main() -> int:
          kernels=kernels)
     set_tf32(True)  # the runs at PyTorch's defaults
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        train = train_phase(dev, Path(tmp))
+    # the train phase's run stays on disk until the roi phase serves it
+    keep = contextlib.ExitStack()
+    train_dir = Path(keep.enter_context(tempfile.TemporaryDirectory(
+        prefix=".chip_smoke_", dir=ROOT)))
+    train = train_phase(dev, train_dir)
     emit("train", card=smi, seconds=time.perf_counter() - t0, **train)
     need = {"ideal_cycle": 8, "convlstm_bwd": 8, "convlstm_fwd": 96}
     short = {k: v for k, v in train["launches"].items()
@@ -3366,6 +3884,35 @@ def main() -> int:
         opts = options_phase(dev, Path(tmp))
     emit("options", card=smi, seconds=time.perf_counter() - t0, **opts)
     check_options(opts)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        record = record_phase(dev, Path(tmp))
+    emit("record", card=smi, seconds=time.perf_counter() - t0, **record)
+    check_record(record)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        pre = preempt_phase(dev, Path(tmp))
+    emit("preempt", card=smi, seconds=time.perf_counter() - t0, **pre)
+    check_preempt(pre)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with keep, tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                           dir=ROOT) as tmp:
+        roi = roi_phase(dev, Path(tmp), train_dir / "Unsup-v0")
+    emit("roi", card=smi, seconds=time.perf_counter() - t0, **roi)
+    check_roi(roi)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        phantom = phantom_phase(dev, Path(tmp))
+    emit("phantom", card=smi, seconds=time.perf_counter() - t0, **phantom)
+    check_phantom(phantom)
+    for key, f in phantom["fields"].items():
+        for path, medians in f["medians"].items():
+            print(f"phantom {key} {path}: "
+                  + " ".join(f"{m:.6f}" for m in medians))
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag,
@@ -3381,7 +3928,12 @@ def main() -> int:
                  "aideal_uq_serving_pdff_var": uq["paths"][
                      "aideal_uq_serving_pdff_var"],
                  "single": sgl,
-                 **{f"options_{k}": v for k, v in opts.items()}}
+                 **{f"options_{k}": v for k, v in opts.items()},
+                 "roi_aideal": roi,
+                 **{f"phantom_{k[6:]}": f
+                    for k, f in phantom["fields"].items()},
+                 "record": record["trainloop"]["runs"][0],
+                 "record_cli": record}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

@@ -1,14 +1,14 @@
-"""Shared CLI machinery of the port: flag parsing (argparse, settings written
-as JSON and read back), device resolution, and the cohorts: the HDF5 files
-of `--dataset_dir` or `--synthetic N` slices.
+"""Shared CLI machinery of the port: flag parsing with a settings.yml round
+trip (`utils.config`), device resolution, and the cohorts: the HDF5 files of
+`--dataset_dir` or `--synthetic N` slices.
 
-Counterpart of `ideal_gan_tpu/cli/common.py`.
+Counterpart of `ideal_gan_tpu/cli/common.py`. Its `compile_cache` flag is
+XLA's and has no counterpart; `debug_nans` is not ported yet (ROADMAP
+Queue 1 item 7b).
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import os
 from pathlib import Path
 
@@ -16,49 +16,32 @@ import numpy as np
 import torch
 
 from .. import physics
-
-
-def _parse_bool(v) -> bool:
-    if isinstance(v, bool):
-        return v
-    if v.lower() in ("true", "1", "yes"):
-        return True
-    if v.lower() in ("false", "0", "no"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {v!r}")
-
-
-def parse_flags(defaults: dict, argv=None) -> dict:
-    """Every default becomes a typed --flag (bools accept true/false/1/0)."""
-    parser = argparse.ArgumentParser()
-    for key, val in defaults.items():
-        if isinstance(val, bool):
-            parser.add_argument(f"--{key}", type=_parse_bool, default=val)
-        elif val is None:
-            parser.add_argument(f"--{key}", type=str, default=None)
-        else:
-            parser.add_argument(f"--{key}", type=type(val), default=val)
-    return dict(vars(parser.parse_args(argv)))
+from ..utils import Config, parse_flags
 
 
 def setup_experiment(defaults: dict, argv=None,
-                     settings_name: str = "settings.json") -> dict:
+                     settings_name: str = "settings.yml") -> Config:
     """Parse flags over the shared base settings, create
-    <output_base>/<dataset>/ and write the settings there as JSON."""
+    <output_base>/<dataset>/ and write the settings there as YAML
+    (downstream tools name their own file so they never clobber the
+    training run's `settings.yml`)."""
     base = {"data_size": 192, "synthetic": 0, "dataset_dir": "../datasets/",
-            "output_base": "output", "device": "cuda", "seed": 0}
+            "output_base": "output", "profile_dir": "", "device": "cuda",
+            "seed": 0}
     cfg = parse_flags({**base, **defaults}, argv)
     out_dir = Path(cfg["output_base"]) / cfg["dataset"]
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / settings_name).write_text(json.dumps(cfg, indent=1))
+    cfg.save(out_dir / settings_name)
     cfg["output_dir"] = str(out_dir)
     return cfg
 
 
-def load_settings(experiment_dir) -> dict:
-    """The settings a past run wrote into `experiment_dir`
-    (`settings.json`); FileNotFoundError where there are none."""
-    return json.loads((Path(experiment_dir) / "settings.json").read_text())
+def load_settings(experiment_dir, overlay: dict | None = None) -> Config:
+    """The settings a past run wrote into `experiment_dir` (`settings.yml`),
+    with `overlay`'s entries winning; FileNotFoundError where there are
+    none."""
+    cfg = Config.load(Path(experiment_dir) / "settings.yml")
+    return cfg.overlay(overlay) if overlay else cfg
 
 
 def resolve_device(device) -> torch.device:

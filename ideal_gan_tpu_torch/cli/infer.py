@@ -1,6 +1,6 @@
 """CLI: bulk inference on the card — cohort in, quantitative maps out (port of
 `ideal_gan_tpu/cli/infer.py`, VET-Net, AI-DEAL, Mag and the supervised
-nets, npz export).
+nets, npz and PNG export).
 
     python -m ideal_gan_tpu_torch.cli.infer [--model_sel VET-Net] \\
         [--experiment_dir output/TEaug-300] [--synthetic 16] \\
@@ -26,12 +26,15 @@ Weights come from `--weights` (Flax parameters), or from the experiment a
 port trainer wrote (`--experiment_dir`: its settings and newest
 checkpoint), or else from a seeded random initialization (`--seed`, with a
 printed line). The cohort is `--synthetic N` slices, or else the HDF5
-cohorts under `--dataset_dir`. Writes <output_base>/<dataset>/maps_pred.npz
-(maps MEBCRN + pdff/r2s/field planes) and prints the steady-state
-throughput measured after a warm-up chunk. `--map` PDFF, R2s and Water
-serve the same maps; with PDFF-var the maps' ρ is the GLS estimate, and the
+cohorts under `--dataset_dir`. `--export` (comma list) writes, under
+<output_base>/<dataset>/: `npz` maps_pred.npz (maps MEBCRN + pdff/r2s/field
+planes), `png` panels.png (PDFF | R2* | field rows for `--n_plot` slices;
+matplotlib, which the port does not depend on). Prints the
+steady-state throughput measured after a warm-up chunk. `--map` PDFF, R2s
+and Water serve the same maps; with PDFF-var the maps' ρ is the GLS estimate, and the
 covariance `rho_var` is computed and discarded, as the JAX CLI discards it.
-PNG and DICOM export are not ported yet (ROADMAP Queue 1 item 8).
+DICOM export is not ported yet (SystemExit; `data/dicom.py`, ROADMAP
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -42,28 +45,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..eval.roi import maps_to_display
 from ..physics.constants import FM_SC, R2_SC
 from .common import load_cohorts, resolve_device, setup_experiment
 from .roi_analysis import _per_slice, make_infer_run
 
-EXPORT_FORMATS = ("npz",)
+EXPORT_FORMATS = ("npz", "png")
 
 DEFAULTS = dict(
     dataset="infer", experiment_dir="", model_sel="VET-Net", map="PDFF",
     n_echoes=6, field=1.5, infer_batch=8, export="npz", weights="",
-    rem_R2=False,
+    rem_R2=False, n_plot=4,
 )
-
-
-def maps_to_display(maps: np.ndarray):
-    """MEBCRN maps (n, 3, H, W, 2) → (PDFF, R2*, |W|) stacks; PDFF =
-    |F| / |W + F| (the JAX package's `eval.roi.maps_to_display`)."""
-    w = maps[:, 0, ..., 0] + 1j * maps[:, 0, ..., 1]
-    f = maps[:, 1, ..., 0] + 1j * maps[:, 1, ..., 1]
-    f_abs = np.abs(f)
-    tot = np.abs(w + f)
-    pdff = np.divide(f_abs, tot, out=np.zeros_like(f_abs), where=tot != 0)
-    return pdff, maps[:, 2, ..., 1], np.abs(w)
 
 
 def export_npz(out_dir: Path, maps: np.ndarray, slices_per_s: float):
@@ -76,15 +69,44 @@ def export_npz(out_dir: Path, maps: np.ndarray, slices_per_s: float):
     return path
 
 
+def export_png(out_dir: Path, cfg, maps: np.ndarray):
+    """panels.png: PDFF, R2* (Hz) and field (Hz) rows of the first
+    `n_plot` slices, as the JAX CLI draws them."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    pdff, r2s, _ = maps_to_display(maps)
+    field = maps[:, 2, ..., 0]
+    n = min(int(cfg["n_plot"]), len(pdff))
+    fig, axes = plt.subplots(3, n, figsize=(3 * n, 9), squeeze=False)
+    rows = [("PDFF", pdff, 0.0, 1.0, "viridis"),
+            ("R2* (Hz)", r2s * R2_SC, 0.0, R2_SC, "magma"),
+            ("field (Hz)", field * FM_SC, -FM_SC / 2, FM_SC / 2, "RdBu_r")]
+    for r, (name, stack, vmin, vmax, cmap) in enumerate(rows):
+        for c in range(n):
+            ax = axes[r][c]
+            im = ax.imshow(stack[c], vmin=vmin, vmax=vmax, cmap=cmap)
+            ax.set_axis_off()
+            if c == 0:
+                ax.set_title(name, loc="left")
+        fig.colorbar(im, ax=axes[r][-1], fraction=0.046)
+    fig.tight_layout()
+    path = out_dir / "panels.png"
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
+    return path
+
+
 def main(argv=None):
-    cfg = setup_experiment(DEFAULTS, argv, settings_name="infer.json")
+    cfg = setup_experiment(DEFAULTS, argv, settings_name="infer.yml")
     out_dir = Path(cfg["output_dir"])
     exports = [e.strip() for e in str(cfg["export"]).split(",") if e.strip()]
     unknown = sorted(set(exports) - set(EXPORT_FORMATS))
     if unknown:
         raise SystemExit(f"--export {unknown} not available: the port "
-                         f"writes {', '.join(EXPORT_FORMATS)} (PNG and DICOM "
-                         "are not ported yet)")
+                         f"writes {', '.join(EXPORT_FORMATS)} (DICOM is not "
+                         "ported yet: data/dicom.py, ROADMAP Queue 1 item "
+                         "12)")
     dev = resolve_device(cfg["device"])
     acqs, _, te = load_cohorts(cfg)
     print(f"inference: {len(acqs)} slices, model {cfg['model_sel']}, "
@@ -106,6 +128,8 @@ def main(argv=None):
     written = []
     if "npz" in exports:
         written.append(export_npz(out_dir, maps, slices_per_s))
+    if "png" in exports:
+        written.append(export_png(out_dir, cfg, maps))
     pdff, r2s, _ = maps_to_display(maps)
     print(f"throughput: {slices_per_s:.1f} slices/s steady-state "
           f"({dt * 1e3 / len(acqs):.1f} ms/slice)")

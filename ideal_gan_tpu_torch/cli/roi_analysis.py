@@ -1,11 +1,27 @@
-"""Per-chunk model inference for the serving CLI (port of the AI-DEAL,
-VET-Net, Mag, 2D-Net, U-Net and MDWF branches of
-`ideal_gan_tpu/cli/roi_analysis.py`'s `make_infer_run`, of its `_restore`,
-and of `_per_slice`).
+"""CLI: in-vivo ROI bias evaluation on the card, headless (port of
+`ideal_gan_tpu/cli/roi_analysis.py`), and the per-chunk model inference it
+shares with the serving CLI (`make_infer_run`, `_restore`, `_per_slice`).
+
+    python -m ideal_gan_tpu_torch.cli.roi_analysis --model_sel AI-DEAL \
+        --experiment_dir output/Unsup-v0 [--synthetic 16] --data_size 384 \
+        --infer_batch 8 --map PDFF --crops_file crops.npy \
+        [--te_suffix 1 --te1 0.0014 --dte 0.0022] --output_base output
+
+`main` runs the selected model family over the cohort (`infer_maps`: chunks
+of `--infer_batch` slices on `--device`), computes the PDFF, R2* or Water
+maps, or with `--map PDFF-var` the propagated PDFF variance, evaluates the
+ROI crops of `--crops_file` (default
+`ROI_files/<dataset>_slices_crops.npy`; `--interactive` opens the picker
+first, on a workstation with matplotlib) against the cohort's ground-truth
+maps (PDFF by the ROI median, the others by the mean), prints the mean
+bias and the share within the envelope (±0.03 PDFF, ±10 s⁻¹ R2*, ±0.05
+Water) and writes the RHL/LHL workbook (`--out_xlsx`, or with
+`--te_suffix` `<map>_ROIs_<te1·1e4>_<dte·1e4>.xlsx`) and settings_roi.yml
+under <output_base>/<dataset>/.
 
 Weights come from `--weights` (an `.npz` of Flax parameters), or else from
 the experiment directory a port trainer wrote (`--experiment_dir`: its
-`settings.json` overlaid on the family's `DEFAULTS`, and its newest
+`settings.yml` overlaid on the family's `DEFAULTS`, and its newest
 `checkpoints/ckpt-*.pt`), or else, with a printed line, from a seeded
 random initialization, as the JAX package serves its initial weights where
 the experiment has no checkpoint.
@@ -15,8 +31,7 @@ UQ_R2s): the Normal's loc and variance, the Rician's ν and variance. With
 `--map PDFF-var` it serves ρ and its covariance `rho_var` from
 `physics.pdff_uncertainty` (with `rem_R2`); `pdff_variance_map` turns them
 into the PDFF variance. `GraphCuts` consumes precomputed maps and raises
-SystemExit, as in the JAX package. The ROI evaluation is not ported yet
-(ROADMAP Queue 1 item 8).
+SystemExit, as in the JAX package (`cli.roi_realphantom` fits them).
 """
 
 from __future__ import annotations
@@ -27,13 +42,25 @@ import numpy as np
 import torch
 
 from .. import convert, ops, physics
-from ..prob import Normal, Rician
 from ..data import layouts
+from ..eval import roi as roi_mod
+from ..prob import Normal, Rician
 from ..train import mag, sup, teaug, unsup
 from ..utils import Checkpoint
-from .common import load_settings, resolve_device
+from .common import (load_cohorts, load_settings, resolve_device,
+                     setup_experiment)
 
 FAMILIES = ("AI-DEAL", "VET-Net", "Mag", "2D-Net", "U-Net", "MDWF")
+
+DEFAULTS = dict(
+    dataset="Unsup-v0", experiment_dir="output/Unsup-v0",
+    # U-Net | MDWF | 2D-Net | VET-Net | AI-DEAL | Mag
+    model_sel="AI-DEAL",
+    map="PDFF",  # PDFF | R2s | Water | PDFF-var
+    n_echoes=6, field=1.5, batch_size=1, crops_file="",
+    te1=0.0013, dte=0.0021, out_xlsx="ROI_analysis.xlsx", te_suffix=False,
+    interactive=False, rem_R2=False, infer_batch=1, weights="",
+)
 
 
 def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
@@ -251,7 +278,8 @@ def make_infer_run(cfg, acqs, device="cuda"):
     (maps (nb, 3, H, W, 2), rho_var (nb, 4, H, W, 1)). Builds the models
     once; callers reuse the closure across chunks. `acqs` is accepted for
     parity with the JAX signature and not read. `--map` PDFF, R2s and Water
-    serve the same maps, as in the JAX package; PDFF-var is not ported."""
+    serve the same maps, as in the JAX package; AI-DEAL's PDFF-var serves
+    the GLS ρ and its covariance."""
     del acqs
     sel = cfg["model_sel"]
     if sel == "GraphCuts":
@@ -278,6 +306,15 @@ def make_infer_run(cfg, acqs, device="cuda"):
                            rem_r2)
 
     return run
+
+
+def infer_maps(cfg, acqs, te):
+    """Model dispatch → (maps (n, 3, H, W, 2), rho_var (n, 4, H, W, 1)) as
+    numpy, in chunks of `cfg["infer_batch"]` (default 1) slices on
+    `cfg["device"]` (default `cuda`)."""
+    device = cfg.get("device", "cuda")
+    return _per_slice(make_infer_run(cfg, acqs, device), acqs, te,
+                      int(cfg.get("infer_batch", 1)), device)
 
 
 def aideal_heads(g_fm, g_r2, fm_offset, a):
@@ -431,3 +468,64 @@ def _sup_run(cfg, device):
                                     + (1,))
 
     return run
+
+
+def map_stacks(cfg, maps, rho_var, gt_maps):
+    """The `--map` stacks of the served and the ground-truth maps, the ROI
+    statistic and the bias envelope: PDFF (median, 0.03), R2s in s⁻¹
+    (mean, 10), Water |W| (mean, 0.05), PDFF-var (the propagated variance
+    against the ground-truth PDFF, mean, 0.03)."""
+    pdff, r2s, w_abs = roi_mod.maps_to_display(maps)
+    pdff_gt, r2s_gt, w_gt = roi_mod.maps_to_display(gt_maps)
+    if cfg["map"] == "PDFF-var":
+        return pdff_variance_map(maps, rho_var), pdff_gt, "mean", 0.03
+    return {
+        "PDFF": (pdff, pdff_gt, "median", 0.03),
+        "R2s": (r2s * physics.R2_SC, r2s_gt * physics.R2_SC, "mean", 10.0),
+        "Water": (w_abs, w_gt, "mean", 0.05),
+    }[cfg["map"]]
+
+
+def xlsx_name(cfg) -> str:
+    """`--out_xlsx`, or with `--te_suffix` the per-protocol name
+    `<map>_ROIs_<round(te1·1e4)>_<round(dte·1e4)>.xlsx` (e.g.
+    PDFF_ROIs_14_22.xlsx) that the statistics enumerate."""
+    if cfg.get("te_suffix"):
+        return (f"{cfg['map']}_ROIs_{round(cfg['te1'] * 1e4)}_"
+                f"{round(cfg['dte'] * 1e4)}.xlsx")
+    return cfg["out_xlsx"]
+
+
+def main(argv=None) -> dict:
+    """Runs the evaluation; returns {"maps", "rho_var" (numpy), "stack",
+    "stack_gt", "stat", "res_model", "res_ref" (`eval.roi.ROIResult`),
+    "errors", "within", "xlsx" (the workbook's path)}."""
+    cfg = setup_experiment(DEFAULTS, argv, settings_name="settings_roi.yml")
+    acqs, gt_maps, te = load_cohorts(cfg)
+    maps, rho_var = infer_maps(cfg, acqs, te)
+    stack, stack_gt, stat, env = map_stacks(cfg, maps, rho_var, gt_maps)
+    crops_file = cfg["crops_file"] or str(
+        Path("ROI_files") / f"{cfg['dataset']}_slices_crops.npy")
+    if cfg["interactive"]:
+        from ..eval.tracker import run_interactive
+        run_interactive(np.transpose(stack, (1, 2, 0)),
+                        lims=(0, 1) if "PDFF" in cfg["map"] else
+                        (0, physics.R2_SC), npy_file=crops_file)
+    if not Path(crops_file).exists():
+        raise SystemExit(f"no crops file at {crops_file}; run with "
+                         "--interactive on a workstation or provide one")
+    res_m = roi_mod.roi_stats(stack, crops_file, stat=stat)
+    res_r = roi_mod.roi_stats(stack_gt, crops_file, stat=stat)
+    err, within = roi_mod.bias_histogram(res_m.values_1, res_r.values_1, env)
+    print(f"{cfg['map']}: mean bias {np.mean(err):+.4f}, "
+          f"{100 * within:.1f}% within ±{env}")
+    out = Path(cfg["output_dir"]) / xlsx_name(cfg)
+    roi_mod.export_roi_xlsx(str(out), res_m, res_r, map_name=cfg["map"])
+    print(f"wrote {out}")
+    return dict(maps=maps, rho_var=rho_var, stack=stack, stack_gt=stack_gt,
+                stat=stat, res_model=res_m, res_ref=res_r, errors=err,
+                within=within, xlsx=out)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,19 +9,19 @@ The whole dataset is the `data_idx`-th group of three slices of the
 cohort, slices [3·data_idx, 3·data_idx + 3) (SystemExit where that range
 is empty), of `--synthetic N` slices or else the HDF5 cohorts under
 `--dataset_dir`. G_mag and G_pha (`train.single`) train from seeded
-random weights (`--seed`) full-batch, one step an epoch; checkpoints every
-`--epoch_ckpt` epochs and at the end under
+random weights (`--seed`) full-batch, one step an epoch. The run record,
+as in the JAX CLI (kept by `train.common.RunRecord`): settings.yml, the `G_losses`
+summaries every 50 epochs under summaries/train, checkpoints every
+`--epoch_ckpt` epochs, at the end and on SIGTERM/SIGINT ("preempted:
+checkpointed epoch N, exiting", exit 0) under
 <output_base>/<dataset>/checkpoints/, with an `epoch N/M cycle=...` line
-each, and resumes from the latest one. `--device` defaults to `cuda` and
-raises without a card; `cpu` runs the plain PyTorch versions of the
-kernels.
+each, and a resume from the latest one ("resumed from epoch N").
+`--device` defaults to `cuda` and raises without a card; `cpu` runs the
+plain PyTorch versions of the kernels.
 
 `--bf16 1` computes the nets in bfloat16 (the ConvLSTM kernels' bf16
 storage mode; parameters and physics float32) and `--remat 1`
 rematerializes their blocks in the backward.
-
-Not ported yet (ROADMAP Queue 1 item 7b): tensorboardX summaries and the
-preemption guard are skipped with a printed note.
 """
 
 from __future__ import annotations
@@ -31,18 +31,16 @@ import time
 import torch
 
 from ..train import single
-from ..utils import Checkpoint
+from ..train.common import RunRecord
 from .common import load_cohorts, resolve_device, setup_experiment
-
-_SKIPPED = ("summaries (tensorboardX) and the preemption guard are not "
-            "ported yet (ROADMAP Queue 1 item 7b): skipped")
 
 
 def main(argv=None) -> dict:
     """Runs the training; returns {"state": SingleState, "epochs":
     [{"epoch", "seconds", "steps", metric: value, ...}]}, one entry per
     checkpoint (the metrics of its step, the steps and wall time since the
-    previous entry, ending in a synchronisation)."""
+    previous entry, its checkpoint included, ending in a synchronisation),
+    and "preempted": bool."""
     cfg = setup_experiment(single.DEFAULTS, argv)
     dev = resolve_device(cfg["device"])
     acqs, maps, te = load_cohorts(cfg)
@@ -56,27 +54,29 @@ def main(argv=None) -> dict:
     state = single.init_state(cfg, g_mag, g_pha, tx,
                               torch.Generator().manual_seed(cfg["seed"]),
                               dev)
-    ckpt = Checkpoint(f"{cfg['output_dir']}/checkpoints")
-    start = ckpt.latest_step() or 0
-    if start:
-        state.load_state_dict(ckpt.restore(start))
-        print(f"resumed from the epoch-{start} checkpoint")
-    print(_SKIPPED)
-
+    record = RunRecord(cfg, state, 1, summary_every=50)
     batch = tuple(torch.from_numpy(x).to(dev) for x in (acqs, maps, te))
-    epochs = []
-    t0, last = time.perf_counter(), start
-    for ep in range(start, cfg["epochs"]):
-        state, metrics = step_fn(state, batch)
-        if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"]:
-            values = {k: float(v) for k, v in metrics.items()}  # syncs
-            epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
-                               steps=ep + 1 - last, **values))
-            ckpt.save(ep + 1, state.state_dict())
-            print(f"epoch {ep + 1}/{cfg['epochs']} "
-                  f"cycle={values['A2B2A_cycle_loss']:.6f}")
-            t0, last = time.perf_counter(), ep + 1
-    return {"state": state, "epochs": epochs}
+    epochs, stop = [], False
+    t0, last = time.perf_counter(), record.start
+    try:
+        for ep in range(record.start, cfg["epochs"]):
+            state, metrics = step_fn(state, batch)
+            record.step(metrics)
+            stop = record.end_epoch(ep, state)
+            if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"] \
+                    or stop:
+                values = {k: float(v) for k, v in metrics.items()}  # syncs
+                epochs.append(dict(epoch=ep + 1,
+                                   seconds=time.perf_counter() - t0,
+                                   steps=ep + 1 - last, **values))
+                print(f"epoch {ep + 1}/{cfg['epochs']} "
+                      f"cycle={values['A2B2A_cycle_loss']:.6f}")
+                t0, last = time.perf_counter(), ep + 1
+            if stop:
+                break
+    finally:
+        record.close()
+    return {"state": state, "epochs": epochs, "preempted": stop}
 
 
 if __name__ == "__main__":

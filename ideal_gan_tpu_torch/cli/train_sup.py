@@ -14,20 +14,23 @@ cohorts under `--dataset_dir`, or with `--DL_gen` the generated npz shards
 rows), with `--DL_partial_real` 2, 6 or 10 the first 64, 200 or 330 real
 slices prepended. Holds out a validation split (a tenth of the slices, at
 least a batch, where there are more than two batches) and evaluates its
-first batch after every epoch. Checkpoints every `--epoch_ckpt` epochs and
-at the end under <output_base>/<dataset>/checkpoints/, and resumes from
-the latest one. Prints one `G_loss` line per epoch. `--device` defaults to
-`cuda` and raises without a card; `cpu` runs the plain PyTorch versions of
-the kernels.
+first batch after every epoch. The run record, as in the JAX CLI
+(kept by `train.common.RunRecord`): settings.yml, the `G_losses` summaries every 20
+steps under summaries/train and the validation batch's under
+summaries/validation, checkpoints every `--epoch_ckpt` epochs, at the end
+and on SIGTERM/SIGINT ("preempted: checkpointed epoch N, exiting", exit
+0) under <output_base>/<dataset>/checkpoints/, and a resume from the
+latest one ("resumed from epoch N"). `--profile_dir` writes a
+`torch.profiler` trace of the epochs there. Prints one `G_loss` line per
+epoch. `--device` defaults to `cuda` and raises without a card; `cpu`
+runs the plain PyTorch versions of the kernels.
 
 `--bf16 1` computes the net in bfloat16 (parameters and physics float32),
 `--remat 1` rematerializes its blocks in the backward, and `--microbatch
 N` accumulates the gradients over chunks of N slices, each with its own
 input noise (the batch must be a multiple of N).
 
-Not ported yet (ROADMAP Queue 1 item 7b): tensorboardX summaries,
-profiling and the preemption guard are skipped with a printed note. The
-JAX CLI's warning about a TPU compiler crash has no counterpart on the
+The JAX CLI's warning about a TPU compiler crash has no counterpart on the
 card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
 Queue 1 item 12.
 """
@@ -41,12 +44,10 @@ import torch
 
 from .. import physics
 from ..train import sup
-from ..train.common import batch_iterator
-from ..utils import Checkpoint
+from ..train.common import RunRecord, batch_iterator
+from ..utils.timer import profile
 from .common import load_cohorts, resolve_device, setup_experiment
 
-_SKIPPED = ("summaries (tensorboardX), profiling and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 7b): skipped")
 # --DL_partial_real → the number of real slices prepended
 _PARTIAL_REAL = {2: 64, 6: 200, 10: 330}
 
@@ -81,8 +82,9 @@ def _to(dev, batch):
 def main(argv=None) -> dict:
     """Runs the training; returns {"state": SupState, "epochs": [{"epoch",
     "seconds", "steps", metric: value, ..., "val": {metric: value} or
-    None}]}, one entry per epoch run (the metrics of its last step, the
-    wall time of the epoch's steps ending in a synchronisation)."""
+    None}], "preempted": bool}, one entry per epoch run (the metrics of its
+    last step, the wall time of the epoch's steps ending in a
+    synchronisation)."""
     cfg = setup_experiment({**sup.DEFAULTS, "DL_gen_dir": ""}, argv)
     dev = resolve_device(cfg["device"])
     acqs, maps, te = (load_generated(cfg) if cfg["DL_gen"]
@@ -110,35 +112,37 @@ def main(argv=None) -> dict:
     state = sup.init_state(cfg, model, tx, gen, dev)
     noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 
-    ckpt = Checkpoint(f"{cfg['output_dir']}/checkpoints")
-    start = ckpt.latest_step() or 0
-    if start:
-        state.load_state_dict(ckpt.restore(start))
-        print(f"resumed from the epoch-{start} checkpoint")
-    print(_SKIPPED)
-
+    record = RunRecord(cfg, state, steps_per_epoch, val=val is not None)
     rng = np.random.default_rng(0)
-    epochs = []
-    for ep in range(start, cfg["epochs"]):
-        t0 = time.perf_counter()
-        for batch in batch_iterator((acqs, maps, te), bs, rng,
-                                    shuffle=cfg["shuffle"]):
-            state, metrics = step_fn(state, _to(dev, batch), noise_gen)
-        values = {k: float(v) for k, v in metrics.items()}  # synchronises
-        seconds = time.perf_counter() - t0
-        vals = None
-        if val is not None:
-            vb = _to(dev, (v[:bs] for v in val))
-            vals = {k: float(v) for k, v in eval_fn(state, vb,
-                                                    noise_gen).items()}
-        epochs.append(dict(epoch=ep + 1, seconds=seconds,
-                           steps=steps_per_epoch, **values, val=vals))
-        if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"]:
-            ckpt.save(ep + 1, state.state_dict())
-        print(f"epoch {ep + 1}/{cfg['epochs']} "
-              f"G_loss={values['G_loss']:.5f}"
-              + (f" val_G_loss={vals['G_loss']:.5f}" if vals else ""))
-    return {"state": state, "epochs": epochs}
+    epochs, stop = [], False
+    try:
+        with profile(cfg["profile_dir"] or None):
+            for ep in range(record.start, cfg["epochs"]):
+                t0 = time.perf_counter()
+                for batch in batch_iterator((acqs, maps, te), bs, rng,
+                                            shuffle=cfg["shuffle"]):
+                    state, metrics = step_fn(state, _to(dev, batch),
+                                             noise_gen)
+                    record.step(metrics)
+                values = {k: float(v) for k, v in metrics.items()}  # syncs
+                seconds = time.perf_counter() - t0
+                vals = None
+                if val is not None:
+                    vb = _to(dev, (v[:bs] for v in val))
+                    vmetrics = eval_fn(state, vb, noise_gen)
+                    record.validation(vmetrics)
+                    vals = {k: float(v) for k, v in vmetrics.items()}
+                epochs.append(dict(epoch=ep + 1, seconds=seconds,
+                                   steps=steps_per_epoch, **values, val=vals))
+                stop = record.end_epoch(ep, state)
+                if stop:
+                    break
+                print(f"epoch {ep + 1}/{cfg['epochs']} "
+                      f"G_loss={values['G_loss']:.5f}"
+                      + (f" val_G_loss={vals['G_loss']:.5f}" if vals else ""))
+    finally:
+        record.close()
+    return {"state": state, "epochs": epochs, "preempted": stop}
 
 
 if __name__ == "__main__":

@@ -15,9 +15,12 @@ field-map scale), with `--bip_grad` a bipolar phase row, one TE train from
 `train.teaug.sample_te`, then one generator step on acquisitions
 synthesized at that TE train plus noise; with the 2U-Net, then one step
 of its R2* net G_A2R2 on the same batch and noise with G_A2B frozen.
-Checkpoints (both nets with the 2U-Net) every `--epoch_ckpt`
-epochs and at the end under <output_base>/<dataset>/checkpoints/, and
-resumes from the latest one. Prints one `PM_loss` line per epoch.
+The run record, as in the JAX CLI (kept by `train.common.RunRecord`): settings.yml,
+the `G_losses` summaries every 20 steps under summaries/train, checkpoints
+(both nets with the 2U-Net) every `--epoch_ckpt` epochs, at the end and
+on SIGTERM/SIGINT ("preempted: checkpointed epoch N, exiting", exit 0)
+under <output_base>/<dataset>/checkpoints/, and a resume from the latest
+one ("resumed from epoch N"). Prints one `PM_loss` line per epoch.
 `--device` defaults to `cuda` and raises without a card; `cpu` runs the
 plain PyTorch versions of the kernels.
 
@@ -27,9 +30,7 @@ rematerializes their blocks in the backward, and `--microbatch N`
 accumulates G_A2B's gradients over chunks of N slices, each with its own
 noise (the batch must be a multiple of N).
 
-Not ported yet (ROADMAP Queue 1 item 7b): tensorboardX summaries, the
-sample PNGs and the preemption guard are skipped with a printed note. The
-JAX CLI's warning about a TPU compiler crash has no counterpart on the
+The JAX CLI's warning about a TPU compiler crash has no counterpart on the
 card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
 Queue 1 item 12.
 """
@@ -43,19 +44,15 @@ import torch
 
 from ..data import bipolar_phase_row, random_fm_scale, random_geometric
 from ..train import teaug
-from ..train.common import batch_iterator
-from ..utils import Checkpoint
+from ..train.common import RunRecord, batch_iterator
 from .common import load_cohorts, resolve_device, setup_experiment
-
-_SKIPPED = ("summaries (tensorboardX), sample PNGs and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 7b): skipped")
 
 
 def main(argv=None) -> dict:
     """Runs the training; returns {"state": TEAugState, "epochs": [{"epoch",
     "seconds", "steps", metric: value, ...}]}, one entry per epoch run (the
     metrics of its last step, the wall time of the epoch ending in a
-    synchronisation)."""
+    synchronisation), and "preempted": bool."""
     cfg = setup_experiment(teaug.DEFAULTS, argv)
     dev = resolve_device(cfg["device"])
     model = teaug.build_model(cfg)
@@ -78,44 +75,43 @@ def main(argv=None) -> dict:
     state = teaug.init_state(cfg, model, tx, gen, dev, r2_model)
     noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 
-    ckpt = Checkpoint(f"{cfg['output_dir']}/checkpoints")
-    start = ckpt.latest_step() or 0
-    if start:
-        state.load_state_dict(ckpt.restore(start))
-        print(f"resumed from the epoch-{start} checkpoint")
-    print(_SKIPPED)
-
+    record = RunRecord(cfg, state, steps_per_epoch)
     rng = np.random.default_rng(0)
-    epochs = []
-    for ep in range(start, cfg["epochs"]):
-        t0 = time.perf_counter()
-        for (B,) in batch_iterator((maps,), cfg["batch_size"], rng):
-            B = torch.from_numpy(B)
-            if rng.random() <= cfg["data_aug_p"]:
-                B = random_geometric(gen, B)
-                if cfg["FM_aug"]:
-                    B = random_fm_scale(gen, B, mean=cfg["FM_mean"])
-            if cfg["bip_grad"]:
-                B = bipolar_phase_row(gen, B)
-            te = teaug.sample_te(gen, cfg, len(B))
-            batch = (B.contiguous().to(dev), te.to(dev))
-            if r2_step_fn is not None:
-                # 2U-Net: G_A2R2's step on the same batch and noise (the
-                # JAX CLI hands both steps one key), G_A2B frozen
-                replay = torch.Generator(device=dev)
-                replay.set_state(noise_gen.get_state())
-            state, metrics = step_fn(state, batch, noise_gen)
-            if r2_step_fn is not None:
-                state, r2m = r2_step_fn(state, batch, replay)
-                metrics.update(r2m)
-        values = {k: float(v) for k, v in metrics.items()}  # synchronises
-        epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
-                           steps=steps_per_epoch, **values))
-        if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"]:
-            ckpt.save(ep + 1, state.state_dict())
-        print(f"epoch {ep + 1}/{cfg['epochs']} "
-              f"PM_loss={values['PM_loss']:.6f}")
-    return {"state": state, "epochs": epochs}
+    epochs, stop = [], False
+    try:
+        for ep in range(record.start, cfg["epochs"]):
+            t0 = time.perf_counter()
+            for (B,) in batch_iterator((maps,), cfg["batch_size"], rng):
+                B = torch.from_numpy(B)
+                if rng.random() <= cfg["data_aug_p"]:
+                    B = random_geometric(gen, B)
+                    if cfg["FM_aug"]:
+                        B = random_fm_scale(gen, B, mean=cfg["FM_mean"])
+                if cfg["bip_grad"]:
+                    B = bipolar_phase_row(gen, B)
+                te = teaug.sample_te(gen, cfg, len(B))
+                batch = (B.contiguous().to(dev), te.to(dev))
+                if r2_step_fn is not None:
+                    # 2U-Net: G_A2R2's step on the same batch and noise (the
+                    # JAX CLI hands both steps one key), G_A2B frozen
+                    replay = torch.Generator(device=dev)
+                    replay.set_state(noise_gen.get_state())
+                state, metrics = step_fn(state, batch, noise_gen)
+                if r2_step_fn is not None:
+                    state, r2m = r2_step_fn(state, batch, replay)
+                    metrics.update(r2m)
+                record.step(metrics)
+            values = {k: float(v) for k, v in metrics.items()}  # syncs
+            epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
+                               steps=steps_per_epoch, **values))
+            stop = record.end_epoch(ep, state)
+            if stop:
+                break
+            print(f"epoch {ep + 1}/{cfg['epochs']} "
+                  f"PM_loss={values['PM_loss']:.6f}")
+    finally:
+        record.close()
+    return {"state": state, "epochs": epochs, "preempted": stop}
 
 
 if __name__ == "__main__":

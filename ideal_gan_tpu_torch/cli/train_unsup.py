@@ -9,11 +9,15 @@ Trains g_fm on the cycle loss (and, with `--out_vars PM`, g_r2 in a second
 step per batch with g_fm frozen) from seeded random weights (`--seed`) on
 the cohort (`--synthetic N` slices, or else the HDF5 cohorts under
 `--dataset_dir`), with the k-fold split, `data_aug_p`, `remove_ech1` and
-`rand_ne` of the JAX CLI; checkpoints every `--epoch_ckpt` epochs and
-at the end under <output_base>/<dataset>/checkpoints/, and resumes from
-the latest one.
-Prints one `cycle_loss` line per epoch. `--device` defaults to `cuda` and
-raises without a card; `cpu` runs the plain PyTorch versions of the kernels.
+`rand_ne` of the JAX CLI. The run record, as in the JAX CLI
+(kept by `train.common.RunRecord`): settings.yml, the `G_losses` summaries every 20
+steps under summaries/train, checkpoints every `--epoch_ckpt` epochs, at
+the end and on SIGTERM/SIGINT ("preempted: checkpointed epoch N,
+exiting", exit 0, no calibration stage) under
+<output_base>/<dataset>/checkpoints/, and a resume from the latest one
+("resumed from epoch N"). Prints one `cycle_loss` line per epoch.
+`--device` defaults to `cuda` and raises without a card; `cpu` runs the
+plain PyTorch versions of the kernels.
 
 Uncertainty: `--UQ 1` gives g_fm a Normal posterior head and trains it on
 the heteroscedastic cycle loss, `--UQ_R2s 1` gives g_r2 a Rician head.
@@ -30,9 +34,10 @@ the split's first quarter held out, and the run prints
 storage mode; parameters and physics float32) and `--remat 1`
 rematerializes their blocks in the backward.
 
-Not ported yet (ROADMAP Queue 1 items 7b and 12): DICOM/NIfTI folders
-(SystemExit); tensorboardX summaries, the sample PNGs and the preemption
-guard are skipped with a printed note.
+Not ported yet: DICOM/NIfTI folders (SystemExit; ROADMAP Queue 1 item
+12); the sample grid PNGs (`eval.samples.save_sample_grid` is ported, but
+matplotlib is not a dependency of the port), skipped with a printed
+note.
 """
 
 from __future__ import annotations
@@ -44,20 +49,20 @@ import torch
 
 from ..data import random_echo_count, random_geometric
 from ..train import unsup
-from ..train.common import batch_iterator
-from ..utils import Checkpoint
+from ..train.common import RunRecord, batch_iterator
 from .common import load_cohorts, resolve_device, setup_experiment
 
-_SKIPPED = ("summaries (tensorboardX), sample PNGs and the preemption guard "
-            "are not ported yet (ROADMAP Queue 1 item 7b): skipped")
+_SKIPPED = ("the sample grid PNGs (samples_training/iter-*.png) are skipped: "
+            "matplotlib is not a dependency of the port")
 
 
 def main(argv=None) -> dict:
     """Runs the training; returns {"state": UnsupState, "epochs": [{"epoch",
     "seconds", "steps", metric: value, ...}]}, one entry per epoch run (the
     metrics of its last step, the wall time of the epoch ending in a
-    synchronisation), and with the calibration stage "calibration":
-    {"nll_before", "nll_after", "calib", "steps", "seconds"}."""
+    synchronisation), "preempted": bool, and with the calibration stage
+    "calibration": {"nll_before", "nll_after", "calib", "steps",
+    "seconds"}."""
     cfg = setup_experiment({**unsup.DEFAULTS, "train_data": "HDF5",
                             "k_fold": 0, "k_folds_total": 5}, argv)
     if cfg["train_data"] in ("DICOM", "NIFTI"):
@@ -109,45 +114,46 @@ def main(argv=None) -> dict:
     gen = torch.Generator().manual_seed(cfg["seed"])
     state = unsup.init_state(cfg, g_fm, g_r2, tx, gen, dev)
 
-    ckpt = Checkpoint(f"{cfg['output_dir']}/checkpoints")
-    start = ckpt.latest_step() or 0
-    if start:
-        state.load_state_dict(ckpt.restore(start))
-        print(f"resumed from the epoch-{start} checkpoint")
+    record = RunRecord(cfg, state, steps_per_epoch)
     print(_SKIPPED)
-
     rng = np.random.default_rng(0)
-    epochs = []
-    for ep in range(start, cfg["epochs"]):
-        t0 = time.perf_counter()
-        for (A, te_b) in batch_iterator((acqs, te), cfg["batch_size"], rng):
-            A = torch.from_numpy(A)
-            # host-side geometric aug + random echo truncation
-            if rng.random() <= cfg["data_aug_p"]:
-                A = random_geometric(gen, A)
-            if cfg["remove_ech1"]:
-                A, te_b = A[:, 1:], te_b[:, 1:]
-            if cfg["rand_ne"]:
-                ne_sel = random_echo_count(rng)
-                A, te_b = A[:, :ne_sel], te_b[:, :ne_sel]
-            batch = (A.contiguous().to(dev),
-                     torch.from_numpy(np.ascontiguousarray(te_b)).to(dev))
-            state, metrics = step_fn(state, batch)
-            if cfg["out_vars"] == "PM":
-                state, r2m = r2_step_fn(state, batch)
-                metrics.update(r2m)
-        values = {k: float(v) for k, v in metrics.items()}  # synchronises
-        epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
-                           steps=steps_per_epoch, **values))
-        if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"]:
-            ckpt.save(ep + 1, state.state_dict())
-        print(f"epoch {ep + 1}/{cfg['epochs']} cycle_loss="
-              f"{values['A2B2A_cycle_loss']:.6f}")
-    out = {"state": state, "epochs": epochs}
-    if calib_data is not None:
+    epochs, stop = [], False
+    try:
+        for ep in range(record.start, cfg["epochs"]):
+            t0 = time.perf_counter()
+            for (A, te_b) in batch_iterator((acqs, te), cfg["batch_size"],
+                                            rng):
+                A = torch.from_numpy(A)
+                # host-side geometric aug + random echo truncation
+                if rng.random() <= cfg["data_aug_p"]:
+                    A = random_geometric(gen, A)
+                if cfg["remove_ech1"]:
+                    A, te_b = A[:, 1:], te_b[:, 1:]
+                if cfg["rand_ne"]:
+                    ne_sel = random_echo_count(rng)
+                    A, te_b = A[:, :ne_sel], te_b[:, :ne_sel]
+                batch = (A.contiguous().to(dev),
+                         torch.from_numpy(np.ascontiguousarray(te_b)).to(dev))
+                state, metrics = step_fn(state, batch)
+                if cfg["out_vars"] == "PM":
+                    state, r2m = r2_step_fn(state, batch)
+                    metrics.update(r2m)
+                record.step(metrics)
+            values = {k: float(v) for k, v in metrics.items()}  # syncs
+            epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
+                               steps=steps_per_epoch, **values))
+            stop = record.end_epoch(ep, state)
+            if stop:
+                break
+            print(f"epoch {ep + 1}/{cfg['epochs']} cycle_loss="
+                  f"{values['A2B2A_cycle_loss']:.6f}")
+    finally:
+        record.close()
+    out = {"state": state, "epochs": epochs, "preempted": stop}
+    if calib_data is not None and not stop:
         out["calibration"] = _calibrate(cfg, g_fm, g_r2, state, calib_data,
                                         rng, dev)
-        ckpt.save(cfg["epochs"] + 1, state.state_dict())
+        record.ckpt.save(cfg["epochs"] + 1, state.state_dict())
     return out
 
 

@@ -21,10 +21,16 @@ autograd through the plain version from the saved inputs, for the inputs
 that need a gradient. The TPU tiling constants of the JAX module (row
 tiles, the (16, 128) bf16 block rule and its f32 fallbacks) have no
 counterpart here: the kernels index voxels directly and take any H, W.
+
+The kernels' per-row matrices (M, M⁺, A, A⁺) are built by torch matmuls
+at full float32 precision whatever the TF32 setting (`_fp32_matmuls`): with
+TF32 on they would carry a 10-bit mantissa into every voxel's fit and move
+the phantom's magnitude PDFF by up to 2.8e-3.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -68,6 +74,22 @@ def _phasor_mode(uniform_te: bool | None) -> int:
     return 2 if uniform_te is None else int(bool(uniform_te))
 
 
+@contextlib.contextmanager
+def _fp32_matmuls():
+    """Full-precision float32 and complex64 matmuls inside (no TF32), the
+    caller's `torch.backends.cuda.matmul.allow_tf32` restored after. That
+    flag keeps PyTorch's legacy and per-backend precision settings in
+    step; `torch.set_float32_matmul_precision` sets every backend's, and
+    PyTorch 2.11 then refuses the mix once the CUDA flag is set alone."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = prev
+
+
 def _mat_scalars(m: torch.Tensor) -> torch.Tensor:
     """(nb, a, b) complex → (nb, a*b*2) float32, interleaved re/im."""
     flat = m.reshape(m.shape[0], -1)
@@ -80,7 +102,8 @@ def precompute_fit_matrices(te: torch.Tensor, field: float = 1.5,
     """The kernel's per-row operands for a TE train: (M⁺ as (nb, 2·ns·ne)
     float32 re/im pairs, te as (nb, ne) float32). Serving reuses one
     protocol across many batches."""
-    m_pinv = mx.pinv_normal(mx.model_matrix(te, field, species))
+    with _fp32_matmuls():
+        m_pinv = mx.pinv_normal(mx.model_matrix(te, field, species))
     nb, ne = te.shape[0], te.shape[1]
     return _mat_scalars(m_pinv), te.reshape(nb, ne).float().contiguous()
 
@@ -224,9 +247,11 @@ def precompute_cycle_matrices(te: torch.Tensor, field: float = 1.5,
     """The cycle kernel's per-row operands for a TE train: (M as (nb,
     2·ne·ns), M⁺ as (nb, 2·ns·ne), float32 re/im pairs; te as (nb, ne)
     float32)."""
-    m = mx.model_matrix(te, field, species)
+    with _fp32_matmuls():
+        m = mx.model_matrix(te, field, species)
+        m_pinv = mx.pinv_normal(m)
     nb, ne = te.shape[0], te.shape[1]
-    return (_mat_scalars(m), _mat_scalars(mx.pinv_normal(m)),
+    return (_mat_scalars(m), _mat_scalars(m_pinv),
             te.reshape(nb, ne).float().contiguous())
 
 
@@ -352,8 +377,9 @@ def precompute_synth_matrices(te: torch.Tensor, field: float = 1.5,
     """The synthesis kernel's per-row operands for a TE train: (M as (nb,
     2·ne·ns) float32 re/im pairs, te as (nb, ne) float32)."""
     nb, ne = te.shape[0], te.shape[1]
-    return (_mat_scalars(mx.model_matrix(te, field, species)),
-            te.reshape(nb, ne).float().contiguous())
+    with _fp32_matmuls():
+        m = mx.model_matrix(te, field, species)
+    return _mat_scalars(m), te.reshape(nb, ne).float().contiguous()
 
 
 def _synth_kernel(out_maps, te, field, r2_sc, fm_sc, rho_sc, species,
@@ -443,7 +469,9 @@ def precompute_mag_matrices(te: torch.Tensor, field: float = 1.5,
     """The magnitude fit kernel's per-row operands for a TE train: (A as
     (nb, ne·3), A⁺ as (nb, 3·ne), te as (nb, ne)), float32."""
     nb, ne = te.shape[0], te.shape[1]
-    a, a_pinv = mx.mag_design_matrix(mx.model_matrix(te, field, species))
+    with _fp32_matmuls():
+        a, a_pinv = mx.mag_design_matrix(mx.model_matrix(te, field,
+                                                         species))
     return (a.reshape(nb, -1).contiguous(), a_pinv.reshape(nb, -1).contiguous(),
             te.reshape(nb, ne).float().contiguous())
 

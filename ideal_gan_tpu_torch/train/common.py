@@ -12,17 +12,25 @@
 - `accumulate_microbatch_grads`: a step's gradients over equal chunks of
   its batch, accumulated in float32 and averaged.
 - `compute_dtype`: a trainer config's CNN compute dtype (`bf16`).
-
-Not ported yet: `TrainLoop` (ROADMAP Queue 1 item 7b).
+- `RunRecord`: a run's checkpoints, resume, summaries every 20 steps and
+  preemption guard, the one owner of that policy for the trainer CLIs and
+  `TrainLoop`.
+- `TrainLoop`: the epoch skeleton on a `RunRecord`: resume from the newest
+  checkpoint, steps with a dict summary every 20 steps, checkpoints every
+  `epoch_ckpt` epochs and at the end. The batches go to its `device` (the
+  JAX loop shards them over its data mesh: ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
+
+from ..utils import Checkpoint, DictSummaryWriter
+from ..utils.preempt import PreemptionGuard
 
 
 def linear_decay_schedule(lr: float, total_steps: int,
@@ -202,3 +210,113 @@ class ModelState:
         self.model.load_state_dict(state["model"])
         self.opt.load_state_dict(state["opt"])
         self.step = int(state["step"])
+
+
+def metrics_to_host(metrics: Mapping) -> dict:
+    """A step's metrics as host numpy arrays (one synchronisation with the
+    card), the counterpart of `jax.device_get`: called only where a summary
+    is written, so the steps between stay free of host syncs."""
+    return {k: v.detach().float().cpu().numpy()
+            if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in metrics.items()}
+
+
+class RunRecord:
+    """A trainer run's record, as the JAX trainer CLIs keep it: checkpoints
+    under <output_dir>/checkpoints (resumed from the newest, with "resumed
+    from epoch N"), the `G_losses` summaries under summaries/train every
+    `summary_every` global steps (host floats only on those steps),
+    with `val` a validation writer under summaries/validation, and the
+    preemption guard. The global step count starts at
+    `start · steps_per_epoch`. `close()` restores the signal handlers and
+    closes the event files."""
+
+    def __init__(self, cfg, state, steps_per_epoch: int,
+                 summary_every: int = 20, val: bool = False):
+        out = cfg["output_dir"]
+        self.ckpt = Checkpoint(f"{out}/checkpoints")
+        self.writer = DictSummaryWriter(f"{out}/summaries/train")
+        self.val_writer = (DictSummaryWriter(f"{out}/summaries/validation")
+                           if val else None)
+        self.start = self.ckpt.latest_step() or 0
+        if self.start:
+            state.load_state_dict(self.ckpt.restore(self.start))
+            print(f"resumed from epoch {self.start}")
+        self.gstep = self.start * steps_per_epoch
+        self.summary_every = summary_every
+        self.epochs = cfg["epochs"]
+        self.epoch_ckpt = cfg["epoch_ckpt"]
+        self.guard = PreemptionGuard()
+
+    def step(self, metrics) -> None:
+        """Count one global step; write its metrics every `summary_every`."""
+        self.gstep += 1
+        if self.gstep % self.summary_every == 0:
+            self.writer.write(metrics_to_host(metrics), self.gstep,
+                              name="G_losses")
+
+    def validation(self, metrics) -> None:
+        self.val_writer.write(metrics_to_host(metrics), self.gstep,
+                              name="G_losses")
+
+    def end_epoch(self, ep: int, state) -> bool:
+        """Checkpoint at `epoch_ckpt` epochs, at the last one and on a
+        preemption signal; True (after "preempted: checkpointed epoch N,
+        exiting") when the run must stop."""
+        stop = self.guard.should_stop
+        if (ep + 1) % self.epoch_ckpt == 0 or ep + 1 == self.epochs or stop:
+            self.ckpt.save(ep + 1, state.state_dict())
+        if stop:
+            print(f"preempted: checkpointed epoch {ep + 1}, exiting")
+        return stop
+
+    def close(self) -> None:
+        self.guard.restore()
+        for w in (self.writer, self.val_writer):
+            if w is not None:
+                w.close()
+
+
+@dataclasses.dataclass
+class TrainLoop:
+    """Epoch loop: resume → (step → summaries) → periodic checkpoint
+    (port of the JAX package's `TrainLoop`), kept by a `RunRecord`, so a
+    preemption signal also checkpoints the epoch and ends the run, as in
+    the trainer CLIs.
+
+    `step_fn(state, batch) -> (state, metrics)`; `state` has
+    `state_dict()` (CPU tensors, for `utils.Checkpoint`) and
+    `load_state_dict()`. A step that needs noise closes over its own
+    generator (the JAX loop hands each step a split key). `record` is the
+    last run's.
+    """
+
+    step_fn: Callable
+    output_dir: str
+    epoch_ckpt: int = 10
+    device: str | torch.device = "cuda"
+
+    def run(self, state, epochs: int, batches_fn: Callable[[], Iterable],
+            hooks: Mapping[str, Callable] | None = None):
+        """`batches_fn()` yields one epoch's batches (tuples of numpy arrays
+        or tensors); hooks: {'on_epoch_end': fn(epoch, state)}. The global
+        step count starts at 0 in every run, resumed or not, as in the JAX
+        loop (a `RunRecord` of 0 steps an epoch)."""
+        hooks = hooks or {}
+        self.record = RunRecord(
+            dict(output_dir=self.output_dir, epochs=epochs,
+                 epoch_ckpt=self.epoch_ckpt), state, 0)
+        try:
+            for ep in range(self.record.start, epochs):
+                for batch in batches_fn():
+                    batch = tuple(torch.as_tensor(x).to(self.device)
+                                  for x in batch)
+                    state, metrics = self.step_fn(state, batch)
+                    self.record.step(metrics)
+                if "on_epoch_end" in hooks:
+                    hooks["on_epoch_end"](ep, state)
+                if self.record.end_epoch(ep, state):
+                    break
+        finally:
+            self.record.close()
+        return state

@@ -1,10 +1,13 @@
 """Checkpoints with the JAX package's semantics (port of
 `ideal_gan_tpu/utils/checkpoint.py`), written with `torch.save`: one file
 per step, `ckpt-<step>.pt`, the newest `max_to_keep` kept, `latest_step()`
-for crash-resume. Saves are synchronous."""
+for crash-resume. Saves are synchronous: the file is written, flushed to
+the disk and closed before `save` returns, so a run may exit right after
+it (the preemption guard's checkpoint)."""
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any
 
@@ -28,7 +31,10 @@ class Checkpoint:
         """Write `state` (tensors moved to the CPU by the caller or not)
         atomically, then drop all but the newest `max_to_keep`."""
         tmp = self._path(step).with_suffix(".tmp")
-        torch.save(state, tmp)
+        with open(tmp, "wb") as f:
+            torch.save(state, f)
+            f.flush()
+            os.fsync(f.fileno())
         tmp.replace(self._path(step))
         for old in self.steps()[:-self.max_to_keep]:
             self._path(old).unlink()

@@ -401,7 +401,7 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert [e["epoch"] for e in again["epochs"]] == [3]
     assert again["state"].opt.count == saved["opt"]["count"] + 2
     text = capsys.readouterr().out
-    assert "resumed from the epoch-2 checkpoint" in text
+    assert "resumed from epoch 2" in text
     assert "epoch 2/2 G_loss=" in text and "epoch 3/3 G_loss=" in text
 
 

@@ -26,7 +26,6 @@ Tolerances:
   on the same chunks, 1e-6 (the same CPU code).
 """
 
-import json
 import shutil
 from functools import partial
 
@@ -50,7 +49,7 @@ from ideal_gan_tpu_torch.data import (acqs_from_mebcrn,  # noqa: E402
 from ideal_gan_tpu_torch.physics import matrix as tmx  # noqa: E402
 from ideal_gan_tpu_torch.prob import Rician  # noqa: E402
 from ideal_gan_tpu_torch.train import mag, teaug, unsup  # noqa: E402
-from ideal_gan_tpu_torch.utils import Checkpoint  # noqa: E402
+from ideal_gan_tpu_torch.utils import Checkpoint, Config  # noqa: E402
 
 from test_torch_infer import _flat  # noqa: E402
 from test_torch_physics import TE_CASES, make_maps  # noqa: E402
@@ -224,9 +223,9 @@ def _run(cfg, acqs, te):
 
 def _seeded(exp, tmp, cfg, acqs, te):
     """The maps of the seeded initial weights at the experiment's settings
-    (its settings.json without its checkpoints)."""
+    (its settings.yml without its checkpoints)."""
     tmp.mkdir()
-    shutil.copy(exp / "settings.json", tmp)
+    shutil.copy(exp / "settings.yml", tmp)
     return _run(dict(cfg, experiment_dir=str(tmp)), acqs, te)
 
 
@@ -324,9 +323,9 @@ def test_mag_round_trip_serves_the_checkpoint(tmp_path):
 
 
 def test_experiment_settings_take_the_family_keys_only(tmp_path):
-    (tmp_path / "settings.json").write_text(json.dumps(
-        {"n_G_filters": 8, "device": "cuda", "output_dir": "elsewhere",
-         "FM_SelfAttention": False, "unknown": 1}))
+    Config({"n_G_filters": 8, "device": "cuda", "output_dir": "elsewhere",
+            "FM_SelfAttention": False, "unknown": 1}).save(
+                tmp_path / "settings.yml")
     got = roi_analysis.experiment_settings(
         dict(experiment_dir=str(tmp_path)), teaug.DEFAULTS)
     assert got == dict(teaug.DEFAULTS, n_G_filters=8,

@@ -304,8 +304,11 @@ def test_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert again["state"].opt.count == 4 and again["state"].step == 4
     text = capsys.readouterr().out
     assert "epoch 2/3 cycle=" in text and "epoch 4/4 cycle=" in text
-    assert "resumed from the epoch-3 checkpoint" in text
-    assert "summaries (tensorboardX)" in text
+    assert "resumed from epoch 3" in text
+    # the run record: G_losses summaries (one every 50 epochs, none here)
+    # in an event file beside the checkpoints
+    assert list((tmp_path / "WF-IDEAL" / "summaries" / "train").glob(
+        "events.out.tfevents.*"))
     with pytest.raises(SystemExit, match="data_idx"):
         _cli(tmp_path / "x", "--data_idx", "2")
 

@@ -27,7 +27,6 @@ closures run the JAX package's own `make_infer_run` at its 4 levels, at
 """
 
 import functools
-import json
 
 import numpy as np
 import pytest
@@ -52,7 +51,7 @@ from ideal_gan_tpu_torch.cli import (common, infer, roi_analysis,  # noqa: E402
                                      train_sup)
 from ideal_gan_tpu_torch.data import layouts, records  # noqa: E402
 from ideal_gan_tpu_torch.train import sup as tsup  # noqa: E402
-from ideal_gan_tpu_torch.utils import Checkpoint  # noqa: E402
+from ideal_gan_tpu_torch.utils import Checkpoint, Config  # noqa: E402
 
 from test_torch_infer import _flat  # noqa: E402
 from test_torch_teaug import _grads, _random_params, _worst_grad  # noqa: E402
@@ -431,7 +430,7 @@ def test_2d_net_round_trip_serves_the_checkpoint(tmp_path, capsys):
                                rtol=1e-6, atol=1e-6)
     seeded = tmp_path / "seeded"
     seeded.mkdir()
-    (seeded / "settings.json").write_text((exp / "settings.json").read_text())
+    (seeded / "settings.yml").write_text((exp / "settings.yml").read_text())
     run = roi_analysis.make_infer_run(
         dict(infer.DEFAULTS, model_sel="2D-Net", experiment_dir=str(seeded)),
         acqs, "cpu")
@@ -453,9 +452,9 @@ def test_cli_validation_checkpoints_and_resumes(tmp_path, capsys):
     assert [e["epoch"] for e in again["epochs"]] == [2]
     assert again["state"].opt.count == saved["opt"]["count"] + 2
     text = capsys.readouterr().out
-    assert "resumed from the epoch-1 checkpoint" in text
+    assert "resumed from epoch 1" in text
     assert "epoch 2/2 G_loss=" in text and "val_G_loss=" in text
-    settings = json.loads((tmp_path / "WF-sup" / "settings.json").read_text())
+    settings = Config.load(tmp_path / "WF-sup" / "settings.yml")
     assert settings["G_model"] == "multi-decod"
 
 

@@ -374,7 +374,7 @@ def test_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert again["state"].opt.count == saved["opt"]["count"] + 2
     assert Checkpoint(ckdir).latest_step() == 2
     text = capsys.readouterr().out
-    assert "resumed from the epoch-1 checkpoint" in text
+    assert "resumed from epoch 1" in text
     assert "epoch 2/2 PM_loss=" in text
     with pytest.raises(SystemExit, match="batch_size"):
         _cli(tmp_path / "x", "--epochs", "1", "--batch_size", "8")

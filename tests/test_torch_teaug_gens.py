@@ -220,7 +220,7 @@ def test_cli_2unet_alternates_and_checkpoints_both_nets(tmp_path, capsys):
         if k.endswith("bias_ih_l0"):
             continue
         assert not torch.equal(again["state"].r2_model.state_dict()[k], v), k
-    assert "resumed from the epoch-1 checkpoint" in capsys.readouterr().out
+    assert "resumed from epoch 1" in capsys.readouterr().out
 
 
 def test_cli_wf_outputs(tmp_path):

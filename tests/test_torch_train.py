@@ -489,7 +489,7 @@ def test_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert again["state"].opt_fm.count == saved["opt_fm"]["count"] + 2
     assert Checkpoint(ckdir).latest_step() == 2
     text = capsys.readouterr().out
-    assert "resumed from the epoch-1 checkpoint" in text
+    assert "resumed from epoch 1" in text
     assert "epoch 2/2 cycle_loss=" in text
 
 
