@@ -228,6 +228,34 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             `cli.roi_realphantom`'s GraphCuts path on the 1.5 T phantom
             with the 11 vial ROIs, whose workbook must hold 11 vials. The
             44 medians are printed.
+18. gan      `ideal_gan_tpu_torch.cli.train_gan.main --adv_train 1` at the
+            JAX `DEFAULTS` (F=36, 4 levels, 2 residual blocks, latent 258,
+            PatchGAN 72 with self-attention, the VGG perceptual cycle;
+            batch 1, 16 synthetic 192² slices, 2 epochs: 32 g-steps and
+            32 d-steps), counted, then one g-step and one d-step counted
+            alone, timed (ms, peak memory, device ms: all kernels, the
+            ConvLSTM kernels, the VGG perceptual part and the R1 double
+            backward each alone, idle shares); one short epoch (4 slices)
+            each with `--VQ_encoder 1`, `--cGAN 1` and `--bf16 1`, counted
+            the same way. Fails unless the ConvLSTM kernels of the run's
+            dtype ran on every g-step (the run's launches equal the g-steps
+            times one g-step's) and never on a d-step, every loss and
+            metric is finite, every encoder ConvLSTM parameter has a
+            gradient and the discriminator's spectral-norm u changed on
+            d-steps only. Then the g-step with and without the adversary
+            and the d-step (R1 included) on the card (TF32 off) and on the
+            CPU at 96² with a float64 witness (`gan_step_parity`; loss and
+            metrics 2e-5 of max(|CPU|, 1), the VGG perceptual loss 1e-4,
+            gradients 2e-2 of scale, or within the float64 envelope,
+            `_gan_parity_failures`), and the bf16 g-step without the
+            adversary card vs CPU within `gan_bf16_gate`
+            (`bf16_step_gate` with its loss rule in bf16 ulps), whose three
+            controls must fail it.
+
+The kernels phase holds the ConvLSTM kernels at the GAN encoder's shape
+too ((Cin=2, F=36, nb=1, 192²), f32 and bf16), and checks them
+batch-elementwise there (`convlstm_batch_elementwise`: h and dx at nb=2
+equal to two nb=1 launches bit for bit; dk, db to their sum).
 
 The kernels phase also holds the ConvLSTM kernels' bf16 storage mode
 (`convlstm_bf16_entries`): the forward and the backward (kink-free inputs)
@@ -246,14 +274,16 @@ synthesis, e2e for the fit and the ConvLSTM forward, mag's training run for
 the magnitude fit, the options phase's bf16 AI-DEAL run for the bf16
 ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
 counts of the sup, teaug_gens, uq, single and options runs, and of
-roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run) and
-record_cli) and `{"ok": true, "device": {...}}`.
+roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run),
+record_cli, and gan, gan_vq, gan_cgan, gan_bf16) and `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -274,6 +304,7 @@ BF16_U = 2.0 ** -8
 
 SIZE, NE, F_MAIN, NB_SERVE = 384, 6, 36, 8
 F_TEAUG = 72  # VET-Net's width (teaug DEFAULTS)
+GAN_SIZE = 192  # the GAN trainer's data_size (gan DEFAULTS, batch 1)
 # g-gate bias of the ConvLSTM backward's inputs kept clear of leaky_relu's
 # kink: every g-gate pre-activation and cell positive, or every one negative
 KINK_FREE = {"smooth": 1.5, "negative": -1.5}
@@ -564,10 +595,11 @@ def _fit_teaug_case(maps, pm, nb: int, dev, bound_ms: float,
 
 # Cin=1, F=72: the 2U-Net's R2* net on the echo magnitudes (after Cin=2, so
 # that the wide case stays VET-Net's); Cin=1, nb=3: the single-subject
-# trainer's G_mag and G_pha on its 3 slices
+# trainer's G_mag and G_pha on its 3 slices; (Cin=2, F=36, nb=1, 192²): the
+# GAN trainer's encoder front (a 4th entry is the size, else SIZE)
 LSTM_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
                (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE),
-               (1, F_MAIN, 3))
+               (1, F_MAIN, 3), (2, F_MAIN, 1, GAN_SIZE))
 # the forward also at nb=6, the UQ calibration stage's batch (its 8-slice
 # split less the 2 held out), for the FM (Cin=2) and R2* (Cin=1) nets
 LSTM_FWD_SHAPES = LSTM_SHAPES + ((2, F_MAIN, 6), (1, F_MAIN, 6))
@@ -589,8 +621,9 @@ def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_FWD_SHAPES) -> dict:
     import torch
     import torch.nn.functional as F
     from ideal_gan_tpu_torch import ops
-    cases = []
-    for cin, f, nb in shapes:
+    cases, default_size = [], size
+    for cin, f, nb, *sz in shapes:
+        size = sz[0] if sz else default_size
         rng = np.random.default_rng(cin)
         x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
                               * 0.5).astype(np.float32)).to(dev)
@@ -627,7 +660,8 @@ def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_FWD_SHAPES) -> dict:
         flops = 2 * 9 * 4 * f * npx * (cin + (NE - 1) * (cin + f))
         n_bytes = 4 * (x.numel() + k.numel() + b.numel() + npx * f)
         b_ms, b_by = bound(n_bytes, flops, PEAK_3XTF32_FLOPS)
-        cases.append(dict(cin=cin, F=f, ne=NE, nb=nb, max_abs_err=err,
+        cases.append(dict(cin=cin, F=f, ne=NE, nb=nb, size=size,
+                          max_abs_err=err,
                           ref_max_abs=scale, max_abs_err_vs_f64=err64,
                           plain_f32_vs_f64=plain64, f64_max_abs=scale64,
                           deterministic=deterministic, ms=kernel_ms,
@@ -810,8 +844,9 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
                              scale=float(t.abs().max()))
         return out
 
-    cases = []
-    for cin, f, nb in shapes:
+    cases, default_size = [], size
+    for cin, f, nb, *sz in shapes:
+        size = sz[0] if sz else default_size
         for kind in ("smooth", "negative", "random"):
             rng = np.random.default_rng(10 + cin)
             x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
@@ -827,7 +862,7 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
             g = torch.from_numpy(rng.normal(size=(nb, size, size, f))
                                  .astype(np.float32)).to(dev)
             got = ops.convlstm_backward(x, k, b, g)
-            case = dict(cin=cin, F=f, ne=NE, nb=nb, inputs=kind,
+            case = dict(cin=cin, F=f, ne=NE, nb=nb, size=size, inputs=kind,
                         **vs_plain(got, x, k, b, g))
             if kind in KINK_FREE:
                 ok = all(c["max_abs_err_vs_f64"] <= 1e-4 * c["scale"]
@@ -946,9 +981,11 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
 
 
 # the bf16 storage mode's shapes: AI-DEAL's FM (Cin=2) and R2* (Cin=1) nets
-# at F=36 and VET-Net's and the 2U-Net R2* net's at F=72
+# at F=36, VET-Net's and the 2U-Net R2* net's at F=72, and the GAN
+# encoder's (nb=1, 192²)
 LSTM_BF16_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
-                    (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE))
+                    (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE),
+                    (2, F_MAIN, 1, GAN_SIZE))
 LSTM_FWD_BF16 = "convlstm_echo_wg_bf16"
 BWD_BF16_STAGES = {"recompute": LSTM_FWD_BF16, "gates": "gates_wg_bf16",
                    "dinp": "dinp_mma_bf16", "dk": "dk_mma_bf16",
@@ -1064,8 +1101,9 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
     import torch
     import torch.nn.functional as F
     from ideal_gan_tpu_torch import ops
-    fwd_cases, bwd_cases = [], []
-    for cin, f, nb in shapes:
+    fwd_cases, bwd_cases, default_size = [], [], size
+    for cin, f, nb, *sz in shapes:
+        size = sz[0] if sz else default_size
         (x, k, b, _), (xb, kb, bb, _) = _bf16_inputs(dev, cin, f, nb, size,
                                                      cin)
         call = lambda: ops.convlstm_forward(xb, kb, bb)  # noqa: E731
@@ -1088,7 +1126,8 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
                           dtype=torch.bfloat16)
         w = kb.permute(3, 2, 0, 1).contiguous()
         case = dict(
-            cin=cin, F=f, ne=NE, nb=nb, **gap, deterministic=deterministic,
+            cin=cin, F=f, ne=NE, nb=nb, size=size, **gap,
+            deterministic=deterministic,
             vs_f32_kernel=vs_f32, f32_kernel_control=control,
             vs_plain_f64=vs_f64,
             ms=time_ms(call, dev, iters=5),
@@ -1109,7 +1148,7 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
                 dev, cin, f, nb, size, 10 + cin, g_bias)
             got = ops.convlstm_backward(xb, kb, bb, gb)
             again = ops.convlstm_backward(xb, kb, bb, gb)
-            case = dict(cin=cin, F=f, ne=NE, nb=nb, inputs=kind,
+            case = dict(cin=cin, F=f, ne=NE, nb=nb, size=size, inputs=kind,
                         deterministic=all(torch.equal(a, r)
                                           for a, r in zip(got, again)))
             del again
@@ -1822,24 +1861,44 @@ MAG_PARITY_CONFIGS = {
 class _Float32Out:
     """A net run in float64 whose output is cast back to float32, so that
     the loss and the physics around it stay float32 (the float64 witness
-    of `mag_step_parity`)."""
+    of `mag_step_parity` and the others). Floating tensors among the
+    arguments go to the net's dtype; tensors in the output (alone, in a
+    posterior, a tuple or a list) come back float32; other attributes are
+    the net's."""
 
     def __init__(self, net):
         self.net = net
 
-    def __call__(self, *args):
+    def __getattr__(self, name):
+        if name == "net":  # not set yet (copying)
+            raise AttributeError(name)
+        return getattr(self.net, name)
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        dtype = next(self.net.parameters()).dtype
+
+        def arg(a):
+            return a.to(dtype) if isinstance(a, torch.Tensor) \
+                and a.is_floating_point() else a
+
+        return self._f32(self.net(*map(arg, args),
+                                  **{k: arg(v) for k, v in kwargs.items()}))
+
+    @classmethod
+    def _f32(cls, out):
         import dataclasses
 
         import torch
-        dtype = next(self.net.parameters()).dtype
-        out = self.net(*(a.to(dtype) if a.is_floating_point() else a
-                         for a in args))
         if dataclasses.is_dataclass(out):  # a posterior (Normal, Rician)
             return dataclasses.replace(out, **{
                 f.name: getattr(out, f.name).float()
                 for f in dataclasses.fields(out)
                 if isinstance(getattr(out, f.name), torch.Tensor)})
-        return out.float()
+        if isinstance(out, (tuple, list)):
+            return type(out)(cls._f32(o) for o in out)
+        return out.float() if isinstance(out, torch.Tensor) \
+            and out.is_floating_point() else out
 
 
 def mag_step_parity(dev, size: int, batch: int, f: int) -> dict:
@@ -2328,15 +2387,29 @@ def _parity(make_loss, nets, args, dev) -> dict:
     gradient leaf), with both against the CPU's float64 witness."""
     import torch
     cpu = torch.device("cpu")
-    card = _step_run(make_loss, nets, args, dev)
-    ref = _step_run(make_loss, nets, args, cpu)
-    ref64 = _step_run(make_loss, nets, args, cpu, torch.float64)
+    return _parity_of(_step_run(make_loss, nets, args, dev),
+                      _step_run(make_loss, nets, args, cpu),
+                      _step_run(make_loss, nets, args, cpu, torch.float64))
+
+
+def _parity_of(card: dict, ref: dict, ref64: dict) -> dict:
+    """`_parity`'s comparison of three `_step_run`s: the card's, the CPU's
+    and the CPU's float64 witness; the loss's and the metrics' relative
+    distances from the witness too (`loss_vs_f64`, `metrics_vs_f64`)."""
     res = _compare(card, ref)
     res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
     res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
                                for k, v in card["metrics"].items()}
     res["vs_cpu_float64"] = {"card": _compare(card, ref64)["grad_max_rel"],
                              "cpu": _compare(ref, ref64)["grad_max_rel"]}
+    res["loss_f64"], res["metrics_f64"] = ref64["loss"], ref64["metrics"]
+    res["loss_vs_f64"] = {
+        name: _rel_diff(run["loss"], ref64["loss"])
+        for name, run in (("card", card), ("cpu", ref))}
+    res["metrics_vs_f64"] = {
+        name: {k: _rel_diff(v, ref64["metrics"][k])
+               for k, v in run["metrics"].items()}
+        for name, run in (("card", card), ("cpu", ref))}
     return res
 
 
@@ -3751,6 +3824,428 @@ def check_phantom(p: dict) -> None:
                              "vials")
 
 
+def convlstm_batch_elementwise(dev, size: int = GAN_SIZE, f: int = F_MAIN,
+                               cin: int = 2) -> dict:
+    """The ConvLSTM kernels batch-elementwise at the GAN encoder's shape, in
+    float32 and bf16: the forward's h and the backward's dx at nb=2 must
+    equal the two nb=1 launches' bit for bit (a sample's result may not
+    depend on the batch around it); dk and db, which sum over the batch,
+    are held to the sum of the two nb=1 results (1e-5 of scale in float32,
+    two bf16 ulps of scale in bf16) and reported (`check_batch_elementwise`
+    gates it; the CPU's plain versions sum in batch-dependent orders)."""
+    import torch
+    from ideal_gan_tpu_torch import ops
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 * BF16_U)):
+        _, (x, k, b, g) = _bf16_inputs(dev, cin, f, 2, size, 30, 1.5)
+        x, k, b, g = (t.to(dtype) for t in (x, k, b, g))
+        one = [ops.convlstm_forward(x[i:i + 1].contiguous(), k, b)
+               for i in range(2)]
+        h_equal = torch.equal(ops.convlstm_forward(x, k, b),
+                              torch.cat(one))
+        bwd = ops.convlstm_backward(x, k, b, g)
+        parts = [ops.convlstm_backward(x[i:i + 1].contiguous(), k, b,
+                                       g[i:i + 1].contiguous())
+                 for i in range(2)]
+        dx_equal = torch.equal(bwd[0], torch.cat([p[0] for p in parts]))
+        red = {}
+        for j, name in ((1, "dk"), (2, "db")):
+            ref = (parts[0][j].float() + parts[1][j].float())
+            red[name] = float((bwd[j].float() - ref).abs().max()) / max(
+                float(ref.abs().max()), 1e-30)
+        out["float32" if dtype == torch.float32 else "bfloat16"] = dict(
+            h_bit_equal=h_equal, dx_bit_equal=dx_equal,
+            reduced_rel_diff=red, reduced_tol=tol,
+            ok=h_equal and dx_equal and max(red.values()) <= tol)
+        del x, g, bwd, parts, one
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return dict(shape=dict(cin=cin, F=f, size=size, nb=2), **out)
+
+
+def check_batch_elementwise(be: dict) -> None:
+    bad = {k: v for k, v in be.items() if isinstance(v, dict) and "ok" in v
+           and not v["ok"]}
+    if bad:
+        raise AssertionError(f"the ConvLSTM kernels are not "
+                             f"batch-elementwise: {bad}")
+
+
+# the GAN phase: the main run at the JAX DEFAULTS with the adversary, then
+# one short epoch of each option
+GAN_SHORT = {"vq": {"VQ_encoder": True}, "cgan": {"cGAN": True},
+             "bf16": {"bf16": True}}
+D_GAN = 72  # the PatchGAN's width (gan DEFAULTS n_D_filters)
+GAN_LSTM = {False: ("convlstm_fwd", "convlstm_bwd"),
+            True: ("convlstm_fwd_bf16", "convlstm_bwd_bf16")}
+# the ConvLSTM kernels' device kernels by name (f32 and bf16)
+GAN_LSTM_FRAGMENTS = ("convlstm_echo", "gates_", "dinp_", "dk_mma",
+                      "sum_slots")
+
+
+def _gan_cfg(size: int, f: int, n: int, epochs: int, over=(),
+             d: int = D_GAN) -> dict:
+    from ideal_gan_tpu_torch.train import gan
+    return dict(gan.DEFAULTS, adv_train=True, synthetic=n, data_size=size,
+                n_G_filters=f, n_D_filters=d, epochs=epochs, **dict(over))
+
+
+def _gan_batch(cfg: dict, dev):
+    """The CLI's first batch of the cohort of `cfg` (echoes, mag/phase map
+    rows, TE) on `dev`."""
+    import torch
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.data import mag_phase_maps, maps_from_mebcrn
+    acqs, maps, te = load_cohorts(cfg)
+    bs = cfg["batch_size"]
+    legacy = maps_from_mebcrn(torch.from_numpy(maps[:bs])).numpy()
+    b = mag_phase_maps(legacy, unwrap=cfg["unwrap"])
+    return tuple(torch.from_numpy(x).to(dev) for x in (acqs[:bs], b, te[:bs]))
+
+
+def _lstm_devices_ms(fn, dev) -> dict | None:
+    """Device ms of one call of `fn`: every kernel, and the ConvLSTM
+    kernels' (by name); None on the CPU."""
+    split = device_ms_by(fn, dev, {"all": "", **{
+        frag: frag for frag in GAN_LSTM_FRAGMENTS}}, iters=3)
+    if split is None:
+        return None
+    return dict(all=split["all"], convlstm=sum(
+        v for k, v in split.items() if k != "all"))
+
+
+def gan_run(dev, out_dir: Path, name: str, size: int, f: int, n: int,
+            epochs: int, over=(), timed: bool = False,
+            d: int = D_GAN) -> dict:
+    """`cli.train_gan.main --adv_train 1` (with the overrides `over`) on `n`
+    synthetic slices of `size`² for `epochs` epochs, counted; then one
+    g-step and one d-step on the first batch, each counted alone, with the
+    discriminator's u read around them; with `timed` both steps' ms, peak
+    memory and device ms (all kernels, the ConvLSTM kernels; the VGG
+    perceptual part and the R1 double backward each alone)."""
+    import torch
+    from ideal_gan_tpu_torch.cli import train_gan
+    from ideal_gan_tpu_torch.losses import r1_regularization
+    from ideal_gan_tpu_torch.train import gan
+
+    cfg = _gan_cfg(size, f, n, epochs, over, d)
+    argv = ["--adv_train", "1", "--synthetic", str(n), "--data_size",
+            str(size), "--epochs", str(epochs), "--epoch_ckpt", str(epochs),
+            "--n_G_filters", str(f), "--n_D_filters", str(d), "--seed", "0",
+            "--device", str(dev), "--dataset", name, "--output_base",
+            str(out_dir)]
+    for k, v in dict(over).items():
+        argv += [f"--{k}", str(int(v) if isinstance(v, bool) else v)]
+    result, wall, launches, peak = counted_peak(
+        dev, lambda: train_gan.main(argv))
+    state = result["state"]
+    disc = state.models.disc
+    init = gan.build_models(cfg)
+    gen = torch.Generator().manual_seed(0)
+    for m in init:
+        m.init_params(gen)
+    u_init = init.disc.stats()
+    u_run = disc.stats()
+    no_grad = _no_gradient(state.models.enc, ("lstm.",))
+    g_step, d_step, _ = gan.make_train_steps(cfg, state.models)
+    batch = _gan_batch(cfg, dev)
+    (_, _, fake), _, g_launches = counted(dev, lambda: g_step(state, batch))
+    u_after_g = disc.stats()
+    _, _, d_launches = counted(dev, lambda: d_step(state, batch[0], fake))
+    u_after_d = disc.stats()
+
+    def changed(a, b):
+        return [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+
+    metrics = {k: v for ep in result["epochs"] for k, v in ep.items()
+               if isinstance(v, float) and k not in ("seconds",)}
+    out = dict(launches=launches, g_steps=n // cfg["batch_size"] * epochs,
+               d_steps=n // cfg["batch_size"] * epochs
+               * cfg["critic_train_steps"], wall_s=wall,
+               peak_memory_gb=peak, epochs=result["epochs"],
+               finite=all(math.isfinite(v) for v in metrics.values()),
+               no_gradient=no_grad, g_step_launches=g_launches,
+               d_step_launches=d_launches,
+               u_changed_by_run=changed(u_init, u_run),
+               u_changed_by_g_step=changed(u_run, u_after_g),
+               u_changed_by_d_step=changed(u_after_g, u_after_d),
+               bf16=bool(cfg["bf16"]))
+    if not timed:
+        return out
+    g_call = lambda: g_step(state, batch)  # noqa: E731
+    d_call = lambda: d_step(state, batch[0], fake)  # noqa: E731
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["g_step_ms"] = time_ms(g_call, dev, iters=3, warmup=1)
+    out["d_step_ms"] = time_ms(d_call, dev, iters=3, warmup=1)
+    out["steps_peak_memory_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                                   if dev.type == "cuda" else None)
+    vgg = gan.init_vgg19().to(dev)
+    a_fake = fake.detach().requires_grad_()
+    prep = gan.echoes_to_vgg_input
+
+    def vgg_part():
+        with torch.no_grad():
+            fa = vgg(prep(batch[0]))
+        loss = gan.perceptual_cosine_loss(fa, vgg(prep(a_fake)))
+        torch.autograd.grad(loss, a_fake)
+
+    def r1_part():
+        r1 = r1_regularization(lambda x: disc(x, update_stats=False),
+                               batch[0])
+        r1.backward()
+        disc.zero_grad()
+
+    g_dev, d_dev = _lstm_devices_ms(g_call, dev), _lstm_devices_ms(d_call,
+                                                                    dev)
+    vgg_dev, r1_dev = _lstm_devices_ms(vgg_part, dev), _lstm_devices_ms(
+        r1_part, dev)
+    out["device_ms"] = None if g_dev is None else dict(
+        g_step=g_dev["all"], d_step=d_dev["all"],
+        g_step_convlstm=g_dev["convlstm"],
+        vgg_perceptual_alone=vgg_dev["all"],
+        r1_double_backward_alone=r1_dev["all"],
+        g_step_idle_share=max(0.0, 1.0 - g_dev["all"] / out["g_step_ms"]),
+        d_step_idle_share=max(0.0, 1.0 - d_dev["all"] / out["d_step_ms"]))
+    return out
+
+
+# the float64 envelope of the GAN step gates: where the card is farther
+# than the tolerance from the CPU, it passes only if its own distance from
+# the float64 witness is within the tolerance or within GAN_ENVELOPE times
+# the CPU's (the adversarial g-step's CPU float32 gradient lies 3.06e-2 of
+# scale from float64 at 96², past the 2e-2 gate; PERF.md §6, the GAN)
+GAN_ENVELOPE = 2.0
+# VGG19's perceptual loss (1 − cos of 16 layers of FP32 features) on the
+# card: cuDNN's FP32 convolutions put it 2.26e-5 from the float64 witness
+# on the same echoes (the CPU 1.5e-7); it is held to this absolute
+# tolerance instead of 2e-5 (PERF.md §6, the GAN)
+GAN_PERCEPTUAL_TOL = 1e-4
+# the bf16 g-step's loss, card vs CPU, in bf16 unit roundoffs of the CPU's
+# bf16 loss: the two lie 1.5 u apart at 96² (the bf16 ConvLSTM kernel
+# against its plain version alone moves the loss 1.0 u), while the CPU's
+# bf16 effect on the loss is 0.19 u, too small for `bf16_step_gate`'s
+# loss rule (PERF.md §6, the GAN)
+GAN_BF16_LOSS_ULPS = 4.0
+
+
+def _gan_parity_failures(parity: dict) -> dict:
+    """The card-vs-CPU GAN steps past MODEL_PARITY.json's tolerances (loss
+    and metrics 2e-5 relative to max(|CPU|, 1), as the CPU parity tests
+    hold them: the perceptual loss is 1 − cos, whose own size says nothing
+    of its error; gradients 2e-2 of scale) whose card value is also
+    outside the float64 envelope: farther from the float64 witness than
+    the tolerance and than `GAN_ENVELOPE` times the CPU."""
+    def gap(x, ref):
+        return abs(x - ref) / max(abs(ref), 1.0)
+
+    out = {}
+    for name, v in parity.items():
+        def outside(card, cpu, f64, tol):
+            return gap(card, cpu) > tol and gap(card, f64) > max(
+                tol, GAN_ENVELOPE * gap(cpu, f64))
+        bad = []
+        if outside(v["loss"], v["loss_ref"], v["loss_f64"], 2e-5):
+            bad.append("loss")
+        vs64 = v["vs_cpu_float64"]
+        if v["grad_max_rel"] > 2e-2 and vs64["card"] > max(
+                2e-2, GAN_ENVELOPE * vs64["cpu"]):
+            bad.append("gradients")
+        bad += [k for k, x in v["metrics"].items()
+                if outside(x, v["metrics_ref"][k], v["metrics_f64"][k],
+                           GAN_PERCEPTUAL_TOL if k == "A2B2A_cycle_loss"
+                           and "perceptual" in v else 2e-5)]
+        if bad:
+            out[name] = bad
+    return out
+
+
+def gan_bf16_gate(run: dict, ref: dict, f32: dict) -> dict:
+    """`bf16_step_gate` with its loss rule replaced by |run − ref| ≤
+    GAN_BF16_LOSS_ULPS · u · |ref| (the gradient, resolved-leaves and
+    bf16-applied rules as they are)."""
+    out = bf16_step_gate(run, ref, f32)
+    out["loss_ulps"] = out["loss_gap"] / (BF16_U * abs(ref["loss"]))
+    out["failures"] = [f for f in out["failures"] if f != "loss"]
+    if out["loss_ulps"] > GAN_BF16_LOSS_ULPS:
+        out["failures"].insert(0, "loss")
+    return out
+
+
+def _gan_parity_setup(size: int, f: int, d: int = D_GAN):
+    """The GAN step parities' inputs: (cfg at the DEFAULTS with the
+    adversary, seeded models, the VGG, a trainable copy of the
+    discriminator, the g-step's (A, B, te, ε), fixed generated echoes)."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.data import mag_phase_maps, maps_from_mebcrn
+    from ideal_gan_tpu_torch.train import gan
+
+    cfg = _gan_cfg(size, f, 1, 1, d=d)
+    acqs, maps, te = synthetic_dataset(1, h=size, w=size, ne=NE, seed=1)
+    b = mag_phase_maps(maps_from_mebcrn(torch.from_numpy(maps)).numpy(),
+                       unwrap=True)
+    rng = np.random.default_rng(2)
+    A, B = (torch.from_numpy((x + 1e-3 * rng.normal(size=x.shape))
+                             .astype(np.float32)) for x in (acqs, b))
+    lat = size // 2 ** cfg["n_downsamplings"]
+    eps = torch.from_numpy(rng.normal(
+        size=(1, lat, lat, cfg["encoded_size"])).astype(np.float32))
+    fake = torch.from_numpy((acqs * 0.9 + 0.02 * rng.normal(
+        size=acqs.shape)).astype(np.float32))
+    gen = torch.Generator().manual_seed(5)
+    models = gan.build_models(cfg)
+    for m in models:
+        m.init_params(gen)
+    d_model = gan.build_models(cfg).disc
+    d_model.load_state_dict(models.disc.state_dict())
+    models.disc.requires_grad_(False)  # the g-step's discriminator
+    return (cfg, models, gan.init_vgg19(), d_model,
+            (A, B, torch.from_numpy(te), eps), fake)
+
+
+def _gan_g_loss(cfg):
+    """make_loss for `_step_run` over (enc, dec_ff, dec_mag, dec_pha, vq,
+    disc, vgg): the g-step's loss and metrics."""
+    from ideal_gan_tpu_torch.train import gan
+
+    def make(enc, dff, dmag, dpha, vq, disc, vgg):
+        fn = gan.make_g_loss_fn(cfg, gan.GANModels(enc, dff, dmag, dpha,
+                                                   disc, vq), vgg)
+        return lambda *args: fn(*args)[:2]
+    return make
+
+
+def _gan_nets(models, vgg) -> tuple:
+    from ideal_gan_tpu_torch.train import gan
+    return (*[getattr(models, n) for n in gan.G_NETS], models.disc, vgg)
+
+
+def gan_step_parity(dev, size: int, f: int, d: int = D_GAN) -> dict:
+    """The GAN steps on `dev` (TF32 off) and on the CPU from the same
+    weights, batch and noise (`_gan_parity_setup`), each with the CPU's
+    float64 witness (the nets in float64, their outputs float32;
+    `_parity_of`): the g-step at the JAX `DEFAULTS` with the adversary (VGG
+    perceptual cycle, WGAN term; ε passed in) and without it, and the
+    d-step (R1 included, on fixed generated echoes). The bf16 g-step
+    (without the adversary: with it the bf16 gradient is rounding noise,
+    card and CPU 0.91 of scale apart and no leaf resolved; PERF.md §6,
+    the GAN) card vs CPU within `bf16_step_gate`, the CPU's float32 step the
+    witness, with its three controls (`gan_bf16_gate`: its loss rule in
+    bf16 ulps). The echoes and maps carry N(0, 1e-3²) noise, so that no
+    input has an exactly zero background."""
+    import torch
+    from ideal_gan_tpu_torch.train import gan
+
+    cpu = torch.device("cpu")
+    cfg, models, vgg, d_model, args, fake = _gan_parity_setup(size, f, d)
+
+    def runs(make, nets, args):
+        return [_step_run(make, nets, args, where, dtype) for where, dtype
+                in ((dev, None), (cpu, None), (cpu, torch.float64))]
+
+    cfg0 = dict(cfg, adv_train=False)
+    nets = _gan_nets(models, vgg)
+    plain = runs(_gan_g_loss(cfg0), nets, args)
+    out = {"g_step": _parity_of(*runs(_gan_g_loss(cfg), nets, args)),
+           "g_step_no_adversary": _parity_of(*plain),
+           "d_step": _parity_of(*runs(lambda d: gan.make_d_loss_fn(cfg, d),
+                                      (d_model,), (args[0], fake)))}
+    models16 = gan.build_models(dict(cfg0, bf16=True))
+    for a, b in zip(models16, models):
+        a.load_state_dict(b.state_dict())
+    make16 = _gan_g_loss(dict(cfg0, bf16=True))
+    card = _step_run(make16, _gan_nets(models16, vgg), args, dev)
+    ref = _step_run(make16, _gan_nets(models16, vgg), args, cpu)
+    for name in ("g_step", "g_step_no_adversary"):
+        out[name]["perceptual"] = cfg["A_loss"] == "VGG"
+    f32 = plain[1]
+    res = gan_bf16_gate(card, ref, f32)
+    res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
+    res["metrics_f32"] = f32["metrics"]
+    g = card["grads"]
+    controls = {"f32_step": f32,
+                "zero_gradient": dict(card, grads={
+                    k: torch.zeros_like(v) for k, v in g.items()}),
+                "flipped_gradient": dict(card, grads={
+                    k: -v for k, v in g.items()})}
+    res["controls"] = {name: gan_bf16_gate(c, ref, f32)["failures"]
+                       for name, c in controls.items()}
+    res["controls_fail"] = all(res["controls"].values())
+    out["bf16_g_step_no_adversary"] = res
+    return out
+
+
+def gan_phase(dev, out_dir: Path, size: int = GAN_SIZE, f: int = F_MAIN,
+              n: int = 16, epochs: int = 2, n_short: int = 4,
+              parity_size: int = 96, d: int = D_GAN) -> dict:
+    """`cli.train_gan` at the JAX `DEFAULTS` with the adversary (F=36, 4
+    levels, latent 258, PatchGAN 72 with self-attention, VGG perceptual
+    cycle; batch 1, `n` synthetic `size`² slices, `epochs` epochs), counted
+    and timed (`gan_run`); then one short epoch (`n_short` slices) each
+    with `--VQ_encoder 1`, `--cGAN 1` and `--bf16 1`; then the card-vs-CPU
+    steps at `parity_size`² (`gan_step_parity`, TF32 off). `f` and `d` are
+    the generator's and the PatchGAN's widths."""
+    main = gan_run(dev, out_dir, "gan", size, f, n, epochs, timed=True, d=d)
+    short = {k: gan_run(dev, out_dir, f"gan_{k}", size, f, n_short, 1, over,
+                        d=d) for k, over in GAN_SHORT.items()}
+    set_tf32(False)
+    parity = gan_step_parity(dev, parity_size, f, d)
+    set_tf32(True)
+    return dict(launches=main["launches"], main=main, short=short,
+                parity=parity, parity_shape=dict(size=parity_size, batch=1,
+                                                 F=f, D=d))
+
+
+def check_gan(g: dict) -> None:
+    """The gan phase's gates, for the main run and each short one: the
+    ConvLSTM kernels of the run's dtype (f32, or bf16 under `--bf16`)
+    launched as often as one g-step launches them times the g-steps, at
+    least once an echo, and never by a d-step (the run's totals equal the
+    g-steps' alone, and the d-step counted alone launches none), the other
+    dtype's never; every loss and metric finite; every encoder ConvLSTM
+    parameter with a non-zero gradient; the discriminator's u changed by
+    the run and by a d-step, and not by a g-step. Then the card-vs-CPU g-
+    steps (with and without the adversary) and d-step
+    (`_gan_parity_failures`: the tolerances of `_parity_failures`, or the
+    float64 envelope) and the bf16 g-step within `gan_bf16_gate`, whose
+    three controls fail it."""
+    for name, r in {"main": g["main"], **g["short"]}.items():
+        lstm, other = GAN_LSTM[r["bf16"]], GAN_LSTM[not r["bf16"]]
+        per = r["g_step_launches"]
+        bad = [k for k in lstm if per[k] < NE
+               or r["launches"][k] != r["g_steps"] * per[k]
+               or r["d_step_launches"][k]]
+        bad += [k for k in other if r["launches"][k] or per[k]]
+        if bad:
+            raise AssertionError(
+                f"gan {name}: ConvLSTM kernels not on every g-step only: "
+                f"{bad} (run {r['launches']}, g-step {per}, d-step "
+                f"{r['d_step_launches']}, {r['g_steps']} g-steps)")
+        if not r["finite"] or r["no_gradient"]:
+            raise AssertionError(f"gan {name}: non-finite metrics or "
+                                 f"ConvLSTM parameters without a gradient: "
+                                 f"{r['epochs']}, {r['no_gradient']}")
+        if not r["u_changed_by_run"] or not r["u_changed_by_d_step"] \
+                or r["u_changed_by_g_step"]:
+            raise AssertionError(
+                f"gan {name}: the spectral-norm u must change on d-steps "
+                f"only: run {r['u_changed_by_run']}, g-step "
+                f"{r['u_changed_by_g_step']}, d-step "
+                f"{r['u_changed_by_d_step']}")
+    par = g["parity"]
+    bad = _gan_parity_failures({k: par[k] for k in (
+        "g_step", "g_step_no_adversary", "d_step")})
+    if bad:
+        raise AssertionError(f"card and CPU GAN steps disagree beyond "
+                             f"float32's envelope: {bad}")
+    b = par["bf16_g_step_no_adversary"]
+    if b["failures"] or not b["controls_fail"]:
+        raise AssertionError(f"the bf16 GAN g-step fails bf16_step_gate, or "
+                             f"a control passes it: {b}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3778,8 +4273,10 @@ def main() -> int:
     kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
                convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev),
                *convlstm_bf16_entries(dev)]
+    batch_elementwise = convlstm_batch_elementwise(dev)
     emit("kernels", card=smi, seconds=time.perf_counter() - t0,
-         kernels=kernels)
+         kernels=kernels, batch_elementwise=batch_elementwise)
+    check_batch_elementwise(batch_elementwise)
     set_tf32(True)  # the runs at PyTorch's defaults
     t0 = time.perf_counter()
     # the train phase's run stays on disk until the roi phase serves it
@@ -3913,6 +4410,12 @@ def main() -> int:
         for path, medians in f["medians"].items():
             print(f"phantom {key} {path}: "
                   + " ".join(f"{m:.6f}" for m in medians))
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        gan = gan_phase(dev, Path(tmp))
+    emit("gan", card=smi, seconds=time.perf_counter() - t0, **gan)
+    check_gan(gan)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag,
@@ -3933,7 +4436,8 @@ def main() -> int:
                  **{f"phantom_{k[6:]}": f
                     for k, f in phantom["fields"].items()},
                  "record": record["trainloop"]["runs"][0],
-                 "record_cli": record}
+                 "record_cli": record, "gan": gan["main"],
+                 **{f"gan_{k}": r for k, r in gan["short"].items()}}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

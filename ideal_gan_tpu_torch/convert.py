@@ -13,10 +13,15 @@ are the `/`-joined paths). Conversion rules:
   recurrent hi/hf/hg/ho with bias) → `torch.nn.LSTM`'s stacked i, f, g, o
   rows; its input bias is 0.
 
+- Flax `SpectralNorm` batch_stats (u (1, out), σ) → the PatchGAN's `u` and
+  `sigma` buffers (the kernel itself stays un-normalized, as Flax keeps
+  it).
+
 Only arrays cross this boundary; nothing of JAX is imported. Every map is
 linear, so the converters also map gradient trees. The whole-net
-converters (`unet`, `vetnet`, `mdwfnet`, `single`) check that every Flax
-leaf was mapped.
+converters (`unet`, `vetnet`, `mdwfnet`, `single`, and the GAN trainer's
+`encoder`, `decoder`, `patchgan`, `vq`, `vgg19`, `gan`) check that every
+Flax leaf was mapped.
 """
 
 from __future__ import annotations
@@ -218,3 +223,111 @@ def single(p_mag: dict, p_pha: dict,
     from the Flax `SingleState`'s params_mag and params_pha, every leaf of
     each checked."""
     return unet(p_mag, num_layers), unet(p_pha, num_layers)
+
+
+def encoder(p: dict, num_layers: int, num_res_blocks: int) -> dict:
+    """State dict of `models.Encoder` from the Flax `Encoder` params
+    (ConvLSTM_0; Conv_0 the stem, Conv_1..L the stride-2 convolutions,
+    Conv_L+1 the 3×3 head, Conv_L+2/Conv_L+3 the mean and σ heads or
+    Conv_L+2 the plain one; ResidualBlock_i in call order, the level blocks
+    first, then the two around SelfAttention_0)."""
+    L, R = num_layers, num_res_blocks
+    sd = convlstm(p["ConvLSTM_0"], "lstm.")
+    sd.update(_conv(p["Conv_0"], "stem."))
+    for level in range(L):
+        sd.update(_conv(p[f"Conv_{level + 1}"], f"down.{level}."))
+        for r in range(R):
+            sd.update(conv_block(p[f"ResidualBlock_{level * R + r}"],
+                                 f"res.{level}.{r}."))
+    if "SelfAttention_0" in p:
+        sd.update(conv_block(p[f"ResidualBlock_{L * R}"], "sa.0."))
+        sd.update(self_attention(p["SelfAttention_0"], "sa.1."))
+        sd.update(conv_block(p[f"ResidualBlock_{L * R + 1}"], "sa.2."))
+    sd.update(_conv(p[f"Conv_{L + 1}"], "head."))
+    if f"Conv_{L + 3}" in p:
+        sd.update(_conv(p[f"Conv_{L + 2}"], "mean."))
+        sd.update(_conv(p[f"Conv_{L + 3}"], "std."))
+    else:
+        sd.update(_conv(p[f"Conv_{L + 2}"], "out."))
+    return _checked(p, sd)
+
+
+def decoder(p: dict, num_layers: int, num_res_blocks: int) -> dict:
+    """State dict of `models.Decoder` from the Flax `Decoder` params
+    (Conv_0, Conv_1 the input convolutions, Conv_2 the head, Norm_0;
+    ResidualBlock_i in call order, the two around SelfAttention_0 first;
+    Upsample_l's Conv_0)."""
+    L, R = num_layers, num_res_blocks
+    sd = {**_conv(p["Conv_0"], "conv_in."), **_conv(p["Conv_1"], "conv_wide."),
+          **_conv(p["Conv_2"], "head.")}
+    gn = p["Norm_0"]["GroupNorm_0"]
+    sd["norm.weight"], sd["norm.bias"] = _t(gn["scale"]), _t(gn["bias"])
+    first = 0
+    if "SelfAttention_0" in p:
+        sd.update(conv_block(p["ResidualBlock_0"], "sa.0."))
+        sd.update(self_attention(p["SelfAttention_0"], "sa.1."))
+        sd.update(conv_block(p["ResidualBlock_1"], "sa.2."))
+        first = 2
+    for level in range(L):
+        sd.update(_conv(p[f"Upsample_{level}"]["Conv_0"], f"up.{level}.conv."))
+        for r in range(R):
+            sd.update(conv_block(p[f"ResidualBlock_{first + level * R + r}"],
+                                 f"res.{level}.{r}."))
+    return _checked(p, sd)
+
+
+def patchgan(p: dict, stats: dict | None = None) -> dict:
+    """State dict of `models.PatchGAN` from the Flax `PatchGAN` params
+    (Conv_i → convs.i.conv, Norm_j → norms.j, SelfAttention_0 → attn) and,
+    with `stats`, its batch_stats (each SpectralNorm_i's u and σ →
+    convs.i.u, convs.i.sigma). Without `stats` the map also converts a
+    gradient tree."""
+    n_convs = sum(1 for k in p if k.startswith("Conv_"))
+    sd = {}
+    for i in range(n_convs):
+        c = p[f"Conv_{i}"]
+        sd[f"convs.{i}.conv.weight"] = conv_kernel(c["kernel"])
+        if "bias" in c:
+            sd[f"convs.{i}.conv.bias"] = _t(c["bias"])
+    for j in range(n_convs - 2):
+        gn = p[f"Norm_{j}"]["GroupNorm_0"]
+        sd[f"norms.{j}.weight"] = _t(gn["scale"])
+        sd[f"norms.{j}.bias"] = _t(gn["bias"])
+    if "SelfAttention_0" in p:
+        sd.update(self_attention(p["SelfAttention_0"], "attn."))
+    _checked(p, sd)
+    if stats is not None:  # {"SpectralNorm_i": {"Conv_i/kernel/u": ...}}
+        for i in range(n_convs):
+            node = stats[f"SpectralNorm_{i}"]
+            sd[f"convs.{i}.u"] = _t(node[f"Conv_{i}/kernel/u"])
+            sd[f"convs.{i}.sigma"] = _t(node[f"Conv_{i}/kernel/sigma"])
+    return sd
+
+
+def vq(p: dict) -> dict:
+    """State dict of `models.VectorQuantizer` (the (D, K) codebook, the same
+    layout)."""
+    return _checked(p, {"codebook": _t(p["codebook"])})
+
+
+def vgg19(variables: dict) -> dict:
+    """State dict of `eval.metrics.VGG19Features` from the Flax
+    `VGG19Features` variables ({"params": {"conv_i": ...}}) or params."""
+    p = variables.get("params", variables)
+    sd = {}
+    for i in range(len(p)):
+        sd.update(_conv(p[f"conv_{i}"], f"convs.{i}."))
+    return _checked(p, sd)
+
+
+def gan(params_g: dict, params_d: dict, d_stats: dict | None,
+        num_layers: int, num_res_blocks: int) -> dict:
+    """{model name: state dict} of `train.gan.GANModels` from the JAX
+    `GANState`'s params_g ({'enc', 'dec_ff', 'dec_mag', 'dec_pha', 'vq'}),
+    params_d and d_stats (None for a gradient tree)."""
+    out = {"enc": encoder(params_g["enc"], num_layers, num_res_blocks),
+           "vq": vq(params_g["vq"]),
+           "disc": patchgan(params_d, d_stats)}
+    for name in ("dec_ff", "dec_mag", "dec_pha"):
+        out[name] = decoder(params_g[name], num_layers, num_res_blocks)
+    return out

@@ -1,14 +1,16 @@
 """Data layer of the port: the HDF5 cohort loaders, the MEBCRN ↔ legacy
-layout converters, 2-D phase unwrapping and the training augmentations.
+layout converters, 2-D phase unwrapping, the training augmentations and the
+GAN replay pool.
 h5py is imported only when an HDF5 file is opened."""
 
 from .augment import (bipolar_phase_row, random_echo_count, random_fm_scale,
-                      random_geometric)
+                      random_geometric, random_phase_offset)
 from .hdf5 import (Hdf5Data, acqs_mebcrn, complex_maps_mebcrn, group_tes,
                    iterate_hdf5, load_hdf5, mag_phase_maps)
 from .layouts import (acqs_from_mebcrn, acqs_to_mebcrn,
                       mag_phase_to_complex_mebcrn, maps_from_mebcrn,
                       maps_to_mebcrn)
+from .pool import ItemPool
 from .unwrap import unwrap_phase_2d, unwrap_slices
 
 __all__ = [
@@ -17,5 +19,5 @@ __all__ = [
     "acqs_to_mebcrn", "maps_from_mebcrn", "maps_to_mebcrn",
     "mag_phase_to_complex_mebcrn", "unwrap_phase_2d", "unwrap_slices",
     "bipolar_phase_row", "random_echo_count", "random_fm_scale",
-    "random_geometric",
+    "random_geometric", "random_phase_offset", "ItemPool",
 ]

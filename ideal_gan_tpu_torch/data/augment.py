@@ -1,6 +1,6 @@
 """Training-time augmentation (port of `ideal_gan_tpu/data/augment.py`'s
-`random_geometric`, `random_fm_scale`, `bipolar_phase_row` and
-`random_echo_count`). A `torch.Generator` takes the place of a JAX key: the
+`random_geometric`, `random_fm_scale`, `bipolar_phase_row`,
+`random_echo_count` and `random_phase_offset`). A `torch.Generator` takes the place of a JAX key: the
 draws differ from the JAX package's, the distribution is the same."""
 
 from __future__ import annotations
@@ -56,3 +56,26 @@ def random_echo_count(rng: np.random.Generator, lo: int = 3,
                       hi: int = 7) -> int:
     """Host-side random echo count in [lo, hi) (shape-changing)."""
     return int(rng.integers(lo, hi))
+
+
+def random_phase_offset(generator: torch.Generator | None, acqs: torch.Tensor,
+                        maps: torch.Tensor, unwrapped: bool = False,
+                        offset: float | None = None):
+    """A global phase offset U(−π/2, π/2) on the acquisitions (nb, ne, H,
+    W, 2) and on the mag/phase map rows (nb, 3, H, W, 2), with the JAX
+    package's indexing of the reference: rows 1 and 2 both become (φ, φ)
+    with φ = row-1 channel 1 + offset/π, wrapped into [−π, π] unless
+    `unwrapped`. `offset` (a float) is taken instead of a draw from
+    `generator`. Returns (acqs, maps)."""
+    if offset is None:
+        offset = float((torch.rand((), generator=generator) - 0.5) * np.pi)
+    mag = torch.sqrt(torch.sum(torch.square(acqs), dim=-1, keepdim=True))
+    pha = torch.atan2(acqs[..., 1:], acqs[..., :1])
+    acqs = torch.cat([mag * torch.cos(pha + offset),
+                      mag * torch.sin(pha + offset)], dim=-1)
+    b_pha = maps[:, 1:, :, :, 1:2] + offset / np.pi
+    if not unwrapped:
+        b_pha = torch.where(b_pha < -np.pi, b_pha + 2 * np.pi, b_pha)
+        b_pha = torch.where(b_pha > np.pi, b_pha - 2 * np.pi, b_pha)
+    out_pha = torch.cat([b_pha, b_pha, maps[:, 1:, :, :, 2:]], dim=-1)
+    return acqs, torch.cat([maps[:, :1], out_pha], dim=1)

@@ -1,11 +1,18 @@
-"""Model zoo of the PyTorch port (the UNets, VET-Net and MDWF-Net)."""
+"""Model zoo of the PyTorch port (the UNets, VET-Net and MDWF-Net, the
+PI-VAE encoder and decoder, the vector quantizer and the PatchGAN)."""
 
 from .attention import SelfAttention, adain
-from .blocks import (ConvBlock, Norm, TEEncoder, Upsample, get_activation,
-                     init_params)
+from .blocks import (ConvBlock, Norm, ResidualBlock, SameConv2d, TEEncoder,
+                     Upsample, get_activation, init_params, same_padding)
 from .convlstm import ConvLSTM
+from .discriminator import PatchGAN, SNConv2d
+from .fourier import fourier_layer
 from .unet import MDWFNet, UNet, VETNet
+from .vae import Decoder, Encoder
+from .vq import VectorQuantizer
 
-__all__ = ["ConvBlock", "ConvLSTM", "MDWFNet", "Norm", "SelfAttention",
-           "TEEncoder", "UNet", "Upsample", "VETNet", "adain",
-           "get_activation", "init_params"]
+__all__ = ["ConvBlock", "ConvLSTM", "Decoder", "Encoder", "MDWFNet", "Norm",
+           "PatchGAN", "ResidualBlock", "SNConv2d", "SameConv2d",
+           "SelfAttention", "TEEncoder", "UNet", "Upsample", "VETNet",
+           "VectorQuantizer", "adain", "fourier_layer", "get_activation",
+           "init_params", "same_padding"]

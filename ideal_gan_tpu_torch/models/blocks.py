@@ -3,6 +3,12 @@
 Activations are NCHW inside the models. Norm order follows the reference:
 conv → activation → norm. Only instance norm is ported.
 
+`SameConv2d` pads as Flax's "SAME" does (XLA's rule: the total padding
+max((ceil(n/s) − 1)·s + k − n, 0) split with the smaller half first), which
+`nn.Conv2d(padding=k//2)` gets wrong for even kernels and for stride-2
+convolutions at even sizes: 2×2 stride 1 pads (0, 1), 3×3 stride 2 (0, 1),
+4×4 stride 2 (1, 1), 4×4 stride 1 (1, 2).
+
 A compute `dtype` is Flax's `dtype` field: a block given one casts its input,
 kernel and bias to it at use (`dtype_conv`), while its parameters keep
 theirs (float32); `None` computes in the parameters' dtype. Norms reduce in
@@ -71,6 +77,31 @@ class Norm(nn.GroupNorm):
                             self.bias, self.eps).to(self.dtype)
 
 
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """(before, after) padding of one spatial axis under XLA's "SAME"."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """`nn.Conv2d` with Flax's "SAME" padding (module docstring): a
+    symmetric padding is passed to the convolution, an asymmetric one is
+    applied with `F.pad` first."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, bias=bias)
+
+    def _conv_forward(self, x, weight, bias):
+        (t, b), (l, r) = (same_padding(n, k, s) for n, k, s in zip(
+            x.shape[-2:], self.kernel_size, self.stride))
+        if t == b and l == r:
+            return F.conv2d(x, weight, bias, self.stride, (t, l))
+        return F.conv2d(F.pad(x, (l, r, t, b)), weight, bias, self.stride)
+
+
 class ConvBlock(nn.Module):
     """Two 3×3 convs, each followed by the activation and the norm."""
 
@@ -90,15 +121,47 @@ class ConvBlock(nn.Module):
         return self.norm2(self.act(dtype_conv(self.conv2, x, self.dtype)))
 
 
-class Upsample(nn.Module):
-    """2× upsample by a 2×2 stride-2 transpose convolution."""
+class ResidualBlock(nn.Module):
+    """conv → norm → leaky_relu → conv → norm, plus the input (3×3
+    convolutions without bias; the JAX block's `groups` and `bayes` have no
+    caller on a ported path)."""
 
-    def __init__(self, in_channels: int, filters: int, dtype=None):
+    def __init__(self, channels: int, norm: str = "instance_norm",
+                 dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.conv = nn.ConvTranspose2d(in_channels, filters, 2, stride=2)
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
+        self.norm1 = Norm(channels, norm, dtype=dtype)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
+        self.norm2 = Norm(channels, norm, dtype=dtype)
 
     def forward(self, x):
+        h = self.norm1(dtype_conv(self.conv1, x, self.dtype))
+        h = get_activation("leaky_relu")(h)
+        h = self.norm2(dtype_conv(self.conv2, h, self.dtype))
+        return x.to(h.dtype) + h
+
+
+class Upsample(nn.Module):
+    """2× upsample: a 2×2 stride-2 transpose convolution
+    ("conv_transpose"), or nearest-neighbour ×2 then a 2×2 "SAME"
+    convolution ("interpol_conv")."""
+
+    def __init__(self, in_channels: int, filters: int,
+                 method: str = "conv_transpose", dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.method = method
+        if method == "conv_transpose":
+            self.conv = nn.ConvTranspose2d(in_channels, filters, 2, stride=2)
+        elif method == "interpol_conv":
+            self.conv = SameConv2d(in_channels, filters, 2)
+        else:
+            raise ValueError(f"unknown upsample method {method!r}")
+
+    def forward(self, x):
+        if self.method == "interpol_conv":
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
         return dtype_conv(self.conv, x, self.dtype)
 
 
