@@ -4,9 +4,10 @@ AI-DEAL serving, magnitude training, Mag serving, VET-Net serving,
 supervised training with 2D-Net serving, the other TE-augmentation
 generators, AI-DEAL's uncertainty path (UQ training, σ-calibration,
 PDFF-var serving), the single-subject trainer, the trainers' options, the
-run record (settings, summaries, checkpoints, preemption, TrainLoop) and
-the ROI evaluation (in-vivo ROI bias, the vial phantom) on one NVIDIA
-card.
+run record (settings, summaries, checkpoints, preemption, TrainLoop), the
+ROI evaluation (in-vivo ROI bias, the vial phantom), the PI-VAE/GAN
+trainer and the latent-diffusion family (training, dataset generation, the
+generative metrics) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -252,8 +253,34 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             (`bf16_step_gate` with its loss rule in bf16 ulps), whose three
             controls must fail it.
 
+19. ldm      the LDM family on the gan phase's runs (kept on disk until
+            then): `cli.train_ldm.main` at the LDM `DEFAULTS` (T=200, F=64,
+            dim_mults (1, 2, 4), batch 8; the latent (12, 12, 258) of the
+            GAN at its DEFAULTS) on 16 synthetic 192² slices for 2 epochs,
+            counted and timed (ms per step and per denoiser call, device
+            ms, idle shares, peak memory, the encode's ConvLSTM forward);
+            `cli.gen_ldm_dataset.main` (16 samples in batches of 8, the
+            200-step DDPM chain), its shards read back; `cli.test_genmetrics
+            .main --use_ldm 1` (DDIM, 50 steps); one epoch of `train_ldm` on
+            the bf16 GAN run. Fails unless the encoder's ConvLSTM forward
+            kernel of the GAN run's dtype launched 6 times an encode (the
+            z_std pass, the `in_res` probe, every step) and the backward
+            never, z_std is within 1e-6 of its float64 recomputation over
+            the same latents and in `checkpoints_ldm/`, every loss and
+            metric is finite, every denoiser parameter has a non-zero
+            gradient (but the class planes' Dense kernels without classes,
+            exactly zero), the shards are (16, 6, 192, 192, 2) and (16, 3,
+            192, 192, 2) and finite, and FID, MMD, SSIM and MS-SSIM are
+            finite. Then, at full width with batch 2 and TF32 off
+            (`ldm_step_parity`): the denoiser step card vs CPU with a
+            float64 witness (`_gan_parity_failures`' rule), one DDPM and
+            one DDIM reverse step within 1e-5 of scale, and a 50-step DDIM
+            chain on identical noise no farther from the float64 chain than
+            2× the CPU's.
+
 The kernels phase holds the ConvLSTM kernels at the GAN encoder's shape
-too ((Cin=2, F=36, nb=1, 192²), f32 and bf16), and checks them
+too ((Cin=2, F=36, nb=1, 192²), f32 and bf16), the forward also at the
+LDM's encode ((Cin=2, F=36, nb=8, 192²), f32 and bf16), and checks them
 batch-elementwise there (`convlstm_batch_elementwise`: h and dx at nb=2
 equal to two nb=1 launches bit for bit; dk, db to their sum).
 
@@ -275,7 +302,8 @@ the magnitude fit, the options phase's bf16 AI-DEAL run for the bf16
 ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
 counts of the sup, teaug_gens, uq, single and options runs, and of
 roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run),
-record_cli, and gan, gan_vq, gan_cgan, gan_bf16) and `{"ok": true,
+record_cli, gan, gan_vq, gan_cgan, gan_bf16, and ldm, ldm_gen,
+ldm_metrics, ldm_bf16) and `{"ok": true,
 "device": {...}}`.
 """
 
@@ -601,8 +629,11 @@ LSTM_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
                (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE),
                (1, F_MAIN, 3), (2, F_MAIN, 1, GAN_SIZE))
 # the forward also at nb=6, the UQ calibration stage's batch (its 8-slice
-# split less the 2 held out), for the FM (Cin=2) and R2* (Cin=1) nets
-LSTM_FWD_SHAPES = LSTM_SHAPES + ((2, F_MAIN, 6), (1, F_MAIN, 6))
+# split less the 2 held out), for the FM (Cin=2) and R2* (Cin=1) nets, and
+# at (Cin=2, F=36, nb=8, 192²), the frozen GAN encoder on an LDM batch
+LDM_ENCODE_SHAPE = (2, F_MAIN, NB_SERVE, GAN_SIZE)
+LSTM_FWD_SHAPES = LSTM_SHAPES + ((2, F_MAIN, 6), (1, F_MAIN, 6),
+                                 LDM_ENCODE_SHAPE)
 # the ConvLSTM forward kernel's symbol holds this (it is also the
 # backward's state recompute)
 LSTM_FWD = "convlstm_echo"
@@ -982,10 +1013,11 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
 
 # the bf16 storage mode's shapes: AI-DEAL's FM (Cin=2) and R2* (Cin=1) nets
 # at F=36, VET-Net's and the 2U-Net R2* net's at F=72, and the GAN
-# encoder's (nb=1, 192²)
+# encoder's (nb=1, 192²); the forward also at the LDM's encode (nb=8, 192²)
 LSTM_BF16_SHAPES = ((2, F_MAIN, NB_SERVE), (1, F_MAIN, NB_SERVE),
                     (2, F_TEAUG, NB_SERVE), (1, F_TEAUG, NB_SERVE),
                     (2, F_MAIN, 1, GAN_SIZE))
+LSTM_BF16_FWD_ONLY = (LDM_ENCODE_SHAPE,)
 LSTM_FWD_BF16 = "convlstm_echo_wg_bf16"
 BWD_BF16_STAGES = {"recompute": LSTM_FWD_BF16, "gates": "gates_wg_bf16",
                    "dinp": "dinp_mma_bf16", "dk": "dk_mma_bf16",
@@ -1076,9 +1108,11 @@ def _bf16_inputs(dev, cin, f, nb, size, seed, kink=None):
 
 
 def convlstm_bf16_entries(dev, size: int = SIZE,
-                          shapes=LSTM_BF16_SHAPES) -> list:
+                          shapes=LSTM_BF16_SHAPES + LSTM_BF16_FWD_ONLY,
+                          fwd_only=LSTM_BF16_FWD_ONLY) -> list:
     """The ConvLSTM kernels' bf16 storage mode (rows 2 and 4 of the kernel
-    table) at each (Cin, F, nb) of `shapes`, as two `kernels` entries:
+    table) at each (Cin, F, nb) of `shapes` (the backward at those not in
+    `fwd_only`), as two `kernels` entries:
 
     - forward: on convlstm_entry's inputs rounded to bf16, held to the bf16
       plain version (`convlstm_reference` on bf16 tensors) by `bf16_fails`;
@@ -1143,6 +1177,8 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
                                  f"plain version, or the f32 kernel's output "
                                  f"passes its gate: {case}")
         del x, xb, inp
+        if (cin, f, nb, *sz) in fwd_only:
+            continue
         for kind, g_bias in KINK_FREE.items():
             (x, k, b, g), (xb, kb, bb, gb) = _bf16_inputs(
                 dev, cin, f, nb, size, 10 + cin, g_bias)
@@ -4246,6 +4282,310 @@ def check_gan(g: dict) -> None:
                              f"a control passes it: {b}")
 
 
+# the ldm phase: the LDM CLIs at the LDM DEFAULTS (T=200, F=64, dim_mults
+# (1, 2, 4), batch 8) on the gan phase's card-trained runs, whose latent at
+# the GAN DEFAULTS is (12, 12, 258) for 192² echoes
+LDM_LAT, LDM_CHANNELS = GAN_SIZE // 16, 258
+# the 50-step DDIM chain card vs CPU: the card's float32 chain no farther
+# from the float64 chain than this many times the CPU's
+LDM_CHAIN_ENVELOPE = 2.0
+# without class conditioning the class planes' Dense kernels see zero
+# embeddings: no gradient reaches them (in JAX as here)
+LDM_CLASS_KERNELS = "cond.dense.weight"
+
+
+def _ldm_flags(dev, exp_dir: Path, out_dir: Path, name: str, flags=()):
+    return ["--experiment_dir", str(exp_dir), "--dataset", name,
+            "--output_base", str(out_dir), "--device", str(dev), "--seed",
+            "0", *flags]
+
+
+def ldm_train_run(dev, out_dir: Path, exp_dir: Path, name: str, n: int,
+                  epochs: int, batch: int = 8, flags=(),
+                  timed: bool = False) -> dict:
+    """`cli.train_ldm.main` on the GAN run `exp_dir` (`n` of its synthetic
+    slices, `epochs` epochs at `batch`), counted: its launches beside the
+    encodes it makes (the z_std pass, the `in_res` probe, one a step), z_std
+    beside its float64 recomputation over the cohort encoded again in the
+    same batches (the encoder's kernels are deterministic), the
+    checkpoint's z_std, the denoiser's parameters without a gradient after
+    the last step. With `timed`: ms per step (the batch's encode, the
+    normalization and the step) and per denoiser call at `batch` under
+    `no_grad` (CUDA events), their device ms and idle shares, and the
+    encode's (the ConvLSTM forward kernel's six launches alone too)."""
+    import torch
+    from ideal_gan_tpu_torch.cli import train_ldm
+    from ideal_gan_tpu_torch.cli.common import load_cohorts, load_settings
+    from ideal_gan_tpu_torch.train import gan, ldm
+    from ideal_gan_tpu_torch.utils import Checkpoint
+
+    argv = _ldm_flags(dev, exp_dir, out_dir, name, (
+        "--synthetic", str(n), "--epochs", str(epochs), "--epoch_ckpt",
+        str(epochs), "--batch_size", str(batch), *flags))
+    result, wall, launches, peak = counted_peak(dev,
+                                                lambda: train_ldm.main(argv))
+    state = result["state"]
+    steps = n // batch * epochs
+    gan_cfg = load_settings(exp_dir).backfill(gan.DEFAULTS)
+    models = ldm.load_gan(gan_cfg, exp_dir, dev)
+    encode = ldm.make_encode(models, gan_cfg["VQ_encoder"])
+    acqs, _, _ = load_cohorts(gan_cfg.overlay({"synthetic": n}))
+    lat = torch.cat([encode(torch.from_numpy(acqs[i:i + batch]).to(dev))
+                     for i in range(0, n, batch)]).double()
+    z_std64 = float(torch.sqrt(torch.mean(torch.square(lat - lat.mean()))))
+    zero_class = [k for k, p in state.model.named_parameters()
+                  if k.endswith(LDM_CLASS_KERNELS)
+                  and state.model.embed is None]
+    out = dict(launches=launches, steps=steps,
+               encodes=-(-n // batch) + 1 + steps, wall_s=wall,
+               peak_memory_gb=peak, epochs=result["epochs"],
+               finite=_finite_losses(result["epochs"]),
+               z_std=result["z_std"], z_std_f64=z_std64,
+               z_std_rel_diff=abs(result["z_std"] - z_std64) / z_std64,
+               checkpoint_z_std=Checkpoint(
+                   Path(exp_dir) / "checkpoints_ldm").restore().get("z_std"),
+               no_gradient=[k for k in _no_gradient(state.model, ("",))
+                            if k not in zero_class],
+               class_kernels_without_gradient=len(zero_class),
+               class_kernels_zero=all(
+                   not bool(p.grad.abs().max() > 0)
+                   for k, p in state.model.named_parameters()
+                   if k in zero_class),
+               bf16=bool(gan_cfg["bf16"]))
+    if not timed:
+        return out
+    A = torch.from_numpy(acqs[:batch]).to(dev)
+    labels = torch.zeros((batch,), dtype=torch.long, device=dev)
+    step_fn, _ = ldm.make_train_step(
+        dict(ldm.DEFAULTS, epochs=epochs), state.model,
+        ldm.build_schedule(ldm.DEFAULTS),
+        torch.Generator(device=dev).manual_seed(1))
+    x = torch.randn((batch, *lat.shape[1:]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    t = torch.full((batch,), 100, dtype=torch.long, device=dev)
+
+    def step():
+        step_fn(state, (encode(A) / state.z_std, labels))
+
+    @torch.no_grad()
+    def denoise():
+        state.model(x, t, labels)
+
+    split = {"all": "", "convlstm_fwd": LSTM_FWD}
+    out.update(step_ms=time_ms(step, dev, iters=3, warmup=1),
+               denoiser_ms=time_ms(denoise, dev, iters=20, warmup=2),
+               encode_ms=time_ms(lambda: encode(A), dev, iters=5))
+    dev_ms = {k: device_ms_by(fn, dev, split) for k, fn in (
+        ("step", step), ("denoiser", denoise), ("encode", lambda: encode(A)))}
+    out["device_ms"] = None if dev_ms["step"] is None else dict(
+        **{f"{k}_{part}": v[part] for k, v in dev_ms.items()
+           for part in ("all", "convlstm_fwd")},
+        **{f"{k}_idle_share": max(0.0, 1.0 - dev_ms[k]["all"]
+                                  / out[f"{k}_ms"])
+           for k in ("step", "denoiser", "encode")})
+    return out
+
+
+def ldm_gen_run(dev, out_dir: Path, exp_dir: Path, n: int, batch: int,
+                size: int, flags=()) -> dict:
+    """`cli.gen_ldm_dataset.main` (DDPM, the full T-step chain) on the LDM
+    of `exp_dir`, counted; its shards read back: shapes, finiteness and
+    the seconds of each batch."""
+    import numpy as np
+    from ideal_gan_tpu_torch.cli import gen_ldm_dataset
+    from ideal_gan_tpu_torch.data.records import read_shards
+
+    argv = _ldm_flags(dev, exp_dir, out_dir, "ldm_gen", (
+        "--n_samples", str(n), "--sample_batch", str(batch), "--method",
+        "ddpm", *flags))
+    result, wall, launches = counted(dev, lambda: gen_ldm_dataset.main(argv))
+    acqs, maps = read_shards(result["shards"])
+    return dict(launches=launches, wall_s=wall, shards=len(result["shards"]),
+                seconds_per_batch=result["seconds"],
+                acqs_shape=list(acqs.shape), maps_shape=list(maps.shape),
+                shapes_ok=acqs.shape == (n, NE, size, size, 2)
+                and maps.shape == (n, 3, size, size, 2),
+                finite=bool(np.isfinite(acqs).all()
+                            and np.isfinite(maps).all()))
+
+
+def ldm_metrics_run(dev, out_dir: Path, exp_dir: Path, n: int,
+                    flags=()) -> dict:
+    """`cli.test_genmetrics.main --use_ldm 1` (DDIM, 50 steps) on the LDM of
+    `exp_dir` and `n` real slices, counted."""
+    from ideal_gan_tpu_torch.cli import test_genmetrics
+
+    argv = _ldm_flags(dev, exp_dir, out_dir, "ldm_metrics", (
+        "--synthetic", str(n), "--n_samples", str(n), "--use_ldm", "1",
+        *flags))
+    result, wall, launches = counted(dev, lambda: test_genmetrics.main(argv))
+    values = [v for v in result.values() if isinstance(v, float)]
+    return dict(launches=launches, wall_s=wall, results=result,
+                finite=all(math.isfinite(v) for v in values))
+
+
+def ldm_step_parity(dev, cfg: dict, channels: int, lat: int,
+                    batch: int = 2) -> dict:
+    """The LDM on `dev` (TF32 off) and on the CPU from the same seeded
+    denoiser (`cfg`, `channels` × `lat`²) and inputs: the ε-MSE step (loss,
+    every gradient leaf) with the CPU's float64 witness (`_parity_of`); one
+    DDPM and one DDIM reverse step at t = T·3/5 on identical inputs; and
+    the `infer_steps` DDIM chain (`train.ldm.sample_latents`) on identical
+    noise, each device's float32 chain and the CPU's float64 one."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import diffusion
+    from ideal_gan_tpu_torch.train import ldm
+
+    cpu = torch.device("cpu")
+    model = ldm.build_model(cfg, channels)
+    model.init_params(torch.Generator().manual_seed(5))
+    sched = ldm.build_schedule(cfg)
+    rng = np.random.default_rng(3)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    shape = (batch, lat, lat, channels)
+    z, noise = normal(*shape), normal(*shape)
+    t = torch.from_numpy(rng.integers(0, cfg["n_timesteps"], batch))
+    labels = torch.zeros((batch,), dtype=torch.long)
+
+    def make(m):
+        loss_fn = ldm.make_loss_fn(m, sched)
+
+        def fn(*args):
+            loss = loss_fn(*args)
+            return loss, {"loss": loss}
+        return fn
+
+    out = {"step": _parity_of(*[
+        _step_run(make, (model,), (z, labels, t, noise), where, dtype)
+        for where, dtype in ((dev, None), (cpu, None), (cpu, torch.float64))])}
+    x, eps, zz = normal(*shape), normal(*shape), normal(*shape)
+    t_rev = cfg["n_timesteps"] * 3 // 5
+
+    def reverse(where):
+        s = sched.to(where)
+        a, e, r = (v.to(where) for v in (x, eps, zz))
+        return (diffusion.ddpm_reverse_step(a, e, t_rev, s, r).cpu(),
+                diffusion.ddim_reverse_step(a, e, t_rev, 0.0, s, r).cpu())
+
+    card, ref = reverse(dev), reverse(cpu)
+    out["reverse_steps"] = {"ddpm": _rel(card[0], ref[0]),
+                            "ddim": _rel(card[1], ref[1])}
+    x_init = normal(*shape)
+    zs = [normal(*shape) for _ in range(cfg["infer_steps"])]
+
+    def chain(where, dtype=torch.float32):
+        m = copy.deepcopy(model).to(where, dtype)
+        return ldm.sample_latents(
+            cfg, m, sched, batch, (lat, lat), channels, 1.0, method="ddim",
+            x_init=x_init.to(where, dtype),
+            zs=[v.to(where, dtype) for v in zs]).cpu().double()
+
+    c, p, w = chain(dev), chain(cpu), chain(cpu, torch.float64)
+    out["ddim_chain"] = dict(steps=cfg["infer_steps"],
+                             card_vs_cpu=_rel(c, p), card_vs_f64=_rel(c, w),
+                             cpu_vs_f64=_rel(p, w),
+                             finite=bool(torch.isfinite(c).all()))
+    return out
+
+
+def ldm_phase(dev, out_dir: Path, gan_dir: Path, gan_bf16_dir: Path,
+              n: int = 16, epochs: int = 2, batch: int = 8,
+              n_samples: int = 16, size: int = GAN_SIZE, flags=(),
+              parity_cfg: dict | None = None, lat: int = LDM_LAT,
+              channels: int = LDM_CHANNELS) -> dict:
+    """The LDM family on the gan phase's runs: `cli.train_ldm` at the LDM
+    `DEFAULTS` on the f32 GAN run (`n` slices, `epochs` epochs at `batch`),
+    counted and timed (`ldm_train_run`); `cli.gen_ldm_dataset` (`n_samples`
+    in batches of `batch`, the full DDPM chain) and `cli.test_genmetrics
+    --use_ldm 1` on it; one epoch of `train_ldm` on the bf16 GAN run (`batch`
+    slices); then the card-vs-CPU step, reverse steps and DDIM chain at
+    the LDM `DEFAULTS` (`ldm_step_parity`, TF32 off). `flags` go to every
+    CLI (the rehearsal's tiny sizes), `parity_cfg` overrides the DEFAULTS
+    of the parity."""
+    from ideal_gan_tpu_torch.train import ldm
+    main = ldm_train_run(dev, out_dir, gan_dir, "ldm", n, epochs, batch,
+                         flags, timed=True)
+    gen = ldm_gen_run(dev, out_dir, gan_dir, n_samples, batch, size, flags)
+    metrics = ldm_metrics_run(dev, out_dir, gan_dir, n, flags)
+    bf16 = ldm_train_run(dev, out_dir, gan_bf16_dir, "ldm_bf16", batch, 1,
+                         batch, flags)
+    set_tf32(False)
+    cfg = dict(ldm.DEFAULTS, **{"in_res": lat, "infer_steps": 50,
+                                **(parity_cfg or {})})
+    parity = ldm_step_parity(dev, cfg, channels, lat)
+    set_tf32(True)
+    return dict(launches=main["launches"], main=main, gen=gen,
+                metrics=metrics, bf16=bf16, parity=parity,
+                parity_shape=dict(F=cfg["n_ldm_filters"],
+                                  dim_mults=list(cfg["dim_mults"]), lat=lat,
+                                  channels=channels, batch=2,
+                                  ddim_steps=cfg["infer_steps"]))
+
+
+def check_ldm(r: dict) -> None:
+    """The ldm phase's gates: the frozen encoder's ConvLSTM forward kernel
+    of the GAN run's dtype launched 6 times an encode (the z_std pass, the
+    probe, every step) and the backward never, on every LDM path (sampling
+    and the metrics encode nothing); z_std within 1e-6 of its float64
+    recomputation and in the checkpoint; every loss finite; every denoiser
+    parameter with a non-zero gradient but the class planes' Dense kernels
+    without classes, whose gradient is exactly zero; the shards' shapes and
+    finiteness; FID, MMD, SSIM and MS-SSIM finite; the card-vs-CPU step
+    inside `_gan_parity_failures`' rule, the reverse steps within 1e-5 of
+    scale, and the DDIM chain no farther from float64 than
+    `LDM_CHAIN_ENVELOPE` times the CPU's."""
+    for name in ("main", "bf16"):
+        run = r[name]
+        fwd, bwd = GAN_LSTM[run["bf16"]]
+        other = GAN_LSTM[not run["bf16"]]
+        lau = run["launches"]
+        if lau[fwd] != NE * run["encodes"] or lau[bwd] or any(
+                lau[k] for k in other):
+            raise AssertionError(
+                f"ldm {name}: the encoder's ConvLSTM forward must launch "
+                f"{NE} times an encode ({run['encodes']} encodes) and the "
+                f"backward never: {lau}")
+        if run["z_std_rel_diff"] > 1e-6 or \
+                run["checkpoint_z_std"] != run["z_std"]:
+            raise AssertionError(
+                f"ldm {name}: z_std {run['z_std']} vs float64 "
+                f"{run['z_std_f64']}, checkpoint {run['checkpoint_z_std']}")
+        if not run["finite"] or run["no_gradient"] \
+                or not run["class_kernels_zero"]:
+            raise AssertionError(
+                f"ldm {name}: non-finite losses or denoiser parameters "
+                f"without a gradient: {run['epochs']}, {run['no_gradient']},"
+                f" class kernels zero {run['class_kernels_zero']}")
+    for name in ("gen", "metrics"):
+        if any(v for k, v in r[name]["launches"].items()
+               if k.startswith("convlstm")):
+            raise AssertionError(f"ldm {name} ran the encoder: "
+                                 f"{r[name]['launches']}")
+    gen = r["gen"]
+    if not gen["shapes_ok"] or not gen["finite"]:
+        raise AssertionError(f"ldm shards: {gen['acqs_shape']}, "
+                             f"{gen['maps_shape']}, finite {gen['finite']}")
+    res = r["metrics"]["results"]
+    if not r["metrics"]["finite"] or not {
+            "FID", "MMD", "SSIM_pairs", "MS_SSIM_pairs"} <= set(res):
+        raise AssertionError(f"ldm metrics missing or not finite: {res}")
+    par = r["parity"]
+    bad = _gan_parity_failures({"step": par["step"]})
+    bad.update({k: v for k, v in par["reverse_steps"].items() if v > 1e-5})
+    ch = par["ddim_chain"]
+    if not ch["finite"] or ch["card_vs_f64"] > LDM_CHAIN_ENVELOPE * \
+            ch["cpu_vs_f64"]:
+        bad["ddim_chain"] = ch
+    if bad:
+        raise AssertionError(f"card and CPU LDM disagree: {bad}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4412,10 +4752,17 @@ def main() -> int:
                   + " ".join(f"{m:.6f}" for m in medians))
     set_tf32(True)
     t0 = time.perf_counter()
+    # the gan phase's runs stay on disk until the ldm phase trains on them
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         gan = gan_phase(dev, Path(tmp))
-    emit("gan", card=smi, seconds=time.perf_counter() - t0, **gan)
-    check_gan(gan)
+        emit("gan", card=smi, seconds=time.perf_counter() - t0, **gan)
+        check_gan(gan)
+        set_tf32(True)
+        t0 = time.perf_counter()
+        ldm = ldm_phase(dev, Path(tmp), Path(tmp) / "gan",
+                        Path(tmp) / "gan_bf16")
+        emit("ldm", card=smi, seconds=time.perf_counter() - t0, **ldm)
+        check_ldm(ldm)
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag,
@@ -4437,7 +4784,9 @@ def main() -> int:
                     for k, f in phantom["fields"].items()},
                  "record": record["trainloop"]["runs"][0],
                  "record_cli": record, "gan": gan["main"],
-                 **{f"gan_{k}": r for k, r in gan["short"].items()}}
+                 **{f"gan_{k}": r for k, r in gan["short"].items()},
+                 "ldm": ldm["main"], "ldm_gen": ldm["gen"],
+                 "ldm_metrics": ldm["metrics"], "ldm_bf16": ldm["bf16"]}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

@@ -19,9 +19,12 @@ are the `/`-joined paths). Conversion rules:
 
 Only arrays cross this boundary; nothing of JAX is imported. Every map is
 linear, so the converters also map gradient trees. The whole-net
-converters (`unet`, `vetnet`, `mdwfnet`, `single`, and the GAN trainer's
-`encoder`, `decoder`, `patchgan`, `vq`, `vgg19`, `gan`) check that every
-Flax leaf was mapped.
+converters (`unet`, `vetnet`, `mdwfnet`, `single`, the GAN trainer's
+`encoder`, `decoder`, `patchgan`, `vq`, `vgg19`, `gan`, and the LDM's
+`denoise_unet`) check that every Flax leaf was mapped.
+
+- The LDM's channel LayerNorm parameters (1, 1, 1, C) → (1, C, 1, 1); Flax
+  `Embed` tables keep their (num_classes, dim) layout.
 """
 
 from __future__ import annotations
@@ -331,3 +334,83 @@ def gan(params_g: dict, params_d: dict, d_stats: dict | None,
     for name in ("dec_ff", "dec_mag", "dec_pha"):
         out[name] = decoder(params_g[name], num_layers, num_res_blocks)
     return out
+
+
+def _dense(p: dict, prefix: str) -> dict:
+    return {f"{prefix}weight": _t(np.asarray(p["kernel"]).T),
+            f"{prefix}bias": _t(p["bias"])}
+
+
+def _ldm_layer_norm(p: dict, prefix: str) -> dict:
+    return {f"{prefix}{k}": _t(np.moveaxis(np.asarray(p[k]), -1, 1))
+            for k in ("g", "b")}
+
+
+def _resnet_block(p: dict, prefix: str) -> dict:
+    """`models.ldm.ResnetBlock` from the Flax one (Dense_0 the time FiLM,
+    _Block_0/_Block_1 each a Conv_0 and a GroupNorm_0, Conv_0 the 1×1
+    projection)."""
+    sd = _dense(p["Dense_0"], f"{prefix}mlp.") if "Dense_0" in p else {}
+    for i in (0, 1):
+        blk = p[f"_Block_{i}"]
+        sd.update(_conv(blk["Conv_0"], f"{prefix}block{i + 1}.conv."))
+        gn = blk["GroupNorm_0"]
+        sd[f"{prefix}block{i + 1}.norm.weight"] = _t(gn["scale"])
+        sd[f"{prefix}block{i + 1}.norm.bias"] = _t(gn["bias"])
+    if "Conv_0" in p:
+        sd.update(_conv(p["Conv_0"], f"{prefix}res_conv."))
+    return sd
+
+
+def _attention(p: dict, prefix: str) -> dict:
+    sd = {f"{prefix}to_qkv.weight": conv_kernel(p["Conv_0"]["kernel"]),
+          **_conv(p["Conv_1"], f"{prefix}to_out.")}
+    if "_LayerNorm_0" in p:
+        sd.update(_ldm_layer_norm(p["_LayerNorm_0"], f"{prefix}norm."))
+    return sd
+
+
+def denoise_unet(p: dict, n_levels: int) -> dict:
+    """State dict of `models.ldm.DenoiseUNet` (len(dim_mults) = `n_levels`)
+    from the Flax `DenoiseUNet` params, whose submodules are numbered per
+    type in the order `__call__` creates them: Embed_0 (with classes),
+    Conv_0 the 7×7 stem, Dense_0/Dense_1 the time MLP; then per level down
+    ClassConditioning, two ResnetBlocks, _LayerNorm, LinearAttention and
+    (all but the last) Conv_1… the downsampling; the mid ClassConditioning,
+    ResnetBlock, _LayerNorm, Attention_0, ResnetBlock; per level up the
+    same as down with ConvTranspose_j (flipped); the final ResnetBlock and
+    Conv_n."""
+    n = n_levels
+    sd = {"embed.weight": _t(p["Embed_0"]["embedding"])} \
+        if "Embed_0" in p else {}
+    sd.update(_conv(p["Conv_0"], "init_conv."))
+    sd.update(_dense(p["Dense_0"], "time_in."))
+    sd.update(_dense(p["Dense_1"], "time_out."))
+
+    def level(prefix, cond, block, norm, attn):
+        sd.update(_dense(p[f"ClassConditioning_{cond}"]["Dense_0"],
+                         f"{prefix}cond.dense."))
+        for j in (0, 1):
+            sd.update(_resnet_block(p[f"ResnetBlock_{block + j}"],
+                                    f"{prefix}block{j + 1}."))
+        sd.update(_ldm_layer_norm(p[f"_LayerNorm_{norm}"], f"{prefix}norm."))
+        sd.update(_attention(p[f"LinearAttention_{attn}"], f"{prefix}attn."))
+
+    for i in range(n):
+        level(f"downs.{i}.", i, 2 * i, i, i)
+        if i < n - 1:
+            sd.update(_conv(p[f"Conv_{i + 1}"], f"downs.{i}.resample."))
+    sd.update(_dense(p[f"ClassConditioning_{n}"]["Dense_0"],
+                     "mid_cond.dense."))
+    sd.update(_resnet_block(p[f"ResnetBlock_{2 * n}"], "mid_block1."))
+    sd.update(_ldm_layer_norm(p[f"_LayerNorm_{n}"], "mid_norm."))
+    sd.update(_attention(p["Attention_0"], "mid_attn."))
+    sd.update(_resnet_block(p[f"ResnetBlock_{2 * n + 1}"], "mid_block2."))
+    for j in range(n - 1):
+        level(f"ups.{j}.", n + 1 + j, 2 * n + 2 + 2 * j, n + 1 + j, n + j)
+        ct = p[f"ConvTranspose_{j}"]
+        sd[f"ups.{j}.resample.weight"] = conv_transpose_kernel(ct["kernel"])
+        sd[f"ups.{j}.resample.bias"] = _t(ct["bias"])
+    sd.update(_resnet_block(p[f"ResnetBlock_{4 * n}"], "final_block."))
+    sd.update(_conv(p[f"Conv_{n}"], "final_conv."))
+    return _checked(p, sd)

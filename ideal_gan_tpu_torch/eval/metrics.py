@@ -1,8 +1,12 @@
-"""The perceptual parts of the generative metrics (port of
-`ideal_gan_tpu/eval/metrics.py`'s VGG19 feature extractor, its weights
-loader, `resize_to`, `echoes_to_vgg_input`, `perceptual_cosine_loss` and
-`covariance_map`; FID, MMD, SSIM and MS-SSIM wait for the generative-metrics
-CLI).
+"""The generative metrics (port of `ideal_gan_tpu/eval/metrics.py`): the
+VGG19 feature extractor, its weights loader, `resize_to`,
+`echoes_to_vgg_input`, `perceptual_cosine_loss`, `covariance_map`, and the
+generative-quality metrics of `cli.test_genmetrics`: FID
+(`frechet_distance` on the host, scipy's `sqrtm`, with the JAX package's
+fixed ε branch; `FIDAccumulator`), the linear-kernel MMD, and SSIM and
+MS-SSIM with `tf.image.ssim`'s semantics (an 11×11 Gaussian window, σ 1.5,
+VALID; 2×2 average pooling between the five scales). Images cross these
+functions as (n, H, W, C).
 
 - `VGG19Features`: the VGG19 conv trunk (16 3×3 convolutions with ReLU, 2×2
   max-pools) returning the feature maps at `taps` (NCHW). `init_vgg19`
@@ -214,3 +218,121 @@ def covariance_map(x: torch.Tensor) -> torch.Tensor:
     d = x - torch.mean(x, dim=0, keepdim=True)
     cov = d[:, :, None] @ d[:, None, :]
     return torch.mean(cov, dim=0, keepdim=True)
+
+
+def frechet_distance(mu_x, sigma_x, mu_y, sigma_y,
+                     epsilon: float = 1e-6) -> float:
+    """The Fréchet distance between two Gaussians, on the host (numpy,
+    scipy's `sqrtm`); where the product's square root is not finite, the
+    covariances are offset by ε·I (the JAX package's fix of the reference's
+    inverted check)."""
+    from scipy import linalg as sla
+    mu_x, sigma_x = np.asarray(mu_x), np.asarray(sigma_x)
+    mu_y, sigma_y = np.asarray(mu_y), np.asarray(sigma_y)
+    diff = mu_x - mu_y
+    covmean = sla.sqrtm(sigma_x @ sigma_y)
+    if not np.isfinite(covmean).all():
+        offset = np.eye(sigma_x.shape[0]) * epsilon
+        covmean = sla.sqrtm((sigma_x + offset) @ (sigma_y + offset))
+    covmean = np.real(covmean)
+    return float(diff @ diff + np.trace(sigma_x) + np.trace(sigma_y)
+                 - 2.0 * np.trace(covmean))
+
+
+class FIDAccumulator:
+    """Streaming FID: feature batches (tensors or arrays) collected on the
+    host, the distance computed at the end."""
+
+    def __init__(self):
+        self._real = []
+        self._fake = []
+
+    @staticmethod
+    def _host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    def update(self, real_feats, fake_feats) -> None:
+        self._real.append(self._host(real_feats))
+        self._fake.append(self._host(fake_feats))
+
+    def result(self) -> float:
+        real = np.concatenate(self._real)
+        fake = np.concatenate(self._fake)
+        return frechet_distance(real.mean(0), np.cov(real, rowvar=False),
+                                fake.mean(0), np.cov(fake, rowvar=False))
+
+
+def mmd_linear(y_true: torch.Tensor, y_pred: torch.Tensor, beta: float = 1.0,
+               gamma: float = 2.0) -> torch.Tensor:
+    """Linear-kernel MMD: β·(mean K_tt + mean K_pp) − γ·mean K_pt, K = X·Yᵀ
+    / d over the flattened samples."""
+    yt = y_true.reshape(y_true.shape[0], -1).float()
+    yp = y_pred.reshape(y_pred.shape[0], -1).float()
+    d = yt.shape[1]
+    k_tt = (yt @ yt.T) / d
+    k_pp = (yp @ yp.T) / d
+    k_pt = (yp @ yt.T) / d
+    return beta * (torch.mean(k_tt) + torch.mean(k_pp)) \
+        - gamma * torch.mean(k_pt)
+
+
+def _gaussian_kernel(size: int = 11, sigma: float = 1.5,
+                     device=None) -> torch.Tensor:
+    x = torch.arange(size, dtype=torch.float32, device=device) \
+        - (size - 1) / 2.0
+    g = torch.exp(-0.5 * torch.square(x / sigma))
+    g = g / torch.sum(g)
+    return g[:, None] * g[None, :]
+
+
+def _filter2d(x: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """Depthwise VALID convolution of NCHW `x` with one 2-D kernel."""
+    c = x.shape[1]
+    return F.conv2d(x, kern.expand(c, 1, *kern.shape), groups=c)
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0,
+         kernel_size: int = 11, sigma: float = 1.5, k1: float = 0.01,
+         k2: float = 0.03, return_cs: bool = False):
+    """Per-image SSIM of (n, H, W, C) images (`tf.image.ssim`'s
+    semantics); with `return_cs` also the mean contrast-structure term."""
+    a, b = a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)
+    kern = _gaussian_kernel(kernel_size, sigma, a.device)
+    c1 = (k1 * max_val) ** 2
+    c2 = (k2 * max_val) ** 2
+    mu_a = _filter2d(a, kern)
+    mu_b = _filter2d(b, kern)
+    mu_aa = mu_a * mu_a
+    mu_bb = mu_b * mu_b
+    mu_ab = mu_a * mu_b
+    var_a = _filter2d(a * a, kern) - mu_aa
+    var_b = _filter2d(b * b, kern) - mu_bb
+    cov = _filter2d(a * b, kern) - mu_ab
+    cs = (2.0 * cov + c2) / (var_a + var_b + c2)
+    lum = (2.0 * mu_ab + c1) / (mu_aa + mu_bb + c1)
+    ssim_map = lum * cs
+    dims = (1, 2, 3)
+    if return_cs:
+        return torch.mean(ssim_map, dims), torch.mean(cs, dims)
+    return torch.mean(ssim_map, dims)
+
+
+def ms_ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0,
+            weights=(0.0448, 0.2856, 0.3001, 0.2363, 0.1333)) -> torch.Tensor:
+    """Multi-scale SSIM of (n, H, W, C) images (`tf.image.ssim_multiscale`'s
+    semantics): the contrast-structure terms of the first scales and the
+    SSIM of the last, each clipped at 0, to the powers `weights`; 2×2
+    average pooling between scales (the 11×11 window needs H, W ≥ 176 at
+    five scales)."""
+    w = torch.tensor(weights, dtype=torch.float32, device=a.device)
+    levels = len(weights)
+    vals = []
+    for i in range(levels):
+        s, cs = ssim(a, b, max_val, return_cs=True)
+        vals.append(torch.clamp(s if i == levels - 1 else cs, min=0.0))
+        if i < levels - 1:
+            a, b = (F.avg_pool2d(t.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+                    for t in (a, b))
+    vals = torch.stack(vals)  # (levels, n)
+    return torch.prod(vals ** w[:, None], dim=0)

@@ -228,14 +228,20 @@ class RunRecord:
     `summary_every` global steps (host floats only on those steps),
     with `val` a validation writer under summaries/validation, and the
     preemption guard. The global step count starts at
-    `start · steps_per_epoch`. `close()` restores the signal handlers and
-    closes the event files."""
+    `start · steps_per_epoch`. `ckpt_dir`, `summary_dir` and `summary_name`
+    put the checkpoints and the train summaries elsewhere (the LDM CLI's
+    layout). `close()` restores the signal handlers and closes the event
+    files."""
 
     def __init__(self, cfg, state, steps_per_epoch: int,
-                 summary_every: int = 20, val: bool = False):
+                 summary_every: int = 20, val: bool = False,
+                 ckpt_dir: str | None = None, summary_dir: str | None = None,
+                 summary_name: str = "G_losses"):
         out = cfg["output_dir"]
-        self.ckpt = Checkpoint(f"{out}/checkpoints")
-        self.writer = DictSummaryWriter(f"{out}/summaries/train")
+        self.ckpt = Checkpoint(ckpt_dir or f"{out}/checkpoints")
+        self.writer = DictSummaryWriter(summary_dir
+                                        or f"{out}/summaries/train")
+        self.summary_name = summary_name
         self.val_writer = (DictSummaryWriter(f"{out}/summaries/validation")
                            if val else None)
         self.start = self.ckpt.latest_step() or 0
@@ -253,7 +259,7 @@ class RunRecord:
         self.gstep += 1
         if self.gstep % self.summary_every == 0:
             self.writer.write(metrics_to_host(metrics), self.gstep,
-                              name="G_losses")
+                              name=self.summary_name)
 
     def validation(self, metrics) -> None:
         self.val_writer.write(metrics_to_host(metrics), self.gstep,
