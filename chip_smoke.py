@@ -6,8 +6,9 @@ generators, AI-DEAL's uncertainty path (UQ training, σ-calibration,
 PDFF-var serving), the single-subject trainer, the trainers' options, the
 run record (settings, summaries, checkpoints, preemption, TrainLoop), the
 ROI evaluation (in-vivo ROI bias, the vial phantom), the PI-VAE/GAN
-trainer and the latent-diffusion family (training, dataset generation, the
-generative metrics) on one NVIDIA card.
+trainer, the latent-diffusion family (training, dataset generation, the
+generative metrics) and scanner files in and out (DICOM and NIfTI series
+folders, DICOM export) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -73,6 +74,24 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             cohort on the card with the kernels and with the plain
             ConvLSTM, and on the CPU: its loss and module outputs are held,
             and it reports where the card's gradients leave the CPU's.
+4b. io     scanner files at full size (see `io_phase`): 16 synthetic
+            384² slices (12 echoes) written as 2 subjects' MECSE DICOM
+            series folders (192 files: 6 echoes, magnitude and phase, the
+            port's `DicomDataset`) and BIDS NIfTI sets (48 volumes); the
+            DICOM loader's native parser (built with g++ into `_build/`)
+            and Python walk bit-equal and within the uint16 quantisation
+            bound of the source, with their host seconds and the parse
+            alone; the NIfTI loader ≤ 1e-6 from its expected values;
+            `cli.train_unsup --train_data DICOM` and `NIFTI` (1 epoch, 2
+            step pairs, F=36, batch 8), counted (the cycle and both
+            ConvLSTM kernels at the train phase's rate), finite, on
+            exactly the loader's cohort; `cli.infer --model_sel AI-DEAL
+            --export dicom,npz` on the DICOM run, counted, every PDFF and
+            R2s pixel read back equal to uint16(255·clip(map, 0, 1)) of
+            the npz; item 9's physics (the bipolar synthesis → fit round
+            trip, `acq_demod`, the fatty-acid model, `compat.acq_to_acq`
+            and the legacy `get_rho`) card vs CPU (TF32 off) within 1e-5 +
+            1e-4·|CPU|.
 5. teaug    `ideal_gan_tpu_torch.cli.train_teaug.main` on 16 synthetic
             384² slices at batch 8 for 2 epochs (VET-Net, F=72, seeded
             random weights), with every launch counter set to 0 just before
@@ -259,8 +278,10 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             GAN at its DEFAULTS) on 16 synthetic 192² slices for 2 epochs,
             counted and timed (ms per step and per denoiser call, device
             ms, idle shares, peak memory, the encode's ConvLSTM forward);
-            `cli.gen_ldm_dataset.main` (16 samples in batches of 8, the
-            200-step DDPM chain), its shards read back; `cli.test_genmetrics
+            `cli.gen_ldm_dataset.main --write_dicom 1` (16 samples in
+            batches of 8, the 200-step DDPM chain), its shards read back
+            and every volume's PDFF, R2s and MultiEcho DICOM pixels equal
+            to uint16(255·clip(·, 0, 1)) of them; `cli.test_genmetrics
             .main --use_ldm 1` (DDIM, 50 steps); one epoch of `train_ldm` on
             the bf16 GAN run. Fails unless the encoder's ConvLSTM forward
             kernel of the GAN run's dtype launched 6 times an encode (the
@@ -282,7 +303,10 @@ The kernels phase holds the ConvLSTM kernels at the GAN encoder's shape
 too ((Cin=2, F=36, nb=1, 192²), f32 and bf16), the forward also at the
 LDM's encode ((Cin=2, F=36, nb=8, 192²), f32 and bf16), and checks them
 batch-elementwise there (`convlstm_batch_elementwise`: h and dx at nb=2
-equal to two nb=1 launches bit for bit; dk, db to their sum).
+equal to two nb=1 launches bit for bit; dk, db to their sum), and the four
+per-voxel kernels batch-elementwise at (nb=2, 384², ne=6) in each phasor
+form, the fit also through `fit_rho_planar` in f32 and bf16 echoes
+(`per_voxel_batch_elementwise`: bit for bit).
 
 The kernels phase also holds the ConvLSTM kernels' bf16 storage mode
 (`convlstm_bf16_entries`): the forward and the backward (kink-free inputs)
@@ -302,8 +326,9 @@ the magnitude fit, the options phase's bf16 AI-DEAL run for the bf16
 ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
 counts of the sup, teaug_gens, uq, single and options runs, and of
 roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run),
-record_cli, gan, gan_vq, gan_cgan, gan_bf16, and ldm, ldm_gen,
-ldm_metrics, ldm_bf16) and `{"ok": true,
+record_cli, gan, gan_vq, gan_cgan, gan_bf16, ldm, ldm_gen,
+ldm_metrics, ldm_bf16, and io_train_dicom, io_train_nifti, io_infer) and
+`{"ok": true,
 "device": {...}}`.
 """
 
@@ -3906,6 +3931,87 @@ def check_batch_elementwise(be: dict) -> None:
                              f"batch-elementwise: {bad}")
 
 
+# the per-voxel kernels' three phasor forms: the uniform-TE recurrence, one
+# exp per echo, and the per-row test (uniform_te=None)
+PHASOR_FORMS = {"uniform": True, "per_echo": False, "per_row": None}
+
+
+def _te_rows(form: str, dev, ne: int = NE):
+    """A (2, ne, 1) TE train whose two rows differ: the 1.5 T and 3 T
+    protocol trains for the recurrence, two jittered trains for the
+    per-echo form, one of each for the per-row test."""
+    import torch
+    from ideal_gan_tpu_torch import physics
+    uni = [physics.te_train_for_field(ne, 1, f, device=dev)
+           for f in (1.5, 3.0)]
+    jit = [physics.sample_te_train(torch.Generator().manual_seed(s), ne,
+                                   device=dev) for s in (5, 6)]
+    rows = {"uniform": uni, "per_echo": jit, "per_row": [uni[0], jit[0]]}
+    return torch.cat(rows[form])
+
+
+def per_voxel_batch_elementwise(dev, size: int = SIZE) -> dict:
+    """The four per-voxel physics kernels batch-elementwise (what the JAX
+    package's `ops/partition.py` relies on): at nb=2 each output must equal
+    the two nb=1 launches' outputs concatenated, bit for bit (`torch.equal`),
+    in each phasor form with rows whose TE trains differ (`_te_rows`); the
+    fit also through `fit_rho_planar` with f32 and bf16 echoes. Returns
+    {entry: {form: bit-equal}} and "ok"; `check_per_voxel_batch_elementwise`
+    gates it."""
+    import torch
+    from ideal_gan_tpu_torch import ops
+    acqs, maps, _ = bench_inputs(2, size, dev)
+    pm = (maps[:, 2:3] + 0.02).contiguous()
+    smaps = maps.clone()
+    smaps[:, 2, ..., 1] -= 0.1  # some R2* < 0: the synthesis clamps it
+    mags = torch.linalg.vector_norm(acqs, dim=-1, keepdim=True)
+    r2 = maps[:, 2:3, ..., 1:2].contiguous()
+    s_re, s_im = acqs[..., 0].contiguous(), acqs[..., 1].contiguous()
+    phi, r2s = pm[:, 0, ..., 0].contiguous(), pm[:, 0, ..., 1].contiguous()
+
+    def rows(t, i):
+        return t[i].contiguous()
+
+    def planar(dtype):
+        return lambda i, te, u: ops.fit_rho_planar(
+            rows(s_re, i).to(dtype), rows(s_im, i).to(dtype), rows(phi, i),
+            rows(r2s, i), rows(te, i), uniform_te=u)
+
+    entries = {
+        "fit_rho_fused": lambda i, te, u: (ops.fit_rho_fused(
+            rows(acqs, i), rows(pm, i), rows(te, i), uniform_te=u),),
+        "cycle_full_fused": lambda i, te, u: ops.cycle_full_fused(
+            rows(acqs, i), rows(pm, i), rows(te, i), uniform_te=u),
+        "synthesize_fused": lambda i, te, u: (ops.synthesize_fused(
+            rows(smaps, i), rows(te, i), uniform_te=u),),
+        "cse_mag_fused": lambda i, te, u: tuple(ops.cse_mag_fused(
+            rows(mags, i), rows(r2, i), rows(te, i), uniform_te=u)),
+        "fit_rho_planar_f32": planar(torch.float32),
+        "fit_rho_planar_bf16": planar(torch.bfloat16),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in entries.items():
+            out[name] = {}
+            for form, u in PHASOR_FORMS.items():
+                te = _te_rows(form, dev)
+                whole = fn(slice(None), te, u)
+                parts = [fn(slice(k, k + 1), te, u) for k in range(2)]
+                out[name][form] = all(
+                    torch.equal(w, torch.cat([p[j] for p in parts]))
+                    for j, w in enumerate(whole))
+    out["ok"] = all(all(v.values()) for k, v in out.items())
+    return dict(shape=dict(nb=2, size=size, ne=NE), **out)
+
+
+def check_per_voxel_batch_elementwise(be: dict) -> None:
+    bad = {k: v for k, v in be.items() if isinstance(v, dict) and k != "shape"
+           and not all(v.values())}
+    if bad or not be["ok"]:
+        raise AssertionError(f"the per-voxel kernels are not "
+                             f"batch-elementwise: {bad}")
+
+
 # the GAN phase: the main run at the JAX DEFAULTS with the adversary, then
 # one short epoch of each option
 GAN_SHORT = {"vq": {"VQ_encoder": True}, "cgan": {"cGAN": True},
@@ -4388,19 +4494,28 @@ def ldm_train_run(dev, out_dir: Path, exp_dir: Path, name: str, n: int,
 
 def ldm_gen_run(dev, out_dir: Path, exp_dir: Path, n: int, batch: int,
                 size: int, flags=()) -> dict:
-    """`cli.gen_ldm_dataset.main` (DDPM, the full T-step chain) on the LDM
-    of `exp_dir`, counted; its shards read back: shapes, finiteness and
-    the seconds of each batch."""
+    """`cli.gen_ldm_dataset.main --write_dicom 1` (DDPM, the full T-step
+    chain) on the LDM of `exp_dir`, counted; its shards read back: shapes,
+    finiteness and the seconds of each batch; every volume's PDFF, R2s and
+    MultiEcho file read back against the shards (`readback_mismatches`)."""
     import numpy as np
     from ideal_gan_tpu_torch.cli import gen_ldm_dataset
     from ideal_gan_tpu_torch.data.records import read_shards
+    from ideal_gan_tpu_torch.eval.roi import maps_to_display
 
     argv = _ldm_flags(dev, exp_dir, out_dir, "ldm_gen", (
         "--n_samples", str(n), "--sample_batch", str(batch), "--method",
-        "ddpm", *flags))
+        "ddpm", "--write_dicom", "1", *flags))
     result, wall, launches = counted(dev, lambda: gen_ldm_dataset.main(argv))
     acqs, maps = read_shards(result["shards"])
+    readback = readback_mismatches(
+        Path(out_dir) / "ldm_gen" / "generated" / "out_dicom",
+        {("PDFF", "PDFF_s00.dcm"): maps_to_display(maps)[0],
+         ("R2s", "R2s_s00.dcm"): maps[:, 2, ..., 1],
+         ("MultiEcho", "ME_s00.dcm"): np.hypot(acqs[:, 0, ..., 0],
+                                               acqs[:, 0, ..., 1])})
     return dict(launches=launches, wall_s=wall, shards=len(result["shards"]),
+                readback=readback,
                 seconds_per_batch=result["seconds"],
                 acqs_shape=list(acqs.shape), maps_shape=list(maps.shape),
                 shapes_ok=acqs.shape == (n, NE, size, size, 2)
@@ -4568,6 +4683,9 @@ def check_ldm(r: dict) -> None:
             raise AssertionError(f"ldm {name} ran the encoder: "
                                  f"{r[name]['launches']}")
     gen = r["gen"]
+    if any(gen["readback"]["mismatched_pixels"].values()):
+        raise AssertionError(f"ldm --write_dicom read back: "
+                             f"{gen['readback']}")
     if not gen["shapes_ok"] or not gen["finite"]:
         raise AssertionError(f"ldm shards: {gen['acqs_shape']}, "
                              f"{gen['maps_shape']}, finite {gen['finite']}")
@@ -4584,6 +4702,407 @@ def check_ldm(r: dict) -> None:
         bad["ddim_chain"] = ch
     if bad:
         raise AssertionError(f"card and CPU LDM disagree: {bad}")
+
+
+# the io phase's synthetic scanner files: magnitudes stored as
+# rint(|S|·slope) with a 4-significant-digit slope putting the cohort's
+# largest magnitude at ~4000, phases as rint(φ·1000 + 4000) (Philips
+# private rescale: value = (stored − intercept) / slope)
+IO_MAG_TOP = 4000.0
+IO_PHASE_SLOPE, IO_PHASE_INTERCEPT = 1000.0, 4000.0
+IO_SLICE_MM = 2.5
+
+
+def write_mecse_folder(folder: Path, subject: int, echoes, te,
+                       mag_slope: float) -> int:
+    """One subject's MECSE DICOM series, built with the port's
+    `DicomDataset` as the JAX package's tests build theirs: a magnitude and
+    a phase file per slice and echo of `echoes` (complex (n_slices, ne, H,
+    W)), echo numbers from 1, the slice at z = 2.5 mm·k, the private
+    component (2005,1011) and rescale (2005,100D/E) tags. Returns the
+    files written."""
+    import numpy as np
+    from ideal_gan_tpu_torch.data import dicom
+
+    folder.mkdir(parents=True, exist_ok=True)
+    n_sl, ne, h, w = echoes.shape
+    stored = {
+        "M": (np.rint(np.abs(echoes) * mag_slope), "0.0",
+              repr(float(mag_slope))),
+        "P": (np.rint(np.angle(echoes) * IO_PHASE_SLOPE
+                      + IO_PHASE_INTERCEPT),
+              repr(IO_PHASE_INTERCEPT), repr(IO_PHASE_SLOPE))}
+    for k in range(n_sl):
+        for e in range(ne):
+            for comp, (img, intercept, slope) in stored.items():
+                ds = dicom.gen_ds(subject)
+                ds[(0x2005, 0x1011)] = ("LO", comp)
+                ds.EchoNumbers = e + 1
+                ds.EchoTrainLength = ne
+                ds.EchoTime = f"{float(te[e]) * 1e3:.3f}"
+                ds.ImagePositionPatient = f"0\\0\\{IO_SLICE_MM * k:.1f}"
+                ds[(0x2005, 0x100D)] = ("DS", intercept)
+                ds[(0x2005, 0x100E)] = ("DS", slope)
+                ds.Columns = w
+                ds.Rows = h
+                ds.PixelData = img[k, e].astype(np.uint16).tobytes()
+                ds.save_as(folder / f"IM_s{k:03d}_e{e:02d}_{comp}.dcm")
+    return 2 * n_sl * ne
+
+
+def write_bids_folder(folder: Path, name: str, echoes, te,
+                      compresslevel: int = 1) -> None:
+    """One subject's BIDS multi-echo set: `<name>_e{n}.nii.gz` magnitude
+    and `<name>_e{n}_ph.nii.gz` phase volumes (x = W, y = H flipped, z =
+    slice, the orientation `load_nifti_series` transposes and flips back)
+    with `<name>_e{n}.json` sidecars."""
+    import numpy as np
+    from ideal_gan_tpu_torch.data import nifti
+
+    folder.mkdir(parents=True, exist_ok=True)
+    ne = echoes.shape[1]
+    for e in range(ne):
+        vol = echoes[:, e, ::-1, :].transpose(2, 1, 0)
+        base = folder / f"{name}_e{e + 1}"
+        nifti.write_nifti(f"{base}.nii.gz", np.abs(vol), compresslevel)
+        nifti.write_nifti(f"{base}_ph.nii.gz", np.angle(vol), compresslevel)
+        (folder / f"{name}_e{e + 1}.json").write_text(json.dumps(
+            {"EchoTrainLength": ne, "EchoTime": float(te[e]) * 1e3}))
+
+
+def dicom_quantisation_bound(peak: float, mag_slope: float) -> float:
+    """The loader's largest distance from the source echoes over their
+    largest magnitude M: magnitudes within δm = ½/slope, the global
+    normalisation's denominator within δm of M, phases within δφ =
+    ½/1000, so |x̂ − x/M| ≤ 2δm/(M − δm) + δφ; 2e-6 more for float32."""
+    dm, dphi = 0.5 / mag_slope, 0.5 / IO_PHASE_SLOPE
+    return 2 * dm / (peak - dm) + dphi + 2e-6
+
+
+def nifti_expected(echoes):
+    """What `load_nifti_series(half_echoes=False)` must return for
+    `write_bids_folder`'s files of `echoes`: the float32 magnitude·e^{i·φ}
+    over the first echo's largest magnitude, zero where the mean
+    magnitude over the echoes is < 0.05. (n_slices, ne, H, W, 2)."""
+    import numpy as np
+    mag = np.abs(echoes).astype(np.float32)
+    pha = np.angle(echoes).astype(np.float32)
+    x = mag * np.exp(1j * pha) / float(mag[:, 0].max())
+    keep = np.abs(x).mean(axis=1, keepdims=True) >= 0.05
+    x = np.where(keep, x, 0)
+    return np.stack([x.real, x.imag], -1).astype(np.float32)
+
+
+def readback_mismatches(dicom_dir: Path, planes: dict) -> dict:
+    """Pixels of `<dicom_dir>/Volunteer-NNN/<series>/<file>` read back with
+    the port's reader that differ from uint16(255·clip(plane[NNN], 0, 1)),
+    for each (series, file) → plane in `planes`; with the files read."""
+    import numpy as np
+    from ideal_gan_tpu_torch.data import dicom
+    bad, files = {}, 0
+    for (series, fname), stack in planes.items():
+        n = 0
+        for j in range(len(stack)):
+            path = dicom_dir / f"Volunteer-{j:03d}" / series / fname
+            got = dicom.pixel_array(dicom.read_dicom(str(path)))
+            want = (np.clip(stack[j], 0, 1) * 255).astype(np.uint16)
+            n += int((got != want).sum()) if got.shape == want.shape \
+                else got.size + want.size
+            files += 1
+        bad[series] = n
+    return dict(mismatched_pixels=bad, files=files)
+
+
+def _timed(loader, items) -> tuple[list, list]:
+    """`loader` on each of `items`: (its results, its host seconds)."""
+    out, secs = [], []
+    for f in items:
+        t0 = time.perf_counter()
+        out.append(loader(str(f)))
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def parse_seconds(files) -> dict:
+    """The host seconds over `files` of reading their bytes alone, of the
+    Python tag walk (`read_dicom`) and of the native parser: what the
+    JAX docstring's "~20× faster" compares."""
+    from ideal_gan_tpu_torch.data import dicom, dicom_native
+
+    def read(f):
+        with open(f, "rb") as fh:
+            fh.read()
+
+    return {name: sum(_timed(fn, files)[1]) for name, fn in (
+        ("read_bytes", read), ("python", dicom.read_dicom),
+        ("native", dicom_native.parse_dicom_native))}
+
+
+def io_train_run(dev, out_dir: Path, data_dir: Path, kind: str, loader,
+                 size: int, batch: int, f: int, flags=()) -> dict:
+    """`cli.train_unsup --train_data <kind>` on the subject folders of
+    `data_dir` for one epoch at `batch`, counted: its launches, finite
+    losses, and the cohort it trained on against `loader`'s own output of
+    the sorted folders (bit for bit) and the 1.5 T TE train."""
+    import numpy as np
+    from ideal_gan_tpu_torch import physics
+    from ideal_gan_tpu_torch.cli import train_unsup
+
+    argv = ["--train_data", kind, "--dataset_dir", str(data_dir),
+            "--dataset", f"io-{kind.lower()}", "--data_size", str(size),
+            "--batch_size", str(batch), "--epochs", "1", "--out_vars", "PM",
+            "--n_G_filters", str(f), "--seed", "0", "--device", str(dev),
+            "--output_base", str(out_dir), *flags]
+    result, wall, launches = counted(dev, lambda: train_unsup.main(argv))
+    acqs, te = result["cohort"]
+    own = np.concatenate([loader(str(p)) for p in sorted(data_dir.iterdir())])
+    te_ref = physics.te_train(own.shape[1], bs=len(own)).numpy()
+    return dict(launches=launches, wall_s=wall, epochs=result["epochs"],
+                steps=result["epochs"][-1]["steps"] if result["epochs"]
+                else 0, finite=_finite_losses(result["epochs"]),
+                cohort_shape=list(acqs.shape),
+                cohort_equal=bool(acqs.dtype == own.dtype
+                                  and np.array_equal(acqs, own)),
+                te_equal=bool(np.array_equal(te, te_ref)),
+                experiment_dir=str(Path(out_dir) / f"io-{kind.lower()}"))
+
+
+def io_phase(dev, out_dir: Path, size: int = SIZE, subjects: int = 2,
+             slices: int = 8, batch: int = NB_SERVE, f: int = F_MAIN,
+             flags=()) -> dict:
+    """Scanner files in and out at full size: a synthetic cohort
+    (`synthetic_dataset`, `subjects`·`slices` slices at `size`², 12 echoes)
+    written as MECSE DICOM series folders (its first 6 echoes, magnitude
+    and phase) and BIDS NIfTI sets (all 12); the DICOM loader's native and
+    Python walks on every folder (bit-equal, within
+    `dicom_quantisation_bound` of the source, host seconds each), the
+    NIfTI loader against `nifti_expected`; `cli.train_unsup` from each kind
+    of folder (`io_train_run`); `cli.infer --model_sel AI-DEAL --export
+    dicom,npz` on the DICOM run, every PDFF and R2s file read back against
+    the npz maps (`readback_mismatches`); then item 9's physics card
+    against CPU (`physics_card_vs_cpu`). `flags` go to both CLIs (the
+    rehearsal's tiny widths)."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli import infer
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.data import dicom, dicom_native, nifti
+
+    t0 = time.perf_counter()
+    acqs, _, te = synthetic_dataset(subjects * slices, size, size, ne=2 * NE,
+                                    seed=0)
+    echoes = (acqs[..., 0] + 1j * acqs[..., 1]).astype(np.complex64)
+    peak = float(np.abs(echoes[:, :NE]).max())
+    mag_slope = float(f"{IO_MAG_TOP / peak:.4g}")
+    dcm_root, nii_root = out_dir / "dicom", out_dir / "nifti"
+    files = 0
+    for s in range(subjects):
+        sub = slice(s * slices, (s + 1) * slices)
+        files += write_mecse_folder(dcm_root / f"sub-{s:02d}", s,
+                                    echoes[sub, :NE], te[0, :NE, 0],
+                                    mag_slope)
+        write_bids_folder(nii_root / f"sub-{s:02d}", f"sub-{s:02d}",
+                          echoes[sub], te[0, :, 0])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    folders = sorted(dcm_root.iterdir())
+    built = dicom_native.native_available()  # builds the parser: untimed
+    dicom.load_dicom_series(str(folders[0]))
+    auto_backend = dicom.LAST_BACKEND
+    loaded, secs = {}, {}
+    for b in ("native", "python"):
+        loaded[b], secs[b] = _timed(
+            lambda p, b=b: dicom.load_dicom_series(p, b), folders)
+    native, python = loaded["native"], loaded["python"]
+    parse = parse_seconds(dicom.series_files(str(folders[0])))
+    quant = 0.0
+    for s, got in enumerate(native):
+        src = echoes[s * slices:(s + 1) * slices, :NE]
+        ref = src / np.abs(src).max()
+        quant = max(quant, float(np.abs(
+            got[..., 0] + 1j * got[..., 1] - ref).max()))
+    nii_err = 0.0
+    for s, p in enumerate(sorted(nii_root.iterdir())):
+        got = nifti.load_nifti_series(str(p), half_echoes=False)
+        want = nifti_expected(echoes[s * slices:(s + 1) * slices])
+        nii_err = max(nii_err, float(np.abs(got - want).max())
+                      if got.shape == want.shape else math.inf)
+    loaders = dict(
+        files=files, write_s=write_s, native_built=built,
+        auto_backend=auto_backend,
+        native_equal_python=all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(native, python)),
+        shape=list(native[0].shape), mag_slope=mag_slope,
+        quantisation_max_err=quant,
+        quantisation_bound=dicom_quantisation_bound(peak, mag_slope),
+        nifti_max_err=nii_err, seconds_per_folder=secs,
+        files_per_folder=files // subjects,
+        native_speedup=sum(secs["python"]) / max(sum(secs["native"]), 1e-9),
+        parse_seconds_per_folder=parse,
+        parse_speedup=parse["python"] / max(parse["native"], 1e-9),
+        seconds=time.perf_counter() - t0)
+    runs = {kind: io_train_run(dev, out_dir, root, kind, loader, size, batch,
+                               f, flags)
+            for kind, root, loader in (
+                ("DICOM", dcm_root, dicom.load_dicom_series),
+                ("NIFTI", nii_root, nifti.load_nifti_series))}
+    argv = ["--model_sel", "AI-DEAL", "--experiment_dir",
+            runs["DICOM"]["experiment_dir"], "--synthetic",
+            str(subjects * slices), "--data_size", str(size),
+            "--infer_batch", str(batch), "--export", "dicom,npz",
+            "--dataset", "io-infer", "--device", str(dev), "--output_base",
+            str(out_dir), *flags]
+    maps, wall, launches = counted(dev, lambda: infer.main(argv))
+    served = out_dir / "io-infer"
+    with np.load(served / "maps_pred.npz") as npz:
+        readback = readback_mismatches(
+            served / "out_dicom", {("PDFF", "PDFF_s00.dcm"): npz["pdff"],
+                                   ("R2s", "R2s_s00.dcm"):
+                                   npz["maps"][:, 2, ..., 1]})
+    infer_run = dict(launches=launches, wall_s=wall, readback=readback,
+                     finite=bool(np.isfinite(maps).all()))
+    set_tf32(False)
+    t0 = time.perf_counter()
+    physics = physics_card_vs_cpu(dev, size // 2)
+    physics["seconds"] = time.perf_counter() - t0
+    set_tf32(True)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return dict(loaders=loaders, train_dicom=runs["DICOM"],
+                train_nifti=runs["NIFTI"], infer=infer_run, physics=physics,
+                shape=dict(subjects=subjects, slices=slices, size=size,
+                           echoes_dicom=NE, echoes_nifti=2 * NE, batch=batch,
+                           F=f))
+
+
+IO_PHYSICS_TOL = (1e-5, 1e-4)  # atol, rtol: the kernels phase's fit gate
+
+
+def physics_card_vs_cpu(dev, size: int = SIZE, nb: int = 2) -> dict:
+    """Item 9's physics on `dev` and on the CPU from the same inputs (TF32
+    off): the bipolar synthesis → fit round trip (4 map rows; the fit's
+    (φ, R2*) row first and the bipolar row last, > 3 rows), `acq_demod`,
+    `fa_cycle`, `fa_forward`, `fa_get_rho` (12 echoes) and
+    `compat.acq_to_acq` and `compat.get_rho` with the legacy layout. Each
+    output: the count of elements beyond 1e-5 + 1e-4·|CPU| and the largest
+    gap over that allowance; the round trip's distance from the truth."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import compat, physics
+    from ideal_gan_tpu_torch.data import layouts
+
+    rng = np.random.default_rng(9)
+    shape = (nb, size, size)
+
+    def cplx(lo, hi):
+        return (rng.uniform(lo, hi, shape)
+                * np.exp(1j * rng.uniform(-1, 1, shape)))
+
+    def pair(z):
+        return np.stack([z.real, z.imag], -1)
+
+    phi = rng.uniform(-0.3, 0.3, shape)
+    r2s = rng.uniform(0.0, 0.5, shape)
+    bip = np.stack([rng.uniform(-0.2, 0.2, shape), np.zeros(shape)], -1)
+    maps = np.stack([pair(cplx(0.1, 0.7)), pair(cplx(0.0, 0.5)),
+                     np.stack([phi, r2s], -1), bip], 1).astype(np.float32)
+    ns = physics.FATTY_ACID_9PEAK.n_species
+    fa_rho = np.concatenate([pair(cplx(0.05, 0.5)) for _ in range(ns)],
+                            -1).reshape(nb, size, size, 2 * ns)
+    # legacy (R2*, FM): fa_forward ignores R2*, fa_cycle zeroes it and
+    # fa_get_rho demodulates it
+    fa_params = np.stack([0.5 * r2s, phi], -1)
+    fa_maps = np.concatenate([fa_rho, fa_params], -1).astype(np.float32)
+
+    def run(where):
+        m = torch.from_numpy(maps).to(where)
+        te = physics.te_train(NE, nb, device=where)
+        te12 = physics.te_train(2 * NE, nb, device=where)
+        pm4 = torch.cat([m[:, 2:3], torch.zeros_like(m[:, :2]), m[:, 3:4]],
+                        dim=1)
+        acqs = physics.synthesize(m, te)
+        rho, demod = physics.fit_rho(acqs, pm4, te, acq_demod=True)
+        fam = torch.from_numpy(fa_maps).to(where)
+        fa_acqs = physics.fa_forward(fam, te12)
+        fa_rho_hat, fa_recon = physics.fa_cycle(fa_acqs, fam[..., 2 * ns:],
+                                                te12)
+        fa_meb = layouts.acqs_to_mebcrn(fa_acqs)
+        fm_r2 = torch.stack([fam[..., 2 * ns + 1], fam[..., 2 * ns]], -1)
+        fa_get = physics.fa_get_rho(fa_meb, fm_r2, te12)
+        recon_rho, recon = compat.acq_to_acq(acqs, m[:, 2:3], te)
+        legacy = layouts.acqs_from_mebcrn(acqs)
+        pm_leg = torch.stack([m[:, 2, ..., 1], m[:, 2, ..., 0]], -1)
+        leg_rho, leg_demod = compat.get_rho(legacy, pm_leg, te=te,
+                                            MEBCRN=False, acq_demod=True)
+        return dict(bipolar_synthesize=acqs, bipolar_fit_rho=rho,
+                    acq_demod=demod, fa_forward=fa_acqs,
+                    fa_cycle_rho=fa_rho_hat,
+                    fa_cycle_recon=fa_recon, fa_get_rho=fa_get,
+                    acq_to_acq_rho=recon_rho, acq_to_acq_recon=recon,
+                    get_rho_legacy=leg_rho, get_rho_legacy_demod=leg_demod)
+
+    with torch.no_grad():
+        card = {k: v.cpu() for k, v in run(dev).items()}
+        cpu = run(torch.device("cpu"))
+    out = beyond_allowance(card, cpu)
+    # the round trip inverts the synthesis where R2* ≥ 0 (all of it here)
+    truth = torch.from_numpy(maps[:, :2])
+    out["round_trip_max_err"] = float(
+        (cpu["bipolar_fit_rho"] - truth).abs().max())
+    return out
+
+
+def beyond_allowance(card: dict, cpu: dict) -> dict:
+    """Per output name: the elements of `card` beyond 1e-5 + 1e-4·|CPU|
+    from `cpu` and the largest gap over that allowance; "ok" where none
+    is."""
+    atol, rtol = IO_PHYSICS_TOL
+    out = {}
+    for k, ref in cpu.items():
+        over = (card[k] - ref).abs() - (atol + rtol * ref.abs())
+        out[k] = dict(beyond=int((over > 0).sum()),
+                      worst_over_allowance=float(over.max()))
+    out["ok"] = all(v["beyond"] == 0 for v in out.values())
+    return out
+
+
+def check_io(r: dict, on_card: bool = True) -> None:
+    """The io phase's gates: the native parser built, its series equal to
+    the Python walk's bit for bit and within the quantisation bound of the
+    source, the NIfTI set within 1e-6 of `nifti_expected`; each train run
+    one epoch of finite losses on exactly the loader's cohort and the 1.5 T
+    TE train, with the cycle and both ConvLSTM kernels launched (the train
+    phase's 2, 2 and 24 a step pair); the served maps finite, the fit and
+    ConvLSTM forward launched, every exported pixel equal to the npz's;
+    item 9's physics card against CPU within 1e-5 + 1e-4·|CPU|. Off the
+    card (`on_card` False, the rehearsal) no kernel launches."""
+    ld = r["loaders"]
+    if not ld["native_built"] or not ld["native_equal_python"] \
+            or ld["quantisation_max_err"] > ld["quantisation_bound"] \
+            or ld["nifti_max_err"] > 1e-6:
+        raise AssertionError(f"io loaders: {ld}")
+    for name in ("train_dicom", "train_nifti"):
+        run = r[name]
+        lau, steps = run["launches"], run["steps"]
+        short = {k: v for k, v in (("ideal_cycle", 2), ("convlstm_bwd", 2),
+                                   ("convlstm_fwd", 24))
+                 if on_card and lau.get(k, 0) < v * steps}
+        if steps < 1 or short or not run["finite"] \
+                or not run["cohort_equal"] or not run["te_equal"]:
+            raise AssertionError(f"io {name}: steps {steps}, short {short}, "
+                                 f"finite {run['finite']}, cohort "
+                                 f"{run['cohort_equal']}, te "
+                                 f"{run['te_equal']}: {run['epochs']}")
+    inf = r["infer"]
+    served = {k: inf["launches"].get(k, 0) for k in ("ideal_fit",
+                                                     "convlstm_fwd")}
+    bad_pixels = any(inf["readback"]["mismatched_pixels"].values())
+    if not inf["finite"] or bad_pixels \
+            or (on_card and min(served.values()) < 1):
+        raise AssertionError(f"io infer: {inf}")
+    if not r["physics"]["ok"]:
+        raise AssertionError(f"item 9's physics, card vs CPU: "
+                             f"{r['physics']}")
 
 
 def main() -> int:
@@ -4614,9 +5133,12 @@ def main() -> int:
                convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev),
                *convlstm_bf16_entries(dev)]
     batch_elementwise = convlstm_batch_elementwise(dev)
+    per_voxel = per_voxel_batch_elementwise(dev)
     emit("kernels", card=smi, seconds=time.perf_counter() - t0,
-         kernels=kernels, batch_elementwise=batch_elementwise)
+         kernels=kernels, batch_elementwise=batch_elementwise,
+         per_voxel_batch_elementwise=per_voxel)
     check_batch_elementwise(batch_elementwise)
+    check_per_voxel_batch_elementwise(per_voxel)
     set_tf32(True)  # the runs at PyTorch's defaults
     t0 = time.perf_counter()
     # the train phase's run stays on disk until the roi phase serves it
@@ -4645,6 +5167,16 @@ def main() -> int:
                              f"noise-free cohort: loss "
                              f"{witness['card_vs_cpu']}, module outputs "
                              f"{worst_fwd}")
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        io = io_phase(dev, Path(tmp))
+    emit("io", card=smi, seconds=time.perf_counter() - t0, **io)
+    secs = io["loaders"]["seconds_per_folder"]
+    print(f"io DICOM loaders ({smi}), host seconds per folder of "
+          f"{io['loaders']['files_per_folder']} files: native "
+          f"{secs['native']}, python {secs['python']}")
+    check_io(io)
     set_tf32(True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
@@ -4785,6 +5317,8 @@ def main() -> int:
                  "record": record["trainloop"]["runs"][0],
                  "record_cli": record, "gan": gan["main"],
                  **{f"gan_{k}": r for k, r in gan["short"].items()},
+                 "io_train_dicom": io["train_dicom"],
+                 "io_train_nifti": io["train_nifti"], "io_infer": io["infer"],
                  "ldm": ldm["main"], "ldm_gen": ldm["gen"],
                  "ldm_metrics": ldm["metrics"], "ldm_bf16": ldm["bf16"]}
     for k in kernels:

@@ -1,6 +1,7 @@
 """Shared CLI machinery of the port: flag parsing with a settings.yml round
 trip (`utils.config`), device resolution, and the cohorts: the HDF5 files of
-`--dataset_dir` or `--synthetic N` slices.
+`--dataset_dir` or `--synthetic N` slices (`cli.train_unsup` also reads
+DICOM and NIfTI folders).
 
 Counterpart of `ideal_gan_tpu/cli/common.py`. Its `compile_cache` flag is
 XLA's and has no counterpart; `debug_nans` is not ported yet (ROADMAP

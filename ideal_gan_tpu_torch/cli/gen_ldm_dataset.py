@@ -14,8 +14,10 @@ seeded random weights and z_std 1 where there is none), then draws
 synthesizes `--n_echoes` echoes at the default TE train. Each batch is one
 npz shard `<output_base>/<dataset>/generated/<out_name>_NNNN.npz` of
 `acqs` (n, ne, H, W, 2) and `out_maps` (n, 3, H, W, 2), the layout
-`train_sup --DL_gen` reads (`data.records`). `--write_dicom 1` raises
-SystemExit: DICOM export is ROADMAP Queue 1 item 12 (`data/dicom.py`).
+`train_sup --DL_gen` reads (`data.records`). `--write_dicom 1` also writes
+each sample as a volume under `generated/out_dicom/Volunteer-NNN/`: its
+PDFF and R2* (`data.dicom.write_map_series`) and the first echo's
+magnitude clipped to [0, 1] as `MultiEcho/ME_s00.dcm`, ×255 as uint16.
 `--device` defaults to `cuda` and raises without a card.
 """
 
@@ -24,9 +26,12 @@ from __future__ import annotations
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..data.dicom import gen_ds, write_dicom, write_map_series
 from ..data.records import write_shard
+from ..eval.roi import maps_to_display
 from ..train import gan
 from ..train import ldm
 from .common import load_settings, resolve_device, setup_experiment
@@ -41,13 +46,24 @@ DEFAULTS = dict(
 )
 
 
+def write_volumes(dicom_dir: Path, first: int, acqs: np.ndarray,
+                  maps: np.ndarray, method_prefix: str) -> None:
+    """Volunteer-NNN/{PDFF,R2s,MultiEcho}/ for samples first, first + 1,
+    ...: the JAX CLI's per-volume DICOM export."""
+    pdff, r2s, _ = maps_to_display(maps)
+    for j in range(len(acqs)):
+        vol = first + j
+        vdir = dicom_dir / f"Volunteer-{vol:03d}"
+        write_map_series(vdir, vol, pdff[j], r2s[j], method_prefix)
+        mag0 = np.hypot(acqs[j, 0, :, :, 0], acqs[j, 0, :, :, 1])
+        write_dicom(gen_ds(vol, method_prefix), np.clip(mag0, 0, 1),
+                    str(vdir / "MultiEcho"), "ME", level=0, slices=1)
+
+
 def main(argv=None) -> dict:
     """Writes the shards; returns {"shards": [paths], "z_std": float,
     "seconds": [per batch, each ending in a synchronisation]}."""
     cfg = setup_experiment(DEFAULTS, argv, settings_name="settings_gen.yml")
-    if cfg["write_dicom"]:
-        raise SystemExit("--write_dicom: DICOM export is not ported yet "
-                         "(ROADMAP Queue 1 item 12, data/dicom.py)")
     dev = resolve_device(cfg["device"])
     gan_cfg = load_settings(cfg["experiment_dir"]).backfill(gan.DEFAULTS)
     models = ldm.load_gan(gan_cfg, cfg["experiment_dir"], dev)
@@ -74,6 +90,9 @@ def main(argv=None) -> dict:
         shards.append(write_shard(
             str(out_dir / f"{cfg['out_name']}_{len(shards):04d}"), acqs,
             maps))
+        if cfg["write_dicom"]:
+            write_volumes(out_dir / "out_dicom", n_written, acqs, maps,
+                          cfg["method_prefix"])
         n_written += nb
         print(f"wrote shard {len(shards)} ({n_written}/{cfg['n_samples']})")
     return {"shards": shards, "z_std": state.z_std, "seconds": seconds}

@@ -28,13 +28,15 @@ checkpoint), or else from a seeded random initialization (`--seed`, with a
 printed line). The cohort is `--synthetic N` slices, or else the HDF5
 cohorts under `--dataset_dir`. `--export` (comma list) writes, under
 <output_base>/<dataset>/: `npz` maps_pred.npz (maps MEBCRN + pdff/r2s/field
-planes), `png` panels.png (PDFF | R2* | field rows for `--n_plot` slices;
-matplotlib, which the port does not depend on). Prints the
+planes), `dicom` out_dicom/Volunteer-NNN/{PDFF,R2s}/ (one single-slice
+series per slice, `data.dicom.write_map_series`: PDFF and the normalized
+R2* clipped to [0, 1], ×255 as uint16, PatientName
+Volunteer^NNN^-`--method_prefix`), `png` panels.png (PDFF | R2* | field
+rows for `--n_plot` slices; matplotlib, which the port does not depend
+on). Prints the
 steady-state throughput measured after a warm-up chunk. `--map` PDFF, R2s
 and Water serve the same maps; with PDFF-var the maps' ρ is the GLS estimate, and the
 covariance `rho_var` is computed and discarded, as the JAX CLI discards it.
-DICOM export is not ported yet (SystemExit; `data/dicom.py`, ROADMAP
-Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -45,17 +47,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.dicom import write_map_series
 from ..eval.roi import maps_to_display
 from ..physics.constants import FM_SC, R2_SC
 from .common import load_cohorts, resolve_device, setup_experiment
 from .roi_analysis import _per_slice, make_infer_run
 
-EXPORT_FORMATS = ("npz", "png")
+EXPORT_FORMATS = ("npz", "dicom", "png")
 
 DEFAULTS = dict(
     dataset="infer", experiment_dir="", model_sel="VET-Net", map="PDFF",
     n_echoes=6, field=1.5, infer_batch=8, export="npz", weights="",
-    rem_R2=False, n_plot=4,
+    rem_R2=False, n_plot=4, method_prefix="m000",
 )
 
 
@@ -67,6 +70,16 @@ def export_npz(out_dir: Path, maps: np.ndarray, slices_per_s: float):
         field_hz=maps[:, 2, ..., 0] * FM_SC,
         slices_per_s=np.float32(slices_per_s))
     return path
+
+
+def export_dicom(out_dir: Path, cfg, maps: np.ndarray):
+    """out_dicom/Volunteer-NNN/{PDFF,R2s}/: slice NNN's PDFF and R2*, the
+    JAX CLI's convention."""
+    pdff, r2s, _ = maps_to_display(maps)
+    for j in range(len(pdff)):
+        write_map_series(out_dir / "out_dicom" / f"Volunteer-{j:03d}",
+                         j, pdff[j], r2s[j], cfg["method_prefix"])
+    return out_dir / "out_dicom"
 
 
 def export_png(out_dir: Path, cfg, maps: np.ndarray):
@@ -103,10 +116,8 @@ def main(argv=None):
     exports = [e.strip() for e in str(cfg["export"]).split(",") if e.strip()]
     unknown = sorted(set(exports) - set(EXPORT_FORMATS))
     if unknown:
-        raise SystemExit(f"--export {unknown} not available: the port "
-                         f"writes {', '.join(EXPORT_FORMATS)} (DICOM is not "
-                         "ported yet: data/dicom.py, ROADMAP Queue 1 item "
-                         "12)")
+        raise SystemExit(f"unknown --export format(s) {unknown}; "
+                         f"choose from {', '.join(EXPORT_FORMATS)}")
     dev = resolve_device(cfg["device"])
     acqs, _, te = load_cohorts(cfg)
     print(f"inference: {len(acqs)} slices, model {cfg['model_sel']}, "
@@ -128,6 +139,8 @@ def main(argv=None):
     written = []
     if "npz" in exports:
         written.append(export_npz(out_dir, maps, slices_per_s))
+    if "dicom" in exports:
+        written.append(export_dicom(out_dir, cfg, maps))
     if "png" in exports:
         written.append(export_png(out_dir, cfg, maps))
     pdff, r2s, _ = maps_to_display(maps)

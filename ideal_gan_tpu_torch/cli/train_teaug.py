@@ -32,7 +32,7 @@ noise (the batch must be a multiple of N).
 
 The JAX CLI's warning about a TPU compiler crash has no counterpart on the
 card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
-Queue 1 item 12.
+Queue 1 item 8b.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@
 
 Trains g_fm on the cycle loss (and, with `--out_vars PM`, g_r2 in a second
 step per batch with g_fm frozen) from seeded random weights (`--seed`) on
-the cohort (`--synthetic N` slices, or else the HDF5 cohorts under
-`--dataset_dir`), with the k-fold split, `data_aug_p`, `remove_ech1` and
+the cohort (`--synthetic N` slices; with `--train_data DICOM` or `NIFTI`
+the scanner series of every subject folder under `--dataset_dir`; or else
+the HDF5 cohorts there), with the k-fold split, `data_aug_p`, `remove_ech1` and
 `rand_ne` of the JAX CLI. The run record, as in the JAX CLI
 (kept by `train.common.RunRecord`): settings.yml, the `G_losses` summaries every 20
 steps under summaries/train, checkpoints every `--epoch_ckpt` epochs, at
@@ -34,14 +35,14 @@ the split's first quarter held out, and the run prints
 storage mode; parameters and physics float32) and `--remat 1`
 rematerializes their blocks in the backward.
 
-Not ported yet: DICOM/NIfTI folders (SystemExit; ROADMAP Queue 1 item
-12); the sample grid PNGs (`eval.samples.save_sample_grid` is ported, but
-matplotlib is not a dependency of the port), skipped with a printed
-note.
+The sample grid PNGs are skipped with a printed note:
+`eval.samples.save_sample_grid` is ported, but matplotlib is not a
+dependency of the port.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -50,26 +51,46 @@ import torch
 from ..data import random_echo_count, random_geometric
 from ..train import unsup
 from ..train.common import RunRecord, batch_iterator
+from .. import physics
+from ..data import load_dicom_series, load_nifti_series
 from .common import load_cohorts, resolve_device, setup_experiment
 
 _SKIPPED = ("the sample grid PNGs (samples_training/iter-*.png) are skipped: "
             "matplotlib is not a dependency of the port")
 
 
+def _load_series_folders(cfg):
+    """The cohort from scanner folders (reference
+    train-IDEAL-unsup.py:124-156): one MECSE DICOM series
+    (`load_dicom_series`) or BIDS NIfTI set (`load_nifti_series`) per
+    subject folder of `dataset_dir`, in sorted order, slices concatenated;
+    the 1.5 T TE train for every slice and zero maps. Returns numpy (acqs,
+    maps, te)."""
+    loader = (load_dicom_series if cfg["train_data"] == "DICOM"
+              else load_nifti_series)
+    folders = sorted(os.path.join(cfg["dataset_dir"], d)
+                     for d in os.listdir(cfg["dataset_dir"])
+                     if os.path.isdir(os.path.join(cfg["dataset_dir"], d)))
+    acqs = np.concatenate([loader(f) for f in folders])
+    te = physics.te_train(acqs.shape[1], bs=len(acqs)).numpy()
+    maps = np.zeros((len(acqs), 3) + acqs.shape[2:4] + (2,), np.float32)
+    return acqs, maps, te
+
+
 def main(argv=None) -> dict:
     """Runs the training; returns {"state": UnsupState, "epochs": [{"epoch",
     "seconds", "steps", metric: value, ...}]}, one entry per epoch run (the
     metrics of its last step, the wall time of the epoch ending in a
-    synchronisation), "preempted": bool, and with the calibration stage
-    "calibration": {"nll_before", "nll_after", "calib", "steps",
-    "seconds"}."""
+    synchronisation), "preempted": bool, "cohort": the numpy (acqs, te) of
+    the training fold, and with the calibration stage "calibration":
+    {"nll_before", "nll_after", "calib", "steps", "seconds"}."""
     cfg = setup_experiment({**unsup.DEFAULTS, "train_data": "HDF5",
                             "k_fold": 0, "k_folds_total": 5}, argv)
-    if cfg["train_data"] in ("DICOM", "NIFTI"):
-        raise SystemExit("DICOM/NIfTI training folders are not ported yet "
-                         "(ROADMAP Queue 1 item 12); use --synthetic N")
     dev = resolve_device(cfg["device"])
-    acqs, _, te = load_cohorts(cfg)
+    if cfg["train_data"] in ("DICOM", "NIFTI"):
+        acqs, _, te = _load_series_folders(cfg)
+    else:
+        acqs, _, te = load_cohorts(cfg)
     # k-fold split over the cohort: fold k held out for validation
     if cfg["k_fold"] > 0:
         k = cfg["k_fold"] - 1
@@ -149,7 +170,8 @@ def main(argv=None) -> dict:
                   f"{values['A2B2A_cycle_loss']:.6f}")
     finally:
         record.close()
-    out = {"state": state, "epochs": epochs, "preempted": stop}
+    out = {"state": state, "epochs": epochs, "preempted": stop,
+           "cohort": (acqs, te)}
     if calib_data is not None and not stop:
         out["calibration"] = _calibrate(cfg, g_fm, g_r2, state, calib_data,
                                         rng, dev)

@@ -2,7 +2,7 @@
 ROI picker, the statistics, the GAN trainer's perceptual loss and the
 generative metrics (port of `ideal_gan_tpu/eval/`'s roi, export, samples,
 tracker, stats and metrics modules; `eval/inception.py`, which no CLI
-calls, is ROADMAP Queue 1 item 12)."""
+calls, is ROADMAP Queue 1 item 12b)."""
 
 from .metrics import (
     FIDAccumulator,

@@ -90,6 +90,24 @@ def _fp32_matmuls():
         matmul.allow_tf32 = prev
 
 
+def _rowwise_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (nb, i, k) @ b (nb, k, j) as a sum over k in a fixed order of
+    elementwise products, so that each row's result is independent of the
+    batch around it: a batched cuBLAS matmul may take another algorithm,
+    and round otherwise, for another nb (it did for the magnitude fit's
+    A⁺ on the H100, and `chip_smoke.py`'s batch-elementwise gate failed)."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
+def _pinv_rows(m: torch.Tensor) -> torch.Tensor:
+    """`physics.matrix.pinv_normal` ((MᴴM)⁻¹Mᴴ) by `_rowwise_matmul`."""
+    mh = m.transpose(-1, -2).conj()
+    return _rowwise_matmul(mx.small_inv(_rowwise_matmul(mh, m)), mh)
+
+
 def _mat_scalars(m: torch.Tensor) -> torch.Tensor:
     """(nb, a, b) complex → (nb, a*b*2) float32, interleaved re/im."""
     flat = m.reshape(m.shape[0], -1)
@@ -101,9 +119,10 @@ def precompute_fit_matrices(te: torch.Tensor, field: float = 1.5,
                             species: SpeciesModel = WATER_FAT_7PEAK):
     """The kernel's per-row operands for a TE train: (M⁺ as (nb, 2·ns·ne)
     float32 re/im pairs, te as (nb, ne) float32). Serving reuses one
-    protocol across many batches."""
+    protocol across many batches. Each row's operands are independent of
+    the other rows (`_pinv_rows`), as the kernels are batch-elementwise."""
     with _fp32_matmuls():
-        m_pinv = mx.pinv_normal(mx.model_matrix(te, field, species))
+        m_pinv = _pinv_rows(mx.model_matrix(te, field, species))
     nb, ne = te.shape[0], te.shape[1]
     return _mat_scalars(m_pinv), te.reshape(nb, ne).float().contiguous()
 
@@ -249,7 +268,7 @@ def precompute_cycle_matrices(te: torch.Tensor, field: float = 1.5,
     float32)."""
     with _fp32_matmuls():
         m = mx.model_matrix(te, field, species)
-        m_pinv = mx.pinv_normal(m)
+    m_pinv = _pinv_rows(m)
     nb, ne = te.shape[0], te.shape[1]
     return (_mat_scalars(m), _mat_scalars(m_pinv),
             te.reshape(nb, ne).float().contiguous())
@@ -335,10 +354,12 @@ def fit_rho_fused(acqs, param_maps, te, field=1.5, r2_sc=R2_SC, fm_sc=FM_SC,
     (φ, R2*); te (nb, ne, 1). Returns (nb, ns, H, W, 2) float32. The kernel
     reads the interleaved re/im planes in place (stride 2), no copy.
     `uniform_te` as for `fit_rho_planar`. Differentiable in acqs and
-    param_maps (autograd through `physics.fit_rho`).
+    param_maps (autograd through `physics.fit_rho`). Only row 0 is read, as
+    the TPU kernel reads it: the bipolar row of a 4-row param_maps is
+    `physics.fit_rho`'s alone.
     """
     def plain(a, p, t, *consts):
-        return pops.fit_rho(a, p, t, *consts[:4], species=consts[4])
+        return pops.fit_rho(a, p[:, :1], t, *consts[:4], species=consts[4])
 
     return _Physics.apply(_fit_rho_kernel, plain, acqs, param_maps, te,
                           (field, r2_sc, fm_sc, rho_sc, species),
@@ -470,8 +491,9 @@ def precompute_mag_matrices(te: torch.Tensor, field: float = 1.5,
     (nb, ne·3), A⁺ as (nb, 3·ne), te as (nb, ne)), float32."""
     nb, ne = te.shape[0], te.shape[1]
     with _fp32_matmuls():
-        a, a_pinv = mx.mag_design_matrix(mx.model_matrix(te, field,
-                                                         species))
+        a = mx.mag_columns(mx.model_matrix(te, field, species))
+    at = a.transpose(-1, -2)
+    a_pinv = _rowwise_matmul(mx.small_inv(_rowwise_matmul(at, a)), at)
     return (a.reshape(nb, -1).contiguous(), a_pinv.reshape(nb, -1).contiguous(),
             te.reshape(nb, ne).float().contiguous())
 

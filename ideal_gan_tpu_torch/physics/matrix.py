@@ -60,7 +60,15 @@ def small_inv(a: torch.Tensor) -> torch.Tensor:
 
 def pinv_normal(m: torch.Tensor) -> torch.Tensor:
     """Left pseudo-inverse via normal equations: (MᴴM)⁻¹Mᴴ.
-    m: (..., ne, ns) → (..., ns, ne)."""
+    m: (..., ne, ns) → (..., ns, ne). More than 3 species (the fatty-acid
+    model's 5, whose MᴴM has condition ~1e3 at 12 echoes) are solved in
+    double precision and rounded back to m's dtype: in float32 the normal
+    equations put the fit ~4e-4 of its scale from the exact solution, and
+    the card's float32 ρ as far from the CPU's (the JAX package solves
+    them in float32)."""
+    if m.shape[-1] > 3 and m.dtype in (torch.float32, torch.complex64):
+        wide = torch.complex128 if m.is_complex() else torch.float64
+        return pinv_normal(m.to(wide)).to(m.dtype)
     mh = m.transpose(-1, -2).conj()
     return small_inv(mh @ m) @ mh
 
@@ -107,15 +115,24 @@ def model_matrix(te: torch.Tensor, field: float = 1.5,
     return torch.exp(phase) @ amps
 
 
-def mag_design_matrix(m: torch.Tensor):
-    """Design matrix of the magnitude-only fit: A = [|M_w|, Re(M_f),
-    |M_f|²], the columns of |S|² ≈ A·(a, b, c). m (nb, ne, 2) complex →
-    (A (nb, ne, 3), A⁺ = (AᵀA)⁻¹Aᵀ (nb, 3, ne)), float32."""
+def mag_columns(m: torch.Tensor) -> torch.Tensor:
+    """A = [|M_w|, Re(M_f), |M_f|²], the columns of |S|² ≈ A·(a, b, c):
+    m (nb, ne, 2) complex → (nb, ne, 3) float32."""
     m_abs = m.abs()
-    a = torch.cat([m_abs[..., :1], m.real[..., 1:], m_abs[..., 1:].square()],
-                  dim=-1).float()
+    return torch.cat([m_abs[..., :1], m.real[..., 1:],
+                      m_abs[..., 1:].square()], dim=-1).float()
+
+
+def mag_design_matrix(m: torch.Tensor, gen_ata_pinv: bool = False):
+    """Design matrix of the magnitude-only fit (`mag_columns`): m (nb, ne,
+    2) complex → (A (nb, ne, 3), A⁺ = (AᵀA)⁻¹Aᵀ (nb, 3, ne)), float32, and
+    with `gen_ata_pinv` also (AᵀA)⁻¹ (nb, 3, 3)."""
+    a = mag_columns(m)
     at = a.transpose(-1, -2)
-    return a, small_inv(at @ a) @ at
+    gram_inv = small_inv(at @ a)
+    if gen_ata_pinv:
+        return a, gram_inv @ at, gram_inv
+    return a, gram_inv @ at
 
 
 def eigenvals_2x2(x: torch.Tensor, eps: float = 1e-12):

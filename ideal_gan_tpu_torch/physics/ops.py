@@ -16,9 +16,11 @@ magnitude fit kernel (`ops.ideal.cse_mag_fused`) and its backward.
 
 `synthesize_mag` and `synthesize_mag_phase` are the forward models of the
 (FF, PD, phase) and the separate magnitude/phase parameterizations; the
-latter carries the bipolar readout phase (`_bipolar_phase`). Not ported
-yet (ROADMAP Queue 1 item 9): the bipolar map row of `synthesize` and the
-bipolar and demodulated-echo branches of `fit_rho`.
+latter carries the bipolar readout phase (`_bipolar_phase`, scaled by 4π),
+as do `synthesize`'s optional last map row and `fit_rho`'s (scaled by π).
+The two take their bipolar rows under JAX's own conditions, which differ:
+`synthesize` when the maps have more than ns + 1 rows, `fit_rho` when
+param_maps has more than 3.
 """
 
 from __future__ import annotations
@@ -78,22 +80,23 @@ def synthesize(out_maps: torch.Tensor, te: torch.Tensor, field: float = 1.5,
     """Forward model S_e = exp(2πi·te_e·ξ) · Σ_s M[e,s]·ρ_s with
     ξ = φ + i·relu(R2*)/2π.
 
-    out_maps: (nb, 3, H, W, 2) rows [water(re,im), fat(re,im), (φ, R2*)].
-    te: (nb, ne, 1). Returns acquisitions (nb, ne, H, W, 2).
+    out_maps: (nb, ns + 1, H, W, 2) rows [water(re,im), fat(re,im), (φ,
+    R2*)], and with a further row its channel 0 is the bipolar phase
+    φ_bip: e^{i(−1)ⁿπ·φ_bip} multiplies echo n = 1..ne. te: (nb, ne, 1).
+    Returns acquisitions (nb, ne, H, W, 2).
     """
     nb, nm, hgt, wdt, _ = out_maps.shape
     ne = te.shape[1]
     ns = species.n_species
-    if nm > ns + 1:
-        raise NotImplementedError(
-            "synthesize: the bipolar-phase map row is not ported yet "
-            "(ROADMAP Queue 1)")
     m = mx.model_matrix(te, field, species)  # (nb, ne, ns)
     rho = _to_complex(out_maps[:, :ns]) * rho_sc
     rho_mtx = rho.reshape(nb, ns, -1)
     r2s = torch.clamp(out_maps[:, ns, ..., 1], min=0.0) * r2_sc
     phi = out_maps[:, ns, ..., 0] * fm_sc
-    wp = _phasor(te, _xi(phi, r2s), +1.0)
+    extra = None
+    if nm > ns + 1:
+        extra = _bipolar_phase(out_maps[:, -1, ..., 0], ne, np.pi)
+    wp = _phasor(te, _xi(phi, r2s), +1.0, extra)
     smtx = wp * (m @ rho_mtx)
     return _from_complex(smtx.reshape(nb, ne, hgt, wdt))
 
@@ -154,17 +157,16 @@ def fit_rho(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
     """Least-squares water/fat inversion ρ̂ = M⁺ W⁻ S / rho_sc.
 
     acqs (nb, ne, H, W, 2); param_maps (nb, ≥1, H, W, 2) with row 0 =
-    (φ, R2*); te (nb, ne, 1). Returns ρ maps (nb, ns, H, W, 2) float32.
-    With `phase_constraint`, water and fat share one phase, estimated from
-    the LS solution as ½·angle(Σ_s ρ_s·(H⁺ρ)_s) (no conjugate, as the
-    reference has it), and their magnitudes are |H⁺|·Re(ρ·e^{−iφ}). The
-    plain version of the fit kernel (`ops.ideal`), which has no phase
-    constraint.
+    (φ, R2*); with more than 3 rows, channel 0 of the last is the bipolar
+    phase, demodulated as e^{−i(−1)ⁿπ·φ_bip} (JAX's condition, not
+    `synthesize`'s). te (nb, ne, 1). Returns ρ maps (nb, ns, H, W, 2)
+    float32, and with `acq_demod` also the demodulated echoes W⁻S (nb, ne,
+    H, W, 2). With `phase_constraint`, water and fat share one phase,
+    estimated from the LS solution as ½·angle(Σ_s ρ_s·(H⁺ρ)_s) (no
+    conjugate, as the reference has it), and their magnitudes are
+    |H⁺|·Re(ρ·e^{−iφ}). The plain version of the fit kernel (`ops.ideal`),
+    which has no phase constraint, bipolar row or demodulated output.
     """
-    if acq_demod or param_maps.shape[1] > 3:
-        raise NotImplementedError(
-            "fit_rho: the acq_demod and bipolar branches are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
     nb, ne, hgt, wdt, _ = acqs.shape
     ns = species.n_species
     m = mx.model_matrix(te, field, species)
@@ -172,8 +174,11 @@ def fit_rho(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
     smtx = _to_complex(acqs).reshape(nb, ne, -1)
     phi = param_maps[:, 0, ..., 0] * fm_sc
     r2s = param_maps[:, 0, ..., 1] * r2_sc
-    wm = _phasor(te, _xi(phi, r2s), -1.0)
-    mwms = m_pinv @ (wm * smtx)  # (nb, ns, nv)
+    extra = None
+    if param_maps.shape[1] > 3:
+        extra = -_bipolar_phase(param_maps[:, -1, ..., 0], ne, np.pi)
+    wms = _phasor(te, _xi(phi, r2s), -1.0, extra) * smtx
+    mwms = m_pinv @ wms  # (nb, ns, nv)
     if phase_constraint:
         h_pinv = mx.phase_constraint_matrix(m, m_pinv)  # (nb, ns, ns)
         mhmwms = torch.sum(mwms * (h_pinv @ mwms), dim=1, keepdim=True)
@@ -181,7 +186,10 @@ def fit_rho(acqs: torch.Tensor, param_maps: torch.Tensor, te: torch.Tensor,
         phasor = torch.polar(torch.ones_like(rho_pha), rho_pha)
         rho_mag = h_pinv.abs() @ (mwms * phasor.conj()).real
         mwms = rho_mag * phasor
-    return _from_complex(mwms.reshape(nb, ns, hgt, wdt) / rho_sc)
+    rho = _from_complex(mwms.reshape(nb, ns, hgt, wdt) / rho_sc)
+    if acq_demod:
+        return rho, _from_complex(wms.reshape(nb, ne, hgt, wdt))
+    return rho
 
 
 def _field_maps(param_maps: torch.Tensor, fm_sc: float, r2_sc: float):

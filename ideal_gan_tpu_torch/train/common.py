@@ -18,7 +18,7 @@
 - `TrainLoop`: the epoch skeleton on a `RunRecord`: resume from the newest
   checkpoint, steps with a dict summary every 20 steps, checkpoints every
   `epoch_ckpt` epochs and at the end. The batches go to its `device` (the
-  JAX loop shards them over its data mesh: ROADMAP Queue 1 item 12).
+  JAX loop shards them over its data mesh: ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ With `microbatch` > 0 the step accumulates its gradients over chunks of that
 many slices (`common.accumulate_microbatch_grads`), each drawing its own
 input noise, the batch-sum terms (TV, L1) scaled by the chunk count. The JAX
 package's data-parallel mesh (`data_mesh_for_batch`, `shard_batch`) has no
-counterpart here: one card runs the step (ROADMAP Queue 1 item 12).
+counterpart here: one card runs the step (ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations

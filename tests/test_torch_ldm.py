@@ -633,10 +633,16 @@ def test_cli_gen_and_metrics(gan_run, monkeypatch, capsys):
     assert acqs.shape == (3, 6, 32, 32, 2) and maps.shape == (3, 3, 32, 32,
                                                               2)
     assert np.isfinite(acqs).all() and np.isfinite(maps).all()
-    with pytest.raises(SystemExit, match="item 12"):
-        gen_ldm_dataset.main(["--experiment_dir", str(exp), "--write_dicom",
-                              "1", "--output_base", str(gan_run),
-                              *LDM_FLAGS])
+    # --write_dicom 1 (ported): one volume a sample beside the shards
+    res = gen_ldm_dataset.main([
+        "--dataset", "t-gen-dcm", "--experiment_dir", str(exp),
+        "--n_samples", "1", "--infer_steps", "4", "--method", "ddim",
+        "--write_dicom", "1", "--output_base", str(gan_run), *LDM_FLAGS])
+    vdir = gan_run / "t-gen-dcm" / "generated" / "out_dicom" / \
+        "Volunteer-000"
+    assert sorted(p.name for p in vdir.iterdir()) == ["MultiEcho", "PDFF",
+                                                       "R2s"]
+    assert (vdir / "MultiEcho" / "ME_s00.dcm").exists()
     # the VGG input at 32², its FID features from the first block (the
     # default taps' 1472² covariance takes the host's sqrtm 3–4 s)
     monkeypatch.setattr(test_genmetrics, "echoes_to_vgg_input",

@@ -123,10 +123,14 @@ def test_fit_rho_unported_branches_raise():
     te = torch.from_numpy(uniform_te(6, 2))
     acqs = tph.synthesize(torch.from_numpy(maps), te)
     pm = torch.from_numpy(maps[:, 2:3])
-    # the shared-phase branch is ported (tests/test_torch_serve.py); the
-    # demodulated echoes and the bipolar phase row are not
-    with pytest.raises(NotImplementedError):
-        tph.fit_rho(acqs, pm, te, acq_demod=True)
-    bipolar = torch.cat([pm, pm, pm, pm], dim=1)
-    with pytest.raises(NotImplementedError):
-        tph.fit_rho(acqs, bipolar, te, phase_constraint=True)
+    # every branch is ported now and none raises (against JAX:
+    # tests/test_torch_compat.py): the demodulated echoes come back beside
+    # ρ, and a bipolar row of zeros changes nothing
+    rho, demod = tph.fit_rho(acqs, pm, te, acq_demod=True)
+    assert torch.equal(rho, tph.fit_rho(acqs, pm, te))
+    assert demod.shape == acqs.shape and bool(torch.isfinite(demod).all())
+    bipolar = torch.cat([pm, pm, pm, torch.zeros_like(pm)], dim=1)
+    np.testing.assert_allclose(
+        tph.fit_rho(acqs, bipolar, te, phase_constraint=True).numpy(),
+        tph.fit_rho(acqs, pm, te, phase_constraint=True).numpy(),
+        rtol=RTOL, atol=ATOL)
