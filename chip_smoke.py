@@ -7,8 +7,11 @@ PDFF-var serving), the single-subject trainer, the trainers' options, the
 run record (settings, summaries, checkpoints, preemption, TrainLoop), the
 ROI evaluation (in-vivo ROI bias, the vial phantom), the PI-VAE/GAN
 trainer, the latent-diffusion family (training, dataset generation, the
-generative metrics) and scanner files in and out (DICOM and NIfTI series
-folders, DICOM export) on one NVIDIA card.
+generative metrics), scanner files in and out (DICOM and NIfTI series
+folders, DICOM export) and the multi-device paths (the sharded serving fit,
+data-parallel training over `torch.distributed`, the launcher, the serving
+split) on an NVIDIA card (every card of the host for the multi-device
+paths; with one card, the same card twice).
 
     python3 chip_smoke.py
 
@@ -298,6 +301,28 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             one DDIM reverse step within 1e-5 of scale, and a 50-step DDIM
             chain on identical noise no farther from the float64 chain than
             2× the CPU's.
+20. parallel the multi-device paths at full width (AI-DEAL, 384², 6
+            echoes, global batch 8, F=36; see `parallel_phase`), on every
+            card, or on the one card twice: (a) `parallel.make_sharded_fit`,
+            the slice split (nb=8) and the H split (nb=2) bit-equal to the
+            unsplit `fit_rho_planar`, one fit launch per shard, the
+            indivisible case raising; (b) two ranks spawned (NCCL with a
+            card each where there are two cards or more, else gloo with
+            both on one card, named on the line) for 2 AI-DEAL step pairs
+            on 4 rows each, TF32 off: parameters bit-identical after each
+            pair, the first step's loss within 2e-5 and its gradients
+            within 2e-2 of scale of the one-process batch-8 step on the
+            card (float64 witness: the plain ConvLSTM in float64 there),
+            per rank per pair the train phase's launches at batch 4
+            (`DP_PAIR_LAUNCHES`), ms per pair, the all-reduce's host and
+            device ms, peak memory; (c) `cli.train_unsup` through
+            `torch.distributed.run --standalone --nproc_per_node
+            <device_count>` (16 slices, one epoch, then a resume to two):
+            exit 0, one settings.yml, one checkpoint directory, one event
+            file; (d) an AI-DEAL chunk of 8 through `_per_slice` split over
+            the cards (one net replica each), TF32 off: maps within 5e-3 of
+            the unsplit chunk, and the fit on identical net outputs split
+            and whole bit for bit.
 
 The kernels phase holds the ConvLSTM kernels at the GAN encoder's shape
 too ((Cin=2, F=36, nb=1, 192²), f32 and bf16), the forward also at the
@@ -327,7 +352,8 @@ ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
 counts of the sup, teaug_gens, uq, single and options runs, and of
 roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run),
 record_cli, gan, gan_vq, gan_cgan, gan_bf16, ldm, ldm_gen,
-ldm_metrics, ldm_bf16, and io_train_dicom, io_train_nifti, io_infer) and
+ldm_metrics, ldm_bf16, io_train_dicom, io_train_nifti, io_infer, and
+the parallel phase's per-rank and per-split launches) and
 `{"ok": true,
 "device": {...}}`.
 """
@@ -5105,6 +5131,416 @@ def check_io(r: dict, on_card: bool = True) -> None:
                              f"{r['physics']}")
 
 
+# ------------------------------------------------------------------ parallel
+# AI-DEAL's step pair per rank at batch 4 (the train phase's launches per
+# pair: the cycle once a step, the ConvLSTM forward and backward)
+DP_PAIR_LAUNCHES = {"ideal_cycle": 2, "convlstm_fwd": 34, "convlstm_bwd": 14}
+DP_JOIN_S = 300
+LAUNCHER_S = 300
+
+
+def parallel_devices(dev) -> list:
+    """The devices the split phases use: every card where there are two or
+    more, else `dev` twice (one card runs both shards, which exercises the
+    split); on the CPU, the CPU twice."""
+    import torch
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev, dev]
+
+
+def dp_arrangement(dev) -> tuple[str, list]:
+    """The data-parallel phase's backend and its two ranks' devices: NCCL
+    with a card per rank where there are two or more cards, else gloo with
+    both ranks on `dev` (asked for by name here, never a fallback of the
+    package)."""
+    devs = parallel_devices(dev)[:2]
+    if dev.type == "cuda" and devs[0] != devs[1]:
+        return "nccl", devs
+    return "gloo", devs
+
+
+def sharded_fit_phase(dev, size: int = SIZE) -> dict:
+    """`parallel.make_sharded_fit` over `parallel_devices(dev)`: the slice
+    split at nb=8 and the H split at nb=2 each against the unsplit
+    `fit_rho_planar` on `dev` bit for bit, one fit launch per shard, the
+    indivisible case raising, and the times of the split and the one call."""
+    import torch
+    from ideal_gan_tpu_torch import ops
+    from ideal_gan_tpu_torch.parallel import make_sharded_fit
+
+    devs = parallel_devices(dev)
+    out = {"devices": [str(d) for d in devs]}
+    for name, nb, voxel in (("slice", NB_SERVE, False), ("h", 2, True)):
+        acqs, maps, te = bench_inputs(nb, size, dev)
+        args = (acqs[..., 0].contiguous(), acqs[..., 1].contiguous(),
+                maps[:, 2, ..., 0].contiguous(),
+                maps[:, 2, ..., 1].contiguous(), te)
+        whole = ops.fit_rho_planar(*args)
+        fit = make_sharded_fit(devs, voxel_axis=voxel)
+        split, _, launches = counted(dev, lambda: fit(*args))
+        out[name] = dict(
+            nb=nb, bit_equal=all(torch.equal(a, b)
+                                 for a, b in zip(split, whole)),
+            launches=launches, shards=len(devs),
+            ms=time_ms(lambda: fit(*args), dev),
+            one_call_ms=time_ms(lambda: ops.fit_rho_planar(*args), dev))
+    acqs, maps, te = bench_inputs(len(devs) + 1, size, dev)
+    try:
+        make_sharded_fit(devs)(acqs[..., 0], acqs[..., 1], maps[:, 2, ..., 0],
+                               maps[:, 2, ..., 1], te)
+        out["indivisible_raises"] = False
+    except ValueError as e:
+        out["indivisible_raises"] = "divide" in str(e)
+    return out
+
+
+def check_sharded_fit(r: dict, on_card: bool = True) -> None:
+    bad = {k: v for k, v in r.items() if k in ("slice", "h") and (
+        not v["bit_equal"]
+        or (on_card and v["launches"]["ideal_fit"] != v["shards"]))}
+    if bad or not r["indivisible_raises"]:
+        raise AssertionError(f"sharded fit: {bad or r}")
+
+
+def _dp_setup(dev, size: int, batch: int, f: int, mesh=None):
+    """The AI-DEAL PM trainer on `dev` from seeded weights: (cfg, state,
+    FM step, R2 step, the batch: the whole of it, or the rank's rows on a
+    mesh). The batch is the synthetic cohort with N(0, 1e-3) noise, as in
+    `step_parity`."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.parallel import shard_batch
+    from ideal_gan_tpu_torch.train import unsup
+
+    cfg = dict(unsup.DEFAULTS, n_G_filters=f, out_vars="PM",
+               batch_size=batch, epochs=1)
+    acqs, _, te = synthetic_dataset(batch, h=size, w=size, ne=NE, seed=1)
+    acqs = acqs + 1e-3 * np.random.default_rng(2).normal(
+        size=acqs.shape).astype(np.float32)
+    g_fm, g_r2 = unsup.build_models(cfg)
+    step, tx = unsup.make_train_step(cfg, g_fm, g_r2, mesh)
+    r2_step = unsup.make_r2_train_step(cfg, g_fm, g_r2, tx, mesh)
+    state = unsup.init_state(cfg, g_fm, g_r2, tx,
+                             torch.Generator().manual_seed(3), dev, mesh)
+    b = shard_batch((acqs, te), mesh) if mesh is not None else \
+        (torch.from_numpy(acqs).to(dev), torch.from_numpy(te).to(dev))
+    return cfg, state, step, r2_step, b
+
+
+def _fm_grads(net) -> dict:
+    return {f"0.{n}": p.grad.detach().cpu().clone()
+            for n, p in net.named_parameters() if p.grad is not None}
+
+
+def _dp_rank(rank: int, init: str, backend: str, devices: list,
+             out_dir: str, size: int, batch: int, f: int,
+             pairs: int) -> None:
+    """One rank of the data-parallel phase (a spawned process): `pairs` FM
+    and R2 step pairs on its rows of the global batch, with the launches,
+    ms and parameters after each pair, the first FM step's loss (averaged
+    over the ranks) and gradients (averaged by the optimizer), the
+    all-reduce's time and the peak memory, saved to <out_dir>/rank<r>.pt."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from ideal_gan_tpu_torch import ops
+    from ideal_gan_tpu_torch.parallel import data_mesh, initialize_distributed
+    from ideal_gan_tpu_torch.parallel.mesh import (all_reduce_grads,
+                                                   reduce_metrics)
+    dev = torch.device(devices[rank])
+    if dev.type == "cpu":  # the CPU rehearsal: two ranks share the cores
+        torch.set_num_threads(1)
+    assert initialize_distributed(
+        init, 2, rank, local_device_ids=[dev.index or 0], backend=backend,
+        device=dev.type, timeout_s=120)
+    set_tf32(False)
+    mesh = data_mesh(device=dev)
+    cfg, state, step, r2_step, b = _dp_setup(dev, size, batch, f, mesh)
+    out = {"params": [], "launches": [], "ms": [], "backend": backend}
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for pair in range(pairs):
+        for k in ops.KERNELS:
+            k.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        if pair == 0:
+            grads0 = _fm_grads(state.g_fm)
+        state, _ = r2_step(state, b)
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append({k.name: k.launches for k in ops.KERNELS})
+        if pair == 0:
+            out["loss0"] = float(reduce_metrics(
+                {"G_loss": metrics["G_loss"]}, mesh)["G_loss"])
+            out["grads0"] = grads0
+        out["params"].append(torch.cat(
+            [p.detach().reshape(-1) for net in (state.g_fm, state.g_r2)
+             for p in net.parameters()]).cpu())
+    params = list(state.g_fm.parameters())
+
+    def reduce():
+        all_reduce_grads(params, mesh)
+        sync()
+
+    reduce()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        reduce()
+    out["allreduce_host_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    out["allreduce_device_ms"] = device_ms_by(
+        reduce, dev, {"nccl": "nccl", "memcpy": "Memcpy"}, iters=5)
+    out["grad_bytes"] = sum(p.numel() * p.element_size() for p in params)
+    out["peak_memory_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                             if dev.type == "cuda" else None)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def dp_phase(dev, out_dir: Path, size: int = SIZE, batch: int = NB_SERVE,
+             f: int = F_MAIN, pairs: int = 2) -> dict:
+    """Data-parallel AI-DEAL training on two ranks (spawned processes,
+    `dp_arrangement`'s backend), TF32 off, against the one-process step on
+    the whole batch on `dev` and a float64 witness there (the plain
+    ConvLSTM)."""
+    import copy
+    import multiprocessing
+
+    import torch
+    from ideal_gan_tpu_torch.train import unsup
+
+    backend, devices = dp_arrangement(dev)
+    set_tf32(False)
+    cfg, state, step, r2_step, b = _dp_setup(dev, size, batch, f)
+    nets0 = [copy.deepcopy(n) for n in (state.g_fm, state.g_r2)]
+    state, metrics = step(state, b)
+    ref = dict(loss=float(metrics["G_loss"]), grads=_fm_grads(state.g_fm))
+    ref["metrics"] = {"G_loss": ref["loss"]}
+
+    def pair():
+        r2_step(*step(state, b)[:1], b)
+
+    one_ms = time_ms(pair, dev, iters=2, warmup=1)
+    off = torch.zeros((), device=dev)
+    with plain_convlstm():
+        ref64 = _step_run(lambda g_fm, g_r2: unsup.make_loss_fn(
+            cfg, g_fm, g_r2), nets0, [off, *b], dev, torch.float64)
+    ref64["grads"] = {k: v for k, v in ref64["grads"].items()
+                      if k.startswith("0.")}
+    del state, nets0, pair
+    init = f"file://{out_dir / 'rendezvous'}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(
+        r, init, backend, [str(d) for d in devices], str(out_dir), size,
+        batch, f, pairs)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"data-parallel ranks exited {codes}")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    card = dict(loss=ranks[0]["loss0"], grads=ranks[0]["grads0"],
+                metrics={"G_loss": ranks[0]["loss0"]})
+    return dict(
+        backend=backend, devices=[str(d) for d in devices],
+        global_batch=batch, rows_per_rank=batch // 2, wall_s=wall,
+        one_process_ms_per_step_pair=one_ms,
+        params_bit_equal=[bool(torch.equal(a, b)) for a, b in
+                          zip(ranks[0]["params"], ranks[1]["params"])],
+        loss_rank0=ranks[0]["loss0"], loss_rank1=ranks[1]["loss0"],
+        parity=_parity_of(card, ref, ref64),
+        launches=[r["launches"] for r in ranks],
+        ms_per_step_pair=[r["ms"] for r in ranks],
+        allreduce_host_ms=[r["allreduce_host_ms"] for r in ranks],
+        allreduce_device_ms=[r["allreduce_device_ms"] for r in ranks],
+        allreduce_bytes=ranks[0]["grad_bytes"],
+        peak_memory_gb=[r["peak_memory_gb"] for r in ranks])
+
+
+def check_dp(r: dict, on_card: bool = True) -> None:
+    p = r["parity"]
+    bad_launches = [ln for rank in r["launches"] for ln in rank
+                    if on_card and any(ln[k] != v for k, v in
+                                       DP_PAIR_LAUNCHES.items())]
+    if not all(r["params_bit_equal"]) or r["loss_rank0"] != r["loss_rank1"] \
+            or p["loss_rel_diff"] > 2e-5 or p["grad_max_rel"] > 2e-2 \
+            or bad_launches:
+        raise AssertionError(
+            f"data-parallel step ({r['backend']}): ranks equal "
+            f"{r['params_bit_equal']}, loss {p['loss_rel_diff']}, gradients "
+            f"{p['grad_max_rel']}, launches {bad_launches}")
+
+
+def _run_launcher(out_dir: Path, nproc: int, flags) -> tuple[int, str]:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    <nproc> -m ideal_gan_tpu_torch.cli.train_unsup <flags>` in its own
+    process group, killed whole after `LAUNCHER_S`: (exit code, output)."""
+    import os
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m",
+           "ideal_gan_tpu_torch.cli.train_unsup", *flags]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+              "LOCAL_RANK"):
+        env.pop(k, None)
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=LAUNCHER_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    return proc.returncode, out
+
+
+def launcher_phase(dev, out_dir: Path, size: int = SIZE, n: int = 16,
+                   batch: int = NB_SERVE, f: int = F_MAIN) -> dict:
+    """`cli.train_unsup` through the launcher, one process per card (on
+    the CPU, two), for one epoch, then a resume to two: exit codes, and
+    rank 0's files only (one settings.yml, one checkpoint directory, one
+    event file)."""
+    import torch
+    nproc = torch.cuda.device_count() if dev.type == "cuda" else 2
+    flags = ["--synthetic", str(n), "--data_size", str(size), "--batch_size",
+             str(batch), "--n_G_filters", str(f), "--out_vars", "PM",
+             "--output_base", str(out_dir)]
+    if dev.type != "cuda":
+        flags += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    rc, log = _run_launcher(out_dir, nproc, [*flags, "--epochs", "1"])
+    wall = time.perf_counter() - t0
+    run = out_dir / "Unsup-v0"
+    files = dict(
+        settings=sorted(p.name for p in run.glob("settings*")),
+        checkpoint_dirs=sorted(p.name for p in run.glob("checkpoints*")),
+        checkpoints=sorted(p.name for p in (run / "checkpoints").glob("*")),
+        event_files=len(list((run / "summaries").rglob("events.*"))))
+    t0 = time.perf_counter()
+    rc2, log2 = _run_launcher(out_dir, nproc, [*flags, "--epochs", "2"])
+    return dict(nproc=nproc, exit_code=rc, wall_s=wall, files=files,
+                epoch_lines=[ln for ln in log.splitlines()
+                             if ln.startswith("epoch ")],
+                resume_exit_code=rc2, resume_wall_s=time.perf_counter() - t0,
+                resumed_lines=log2.count("resumed from epoch 1"),
+                resume_checkpoints=sorted(
+                    p.name for p in (run / "checkpoints").glob("*")),
+                log_tail=(log + log2)[-2000:] if rc or rc2 else "")
+
+
+def check_launcher(r: dict) -> None:
+    files = r["files"]
+    if r["exit_code"] or r["resume_exit_code"] \
+            or files["settings"] != ["settings.yml"] \
+            or files["checkpoint_dirs"] != ["checkpoints"] \
+            or files["checkpoints"] != ["ckpt-1.pt"] \
+            or files["event_files"] != 1 or r["resumed_lines"] != 1 \
+            or "ckpt-2.pt" not in r["resume_checkpoints"]:
+        raise AssertionError(f"launcher run: {r}")
+
+
+def serving_split_phase(dev, size: int = SIZE, batch: int = NB_SERVE,
+                        f: int = F_MAIN) -> dict:
+    """An AI-DEAL chunk of `batch` through `_per_slice`, split over
+    `parallel_devices(dev)` (one net replica each) and unsplit, TF32 off,
+    counted; the fit on identical net outputs, split and whole."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import ops
+    from ideal_gan_tpu_torch.cli import infer, roi_analysis
+    from ideal_gan_tpu_torch.cli.common import load_cohorts
+    from ideal_gan_tpu_torch.parallel.serving import device_context
+
+    devs = parallel_devices(dev)
+    set_tf32(False)
+    cfg = dict(infer.DEFAULTS, model_sel="AI-DEAL", seed=0, synthetic=batch,
+               data_size=size, n_G_filters=f)
+    acqs, _, te = load_cohorts(cfg)
+    one_run = roi_analysis.make_infer_run(cfg, acqs, dev, devices=[dev])
+    split_run = roi_analysis.make_infer_run(cfg, acqs, dev, devices=devs)
+    one, wall_one, launches_one = counted(
+        dev, lambda: roi_analysis._per_slice(one_run, acqs, te, batch, dev))
+    split, wall_split, launches = counted(
+        dev, lambda: roi_analysis._per_slice(split_run, acqs, te, batch,
+                                             dev))
+    from ideal_gan_tpu_torch.parallel.mesh import split_count
+    n = split_count(batch, len(devs))
+    g_fm, g_r2, off = roi_analysis.load_models(cfg, dev)
+    a, t = torch.from_numpy(acqs).to(dev), torch.from_numpy(te).to(dev)
+    with torch.inference_mode():
+        (fm, _), (r2, _) = roi_analysis.aideal_heads(g_fm, g_r2, off, a)
+        pm = torch.cat([fm, r2], dim=-1)
+        whole = ops.fit_rho_fused(a, pm, t, field=1.5)
+        per = batch // n
+        parts = []
+        for j, d in enumerate(devs[:n]):
+            rows = slice(j * per, (j + 1) * per)
+            with device_context(d):
+                parts.append(ops.fit_rho_fused(a[rows].to(d), pm[rows].to(d),
+                                               t[rows].to(d), field=1.5))
+        fit_split = torch.cat([p.to(dev) for p in parts])
+    return dict(devices=[str(d) for d in devs[:n]], chunk=batch,
+                maps_max_abs_diff=float(np.abs(split[0] - one[0]).max()),
+                finite=bool(np.isfinite(split[0]).all()),
+                fit_bit_equal=bool(torch.equal(fit_split, whole)),
+                launches=launches, launches_unsplit=launches_one,
+                wall_s=wall_split, wall_unsplit_s=wall_one)
+
+
+def check_serving_split(r: dict, on_card: bool = True) -> None:
+    if not r["finite"] or r["maps_max_abs_diff"] > 5e-3 \
+            or not r["fit_bit_equal"] \
+            or (on_card and r["launches"]["ideal_fit"] != len(r["devices"])):
+        raise AssertionError(f"serving split: {r}")
+
+
+def parallel_phase(dev, out_dir: Path, size: int = SIZE,
+                   batch: int = NB_SERVE, f: int = F_MAIN, n: int = 16,
+                   launcher: bool = True) -> dict:
+    """The multi-device paths (see `sharded_fit_phase`, `dp_phase`,
+    `launcher_phase`, `serving_split_phase`); each checked."""
+    import torch
+    on_card = dev.type == "cuda"
+    out = {"device_count": torch.cuda.device_count() if on_card else 0}
+    t0 = time.perf_counter()
+    out["sharded_fit"] = sharded_fit_phase(dev, size)
+    check_sharded_fit(out["sharded_fit"], on_card)
+    out["sharded_fit"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (out_dir / "dp").mkdir()
+    out["dp"] = dp_phase(dev, out_dir / "dp", size, batch, f)
+    check_dp(out["dp"], on_card)
+    out["dp"]["seconds"] = time.perf_counter() - t0
+    if launcher:
+        t0 = time.perf_counter()
+        (out_dir / "launcher").mkdir()
+        out["launcher"] = launcher_phase(dev, out_dir / "launcher", size, n,
+                                         batch, f)
+        check_launcher(out["launcher"])
+        out["launcher"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serving_split"] = serving_split_phase(dev, size, batch, f)
+    check_serving_split(out["serving_split"], on_card)
+    out["serving_split"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5295,6 +5731,15 @@ def main() -> int:
                         Path(tmp) / "gan_bf16")
         emit("ldm", card=smi, seconds=time.perf_counter() - t0, **ldm)
         check_ldm(ldm)
+    set_tf32(True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        par = parallel_phase(dev, Path(tmp))
+    emit("parallel", card=smi, seconds=time.perf_counter() - t0, **par)
+    dp = par["dp"]
+    print(f"parallel ({smi}): {par['device_count']} card(s); data-parallel "
+          f"backend {dp['backend']} on {dp['devices']}; serving split maps "
+          f"max |diff| {par['serving_split']['maps_max_abs_diff']:.3e}")
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag,
@@ -5320,7 +5765,13 @@ def main() -> int:
                  "io_train_dicom": io["train_dicom"],
                  "io_train_nifti": io["train_nifti"], "io_infer": io["infer"],
                  "ldm": ldm["main"], "ldm_gen": ldm["gen"],
-                 "ldm_metrics": ldm["metrics"], "ldm_bf16": ldm["bf16"]}
+                 "ldm_metrics": ldm["metrics"], "ldm_bf16": ldm["bf16"],
+                 "parallel_fit_slice_split": par["sharded_fit"]["slice"],
+                 "parallel_fit_h_split": par["sharded_fit"]["h"],
+                 **{f"parallel_dp_rank{r}_pair{i + 1}": {"launches": ln}
+                    for r, rank in enumerate(dp["launches"])
+                    for i, ln in enumerate(rank)},
+                 "parallel_serving_split": par["serving_split"]}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

@@ -5,7 +5,9 @@ DICOM and NIfTI folders).
 
 Counterpart of `ideal_gan_tpu/cli/common.py`. Its `compile_cache` flag is
 XLA's and has no counterpart; `debug_nans` is not ported yet (ROADMAP
-Queue 1 item 7b).
+Queue 1 item 7b). Under the `torch.distributed.run` launcher
+`setup_experiment` joins the process group first and `resolve_device`
+gives each rank its own card.
 """
 
 from __future__ import annotations
@@ -22,17 +24,24 @@ from ..utils import Config, parse_flags
 
 def setup_experiment(defaults: dict, argv=None,
                      settings_name: str = "settings.yml") -> Config:
-    """Parse flags over the shared base settings, create
-    <output_base>/<dataset>/ and write the settings there as YAML
-    (downstream tools name their own file so they never clobber the
-    training run's `settings.yml`)."""
+    """Parse flags over the shared base settings, join the process group
+    of a multi-process launch (`parallel.initialize_distributed`, a no-op
+    without a launcher; the backend follows `--device`) before any device
+    is used, create <output_base>/<dataset>/ and write the settings there as
+    YAML, on rank 0 only (downstream tools name their own file so they
+    never clobber the training run's `settings.yml`)."""
+    from ..parallel import initialize_distributed
+    from ..parallel.mesh import world
+
     base = {"data_size": 192, "synthetic": 0, "dataset_dir": "../datasets/",
             "output_base": "output", "profile_dir": "", "device": "cuda",
             "seed": 0}
     cfg = parse_flags({**base, **defaults}, argv)
+    initialize_distributed(device=torch.device(cfg["device"]).type)
     out_dir = Path(cfg["output_base"]) / cfg["dataset"]
     out_dir.mkdir(parents=True, exist_ok=True)
-    cfg.save(out_dir / settings_name)
+    if world()[1] == 0:
+        cfg.save(out_dir / settings_name)
     cfg["output_dir"] = str(out_dir)
     return cfg
 
@@ -47,7 +56,9 @@ def load_settings(experiment_dir, overlay: dict | None = None) -> Config:
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device. Asking for CUDA where there is none
-    raises: nothing quietly runs on the CPU instead."""
+    raises: nothing quietly runs on the CPU instead. Under the launcher
+    (`LOCAL_RANK` set) "cuda" is the rank's card `cuda:<LOCAL_RANK>`, and
+    raises where that card does not exist."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -55,8 +66,33 @@ def resolve_device(device) -> torch.device:
                 f"device {str(device)!r} requested but CUDA is not available "
                 "(pass device='cpu' for the plain PyTorch versions)")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            local = os.environ.get("LOCAL_RANK")
+            if local is not None:
+                if int(local) >= torch.cuda.device_count():
+                    raise RuntimeError(
+                        f"local rank {local} has no card: "
+                        f"{torch.cuda.device_count()} visible")
+                dev = torch.device("cuda", int(local))
+            else:
+                dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def train_mesh(batch_size: int, device):
+    """A trainer CLI's data mesh over the launcher's ranks
+    (`parallel.data_mesh_for_batch`: the most ranks that divide the batch,
+    one at one process) with this rank's `device`; None, after a printed
+    line, on a rank outside it, which takes no step."""
+    from ..parallel import data_mesh_for_batch
+    mesh = data_mesh_for_batch(batch_size, device=device)
+    if not mesh.active:
+        print(f"rank {mesh.rank}: idle, outside the {mesh.size}-rank mesh "
+              f"of batch {batch_size}")
+        return None
+    return mesh
+
+
+IDLE = {"state": None, "epochs": [], "preempted": False, "idle": True}
 
 
 def synthetic_dataset(n: int, h: int = 192, w: int = 192, ne: int = 6,

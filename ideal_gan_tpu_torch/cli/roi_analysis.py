@@ -30,8 +30,17 @@ AI-DEAL reads posterior heads where the experiment trained them (UQ,
 UQ_R2s): the Normal's loc and variance, the Rician's ν and variance. With
 `--map PDFF-var` it serves ρ and its covariance `rho_var` from
 `physics.pdff_uncertainty` (with `rem_R2`); `pdff_variance_map` turns them
-into the PDFF variance. `GraphCuts` consumes precomputed maps and raises
-SystemExit, as in the JAX package (`cli.roi_realphantom` fits them).
+into the PDFF variance.
+
+Serving uses every local card (one process, as JAX's single controller
+does): with more than one card and `--infer_batch` > 1, `make_infer_run`
+builds one replica of the net per card from the same weights and
+`_per_slice` splits each chunk over the largest card count that divides
+it, the rows coming back in order. `devices=` (not a flag) names the
+cards; a list may name one card twice.
+
+`GraphCuts` consumes precomputed maps and raises SystemExit, as in the JAX
+package (`cli.roi_realphantom` fits them).
 """
 
 from __future__ import annotations
@@ -63,13 +72,46 @@ DEFAULTS = dict(
 )
 
 
+class Replicas(list):
+    """One inference closure per device of `devices` (`make_infer_run` on
+    more than one device), each on its replica of the net."""
+
+    def __init__(self, runs, devices):
+        super().__init__(runs)
+        self.devices = [torch.device(d) for d in devices]
+
+
+def serving_devices(device, devices=None) -> list:
+    """The devices serving splits its chunks over: `devices` where given,
+    else for a card every local card (`device` first), else `device`."""
+    if devices is not None:
+        return [resolve_device(d) for d in devices]
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev]
+    return [dev] + [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())
+                    if i != dev.index]
+
+
 def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
     """Chunked inference over the cohort: chunks of `batch_size` slices (the
     last padded by repeating its final slice, then trimmed) go to `device`,
-    through `run`, and back to the host. Returns the tuple of `run`'s
-    outputs concatenated over the cohort, as numpy arrays."""
+    through `run`, and back to the host. Where `run` is `Replicas`, each
+    chunk is split over the first `parallel.mesh.split_count` of its
+    devices (the most that divide the chunk), every part
+    launched before any comes back (the cards run at once), and the rows
+    returned in order. Returns the tuple of `run`'s outputs concatenated
+    over the cohort, as numpy arrays."""
+    from ..parallel.mesh import split_count
+    from ..parallel.serving import device_context
     bs = max(int(batch_size), 1)
-    dev = resolve_device(device)
+    if isinstance(run, Replicas):
+        n = split_count(bs, len(run))
+        parts = list(zip(run[:n], run.devices[:n]))
+    else:
+        n, parts = 1, [(run, resolve_device(device))]
+    per = bs // n
     outs = []
     for i in range(0, len(acqs), bs):
         a = np.asarray(acqs[i:i + bs])
@@ -78,8 +120,15 @@ def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
         if k < bs:
             a = np.concatenate([a, np.repeat(a[-1:], bs - k, axis=0)])
             t = np.concatenate([t, np.repeat(t[-1:], bs - k, axis=0)])
-        o = run(torch.from_numpy(a).to(dev), torch.from_numpy(t).to(dev))
-        outs.append(tuple(x.cpu().numpy()[:k] for x in o))
+        pending = []
+        for j, (fn, dev) in enumerate(parts):
+            rows = slice(j * per, (j + 1) * per)
+            with device_context(dev):
+                pending.append(fn(torch.from_numpy(a[rows]).to(dev),
+                                  torch.from_numpy(t[rows]).to(dev)))
+        o = tuple(np.concatenate([p[m].cpu().numpy() for p in pending])
+                  for m in range(len(pending[0])))
+        outs.append(tuple(x[:k] for x in o))
     return tuple(np.concatenate(xs) for xs in zip(*outs))
 
 
@@ -273,14 +322,23 @@ def load_sup_model(cfg, device="cuda"):
     return model.to(dev).eval(), scfg
 
 
-def make_infer_run(cfg, acqs, device="cuda"):
+def make_infer_run(cfg, acqs, device="cuda", devices=None):
     """Model dispatch → the per-chunk inference closure run(a, te_b) ->
     (maps (nb, 3, H, W, 2), rho_var (nb, 4, H, W, 1)). Builds the models
     once; callers reuse the closure across chunks. `acqs` is accepted for
     parity with the JAX signature and not read. `--map` PDFF, R2s and Water
     serve the same maps, as in the JAX package; AI-DEAL's PDFF-var serves
-    the GLS ρ and its covariance."""
-    del acqs
+    the GLS ρ and its covariance. Where `serving_devices(device, devices)`
+    names more than one device, `Replicas`: one closure per device, each
+    built from the same weights."""
+    devs = serving_devices(device, devices)
+    if len(devs) > 1:
+        return Replicas([_make_run(cfg, d) for d in devs], devs)
+    return _make_run(cfg, device)
+
+
+def _make_run(cfg, device):
+    """`make_infer_run`'s closure on one device."""
     sel = cfg["model_sel"]
     if sel == "GraphCuts":
         raise SystemExit("GraphCuts mode consumes precomputed maps; "
@@ -308,12 +366,13 @@ def make_infer_run(cfg, acqs, device="cuda"):
     return run
 
 
-def infer_maps(cfg, acqs, te):
+def infer_maps(cfg, acqs, te, devices=None):
     """Model dispatch → (maps (n, 3, H, W, 2), rho_var (n, 4, H, W, 1)) as
     numpy, in chunks of `cfg["infer_batch"]` (default 1) slices on
-    `cfg["device"]` (default `cuda`)."""
+    `cfg["device"]` (default `cuda`), split over `devices` (default every
+    local card)."""
     device = cfg.get("device", "cuda")
-    return _per_slice(make_infer_run(cfg, acqs, device), acqs, te,
+    return _per_slice(make_infer_run(cfg, acqs, device, devices), acqs, te,
                       int(cfg.get("infer_batch", 1)), device)
 
 

@@ -23,7 +23,17 @@ checkpointed epoch N, exiting", exit 0), and a resume from the latest one
 ("resumed from epoch N"). Prints one `G_loss` line per epoch. `--device`
 defaults to `cuda` and raises without a card; `cpu` runs the plain PyTorch
 versions of the kernels. `--bf16 1` computes the encoder and the decoders
-in bfloat16 (the ConvLSTM kernels' bf16 storage mode).
+in bfloat16 (the ConvLSTM kernels' bf16 storage mode). The replay pool
+draws from `--seed` (the JAX pool is unseeded).
+
+Under `python -m torch.distributed.run --nproc_per_node N` the batch splits
+over the largest rank count that divides it (`parallel.data_mesh_for_batch`:
+the default batch 1 trains on one rank, with a warning; the others idle).
+Every rank draws the same global batches; the generated echoes are
+gathered from every rank (the JAX CLI pools the global fake batch on the
+host), pass through one pool in the same state on every rank, and each
+rank's d-step takes its rows of the pooled batch. Rank 0 writes the run
+record.
 """
 
 from __future__ import annotations
@@ -35,9 +45,12 @@ import torch
 
 from ..data import (ItemPool, mag_phase_maps, maps_from_mebcrn,
                     random_echo_count, random_phase_offset)
+from ..parallel import shard_batch
+from ..parallel.mesh import all_gather_rows, rank_rows
 from ..train import gan
-from ..train.common import RunRecord, batch_iterator
-from .common import load_cohorts, resolve_device, setup_experiment
+from ..train.common import RunRecord, batch_iterator, metrics_to_host
+from .common import (IDLE, load_cohorts, resolve_device, setup_experiment,
+                     train_mesh)
 
 
 def main(argv=None) -> dict:
@@ -59,14 +72,18 @@ def main(argv=None) -> dict:
     steps_per_epoch = n // cfg["batch_size"]
     cfg["total_steps"] = steps_per_epoch * cfg["epochs"]
 
+    mesh = train_mesh(cfg["batch_size"], dev)
+    if mesh is None:
+        return dict(IDLE)
     models = gan.build_models(cfg)
     seed = cfg["seed"]
     g_step, d_step, txs = gan.make_train_steps(
-        cfg, models, generator=torch.Generator(device=dev).manual_seed(seed))
+        cfg, models, generator=torch.Generator(device=dev).manual_seed(seed),
+        mesh=mesh)
     state = gan.init_state(cfg, models, txs,
                            torch.Generator().manual_seed(seed), dev)
-    pool = ItemPool(cfg["pool_size"] * (not cfg["rand_ne"]))
-    record = RunRecord(cfg, state, steps_per_epoch)
+    pool = ItemPool(cfg["pool_size"] * (not cfg["rand_ne"]), seed=seed)
+    record = RunRecord(cfg, state, steps_per_epoch, mesh=mesh)
     rng = np.random.default_rng(0)
     offsets = torch.Generator().manual_seed(seed + 1)
     epochs, stop = [], False
@@ -83,23 +100,26 @@ def main(argv=None) -> dict:
                 if cfg["rand_ph_offset"]:
                     A, B = random_phase_offset(offsets, A, B,
                                                unwrapped=cfg["unwrap"])
-                A, B, te_b = A.to(dev), B.to(dev), te_b.to(dev)
+                A, B, te_b = shard_batch((A, B, te_b), mesh)
                 state, metrics, fake = g_step(state, (A, B, te_b))
                 if cfg["adv_train"]:
-                    pooled = fake if not pool.pool_size else \
-                        torch.from_numpy(pool(fake.cpu().numpy())).to(dev)
+                    pooled = fake if not pool.pool_size else rank_rows(
+                        torch.from_numpy(pool(
+                            all_gather_rows(fake, mesh).cpu().numpy())),
+                        mesh).to(dev)
                     for _ in range(cfg["critic_train_steps"]):
                         state, d_metrics = d_step(state, A, pooled)
                     metrics.update(d_metrics)
                 record.step(metrics)
-            values = {k: float(v) for k, v in metrics.items()}  # syncs
+            values = {k: float(v) for k, v in
+                      metrics_to_host(metrics, mesh).items()}  # syncs
             epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
                                steps=steps_per_epoch, **values))
             stop = record.end_epoch(ep, state)
             if stop:
                 break
-            print(f"epoch {ep + 1}/{cfg['epochs']} "
-                  f"G_loss={values['G_loss']:.5f}")
+            record.log(f"epoch {ep + 1}/{cfg['epochs']} "
+                       f"G_loss={values['G_loss']:.5f}")
     finally:
         record.close()
     return {"state": state, "epochs": epochs, "preempted": stop}

@@ -23,6 +23,11 @@ versions of the kernels.
 `--bf16 1` computes the nets in bfloat16 (the ConvLSTM kernels' bf16
 storage mode; parameters and physics float32) and `--remat 1`
 rematerializes their blocks in the backward.
+
+On N cards: `python -m torch.distributed.run --standalone --nproc_per_node
+N -m ideal_gan_tpu_torch.cli.train_mag ...`; every rank draws the same
+global batches and trains on its rows (`parallel.data_mesh_for_batch`),
+rank 0 writes the run record.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ import time
 import numpy as np
 import torch
 
+from ..parallel import shard_batch
 from ..train import mag
-from ..train.common import RunRecord, batch_iterator
-from .common import load_cohorts, resolve_device, setup_experiment
+from ..train.common import RunRecord, batch_iterator, metrics_to_host
+from .common import (IDLE, load_cohorts, resolve_device, setup_experiment,
+                     train_mesh)
 
 
 def main(argv=None) -> dict:
@@ -54,28 +61,30 @@ def main(argv=None) -> dict:
             "would run)")
     steps_per_epoch = n // cfg["batch_size"]
 
-    step_fn, tx = mag.make_train_step(cfg, model)
+    mesh = train_mesh(cfg["batch_size"], dev)
+    if mesh is None:
+        return dict(IDLE)
+    step_fn, tx = mag.make_train_step(cfg, model, mesh)
     state = mag.init_state(cfg, model, tx,
                            torch.Generator().manual_seed(cfg["seed"]), dev)
-    record = RunRecord(cfg, state, steps_per_epoch)
+    record = RunRecord(cfg, state, steps_per_epoch, mesh=mesh)
     rng = np.random.default_rng(0)
     epochs, stop = [], False
     try:
         for ep in range(record.start, cfg["epochs"]):
             t0 = time.perf_counter()
             for B, te_b in batch_iterator((maps, te), cfg["batch_size"], rng):
-                state, metrics = step_fn(
-                    state, (torch.from_numpy(B).to(dev),
-                            torch.from_numpy(te_b).to(dev)))
+                state, metrics = step_fn(state, shard_batch((B, te_b), mesh))
                 record.step(metrics)
-            values = {k: float(v) for k, v in metrics.items()}  # syncs
+            values = {k: float(v) for k, v in
+                      metrics_to_host(metrics, mesh).items()}  # syncs
             epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
                                steps=steps_per_epoch, **values))
             stop = record.end_epoch(ep, state)
             if stop:
                 break
-            print(f"epoch {ep + 1}/{cfg['epochs']} "
-                  f"G_loss={values['G_loss']:.6f}")
+            record.log(f"epoch {ep + 1}/{cfg['epochs']} "
+                       f"G_loss={values['G_loss']:.6f}")
     finally:
         record.close()
     return {"state": state, "epochs": epochs, "preempted": stop}

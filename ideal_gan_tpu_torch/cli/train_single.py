@@ -22,6 +22,11 @@ plain PyTorch versions of the kernels.
 `--bf16 1` computes the nets in bfloat16 (the ConvLSTM kernels' bf16
 storage mode; parameters and physics float32) and `--remat 1`
 rematerializes their blocks in the backward.
+
+Under `python -m torch.distributed.run --nproc_per_node N`, the three
+slices split over the largest rank count that divides them
+(`parallel.data_mesh_for_batch(3)`: one rank of two, with a warning; the
+others idle), as the JAX CLI's mesh does; rank 0 writes the run record.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ import time
 
 import torch
 
+from ..parallel import shard_batch
 from ..train import single
-from ..train.common import RunRecord
-from .common import load_cohorts, resolve_device, setup_experiment
+from ..train.common import RunRecord, metrics_to_host
+from .common import (IDLE, load_cohorts, resolve_device, setup_experiment,
+                     train_mesh)
 
 
 def main(argv=None) -> dict:
@@ -49,13 +56,16 @@ def main(argv=None) -> dict:
     if len(acqs) == 0:
         raise SystemExit("data_idx out of range for this cohort")
 
+    mesh = train_mesh(len(acqs), dev)
+    if mesh is None:
+        return dict(IDLE)
     g_mag, g_pha = single.build_models(cfg)
-    step_fn, tx = single.make_train_step(cfg, g_mag, g_pha)
+    step_fn, tx = single.make_train_step(cfg, g_mag, g_pha, mesh)
     state = single.init_state(cfg, g_mag, g_pha, tx,
                               torch.Generator().manual_seed(cfg["seed"]),
                               dev)
-    record = RunRecord(cfg, state, 1, summary_every=50)
-    batch = tuple(torch.from_numpy(x).to(dev) for x in (acqs, maps, te))
+    record = RunRecord(cfg, state, 1, summary_every=50, mesh=mesh)
+    batch = shard_batch((acqs, maps, te), mesh)
     epochs, stop = [], False
     t0, last = time.perf_counter(), record.start
     try:
@@ -65,12 +75,13 @@ def main(argv=None) -> dict:
             stop = record.end_epoch(ep, state)
             if (ep + 1) % cfg["epoch_ckpt"] == 0 or ep + 1 == cfg["epochs"] \
                     or stop:
-                values = {k: float(v) for k, v in metrics.items()}  # syncs
+                values = {k: float(v) for k, v in
+                          metrics_to_host(metrics, mesh).items()}  # syncs
                 epochs.append(dict(epoch=ep + 1,
                                    seconds=time.perf_counter() - t0,
                                    steps=ep + 1 - last, **values))
-                print(f"epoch {ep + 1}/{cfg['epochs']} "
-                      f"cycle={values['A2B2A_cycle_loss']:.6f}")
+                record.log(f"epoch {ep + 1}/{cfg['epochs']} "
+                           f"cycle={values['A2B2A_cycle_loss']:.6f}")
                 t0, last = time.perf_counter(), ep + 1
             if stop:
                 break

@@ -30,9 +30,13 @@ runs the plain PyTorch versions of the kernels.
 N` accumulates the gradients over chunks of N slices, each with its own
 input noise (the batch must be a multiple of N).
 
-The JAX CLI's warning about a TPU compiler crash has no counterpart on the
-card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
-Queue 1 item 8b.
+On N cards: `python -m torch.distributed.run --standalone --nproc_per_node
+N -m ideal_gan_tpu_torch.cli.train_sup ...`. Every rank draws the same
+global batches and noise and trains on its rows
+(`parallel.data_mesh_for_batch(batch_size)`); the validation batch is
+split the same way and its metrics averaged over the ranks; rank 0 writes
+the run record. The JAX CLI's warning about a TPU compiler crash has no
+counterpart on the card.
 """
 
 from __future__ import annotations
@@ -43,10 +47,12 @@ import numpy as np
 import torch
 
 from .. import physics
+from ..parallel import shard_batch
 from ..train import sup
-from ..train.common import RunRecord, batch_iterator
+from ..train.common import RunRecord, batch_iterator, metrics_to_host
 from ..utils.timer import profile
-from .common import load_cohorts, resolve_device, setup_experiment
+from .common import (IDLE, load_cohorts, resolve_device, setup_experiment,
+                     train_mesh)
 
 # --DL_partial_real → the number of real slices prepended
 _PARTIAL_REAL = {2: 64, 6: 200, 10: 330}
@@ -72,11 +78,6 @@ def load_generated(cfg):
             _PARTIAL_REAL.get(cfg["DL_partial_real"], 0))
     te = physics.te_train(acqs.shape[1], bs=len(acqs)).numpy()
     return acqs, maps, te
-
-
-def _to(dev, batch):
-    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                 for x in batch)
 
 
 def main(argv=None) -> dict:
@@ -106,13 +107,17 @@ def main(argv=None) -> dict:
     steps_per_epoch = n // bs
     cfg["total_steps"] = steps_per_epoch * cfg["epochs"]
 
-    step_fn, tx = sup.make_train_step(cfg, model)
-    eval_fn = sup.make_eval_step(cfg, model)
+    mesh = train_mesh(bs, dev)
+    if mesh is None:
+        return dict(IDLE)
+    step_fn, tx = sup.make_train_step(cfg, model, mesh)
+    eval_fn = sup.make_eval_step(cfg, model, mesh)
     gen = torch.Generator().manual_seed(cfg["seed"])
     state = sup.init_state(cfg, model, tx, gen, dev)
     noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 
-    record = RunRecord(cfg, state, steps_per_epoch, val=val is not None)
+    record = RunRecord(cfg, state, steps_per_epoch, val=val is not None,
+                       mesh=mesh)
     rng = np.random.default_rng(0)
     epochs, stop = [], False
     try:
@@ -121,25 +126,29 @@ def main(argv=None) -> dict:
                 t0 = time.perf_counter()
                 for batch in batch_iterator((acqs, maps, te), bs, rng,
                                             shuffle=cfg["shuffle"]):
-                    state, metrics = step_fn(state, _to(dev, batch),
+                    state, metrics = step_fn(state,
+                                             shard_batch(batch, mesh),
                                              noise_gen)
                     record.step(metrics)
-                values = {k: float(v) for k, v in metrics.items()}  # syncs
+                values = {k: float(v) for k, v in
+                          metrics_to_host(metrics, mesh).items()}  # syncs
                 seconds = time.perf_counter() - t0
                 vals = None
                 if val is not None:
-                    vb = _to(dev, (v[:bs] for v in val))
+                    vb = shard_batch(tuple(v[:bs] for v in val), mesh)
                     vmetrics = eval_fn(state, vb, noise_gen)
                     record.validation(vmetrics)
-                    vals = {k: float(v) for k, v in vmetrics.items()}
+                    vals = {k: float(v) for k, v in
+                            metrics_to_host(vmetrics, mesh).items()}
                 epochs.append(dict(epoch=ep + 1, seconds=seconds,
                                    steps=steps_per_epoch, **values, val=vals))
                 stop = record.end_epoch(ep, state)
                 if stop:
                     break
-                print(f"epoch {ep + 1}/{cfg['epochs']} "
-                      f"G_loss={values['G_loss']:.5f}"
-                      + (f" val_G_loss={vals['G_loss']:.5f}" if vals else ""))
+                record.log(f"epoch {ep + 1}/{cfg['epochs']} "
+                           f"G_loss={values['G_loss']:.5f}"
+                           + (f" val_G_loss={vals['G_loss']:.5f}"
+                              if vals else ""))
     finally:
         record.close()
     return {"state": state, "epochs": epochs, "preempted": stop}

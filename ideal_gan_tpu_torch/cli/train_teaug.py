@@ -30,9 +30,12 @@ rematerializes their blocks in the backward, and `--microbatch N`
 accumulates G_A2B's gradients over chunks of N slices, each with its own
 noise (the batch must be a multiple of N).
 
-The JAX CLI's warning about a TPU compiler crash has no counterpart on the
-card; its data mesh (`data_mesh_for_batch`, `shard_batch`) is ROADMAP
-Queue 1 item 8b.
+On N cards: `python -m torch.distributed.run --standalone --nproc_per_node
+N -m ideal_gan_tpu_torch.cli.train_teaug ...`. Every rank draws the same
+global batches, TE trains and noise (the same seeds) and trains on its
+rows (`parallel.data_mesh_for_batch(batch_size)`); rank 0 writes the run
+record. With `--microbatch` the chunks are of the rank's rows. The JAX
+CLI's warning about a TPU compiler crash has no counterpart on the card.
 """
 
 from __future__ import annotations
@@ -43,9 +46,11 @@ import numpy as np
 import torch
 
 from ..data import bipolar_phase_row, random_fm_scale, random_geometric
+from ..parallel import shard_batch
 from ..train import teaug
-from ..train.common import RunRecord, batch_iterator
-from .common import load_cohorts, resolve_device, setup_experiment
+from ..train.common import RunRecord, batch_iterator, metrics_to_host
+from .common import (IDLE, load_cohorts, resolve_device, setup_experiment,
+                     train_mesh)
 
 
 def main(argv=None) -> dict:
@@ -66,16 +71,19 @@ def main(argv=None) -> dict:
     steps_per_epoch = n // cfg["batch_size"]
     cfg["total_steps"] = steps_per_epoch * cfg["epochs"]
 
+    mesh = train_mesh(cfg["batch_size"], dev)
+    if mesh is None:
+        return dict(IDLE)
     r2_model = (teaug.build_r2_model(cfg) if cfg["G_model"] == "2U-Net"
                 else None)
-    step_fn, tx = teaug.make_train_step(cfg, model, r2_model)
-    r2_step_fn = (teaug.make_r2_train_step(cfg, model, r2_model, tx)
+    step_fn, tx = teaug.make_train_step(cfg, model, r2_model, mesh)
+    r2_step_fn = (teaug.make_r2_train_step(cfg, model, r2_model, tx, mesh)
                   if r2_model is not None else None)
     gen = torch.Generator().manual_seed(cfg["seed"])
     state = teaug.init_state(cfg, model, tx, gen, dev, r2_model)
     noise_gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
 
-    record = RunRecord(cfg, state, steps_per_epoch)
+    record = RunRecord(cfg, state, steps_per_epoch, mesh=mesh)
     rng = np.random.default_rng(0)
     epochs, stop = [], False
     try:
@@ -90,7 +98,7 @@ def main(argv=None) -> dict:
                 if cfg["bip_grad"]:
                     B = bipolar_phase_row(gen, B)
                 te = teaug.sample_te(gen, cfg, len(B))
-                batch = (B.contiguous().to(dev), te.to(dev))
+                batch = shard_batch((B.contiguous(), te), mesh)
                 if r2_step_fn is not None:
                     # 2U-Net: G_A2R2's step on the same batch and noise (the
                     # JAX CLI hands both steps one key), G_A2B frozen
@@ -101,14 +109,15 @@ def main(argv=None) -> dict:
                     state, r2m = r2_step_fn(state, batch, replay)
                     metrics.update(r2m)
                 record.step(metrics)
-            values = {k: float(v) for k, v in metrics.items()}  # syncs
+            values = {k: float(v) for k, v in
+                      metrics_to_host(metrics, mesh).items()}  # syncs
             epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
                                steps=steps_per_epoch, **values))
             stop = record.end_epoch(ep, state)
             if stop:
                 break
-            print(f"epoch {ep + 1}/{cfg['epochs']} "
-                  f"PM_loss={values['PM_loss']:.6f}")
+            record.log(f"epoch {ep + 1}/{cfg['epochs']} "
+                       f"PM_loss={values['PM_loss']:.6f}")
     finally:
         record.close()
     return {"state": state, "epochs": epochs, "preempted": stop}

@@ -35,6 +35,18 @@ the split's first quarter held out, and the run prints
 storage mode; parameters and physics float32) and `--remat 1`
 rematerializes their blocks in the backward.
 
+On N cards, one process each:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m ideal_gan_tpu_torch.cli.train_unsup ...
+
+Every rank draws the same global batches (the same seeds) and trains on
+its rows of each (`parallel.data_mesh_for_batch(batch_size)`: a batch the
+rank count does not divide leaves ranks idle, with a warning); rank 0
+writes the run record. The calibration stage's batches are rounded down
+to a multiple of the mesh size, or go whole to every rank where they are
+smaller than it, as in the JAX CLI.
+
 The sample grid PNGs are skipped with a printed note:
 `eval.samples.save_sample_grid` is ported, but matplotlib is not a
 dependency of the port.
@@ -49,11 +61,13 @@ import numpy as np
 import torch
 
 from ..data import random_echo_count, random_geometric
+from ..parallel import replicate, shard_batch
 from ..train import unsup
-from ..train.common import RunRecord, batch_iterator
+from ..train.common import RunRecord, batch_iterator, metrics_to_host
 from .. import physics
 from ..data import load_dicom_series, load_nifti_series
-from .common import load_cohorts, resolve_device, setup_experiment
+from .common import (IDLE, load_cohorts, resolve_device, setup_experiment,
+                     train_mesh)
 
 _SKIPPED = ("the sample grid PNGs (samples_training/iter-*.png) are skipped: "
             "matplotlib is not a dependency of the port")
@@ -129,14 +143,17 @@ def main(argv=None) -> dict:
     steps_per_epoch = max(n // cfg["batch_size"], 1)
     cfg["total_steps"] = steps_per_epoch * cfg["epochs"]
 
+    mesh = train_mesh(cfg["batch_size"], dev)
+    if mesh is None:
+        return dict(IDLE)
     g_fm, g_r2 = unsup.build_models(cfg)
-    step_fn, tx = unsup.make_train_step(cfg, g_fm, g_r2)
-    r2_step_fn = unsup.make_r2_train_step(cfg, g_fm, g_r2, tx)
+    step_fn, tx = unsup.make_train_step(cfg, g_fm, g_r2, mesh)
+    r2_step_fn = unsup.make_r2_train_step(cfg, g_fm, g_r2, tx, mesh)
     gen = torch.Generator().manual_seed(cfg["seed"])
-    state = unsup.init_state(cfg, g_fm, g_r2, tx, gen, dev)
+    state = unsup.init_state(cfg, g_fm, g_r2, tx, gen, dev, mesh)
 
-    record = RunRecord(cfg, state, steps_per_epoch)
-    print(_SKIPPED)
+    record = RunRecord(cfg, state, steps_per_epoch, mesh=mesh)
+    record.log(_SKIPPED)
     rng = np.random.default_rng(0)
     epochs, stop = [], False
     try:
@@ -153,58 +170,65 @@ def main(argv=None) -> dict:
                 if cfg["rand_ne"]:
                     ne_sel = random_echo_count(rng)
                     A, te_b = A[:, :ne_sel], te_b[:, :ne_sel]
-                batch = (A.contiguous().to(dev),
-                         torch.from_numpy(np.ascontiguousarray(te_b)).to(dev))
+                batch = shard_batch((A.contiguous(),
+                                     np.ascontiguousarray(te_b)), mesh)
                 state, metrics = step_fn(state, batch)
                 if cfg["out_vars"] == "PM":
                     state, r2m = r2_step_fn(state, batch)
                     metrics.update(r2m)
                 record.step(metrics)
-            values = {k: float(v) for k, v in metrics.items()}  # syncs
+            values = {k: float(v) for k, v in
+                      metrics_to_host(metrics, mesh).items()}  # syncs
             epochs.append(dict(epoch=ep + 1, seconds=time.perf_counter() - t0,
                                steps=steps_per_epoch, **values))
             stop = record.end_epoch(ep, state)
             if stop:
                 break
-            print(f"epoch {ep + 1}/{cfg['epochs']} cycle_loss="
-                  f"{values['A2B2A_cycle_loss']:.6f}")
+            record.log(f"epoch {ep + 1}/{cfg['epochs']} cycle_loss="
+                       f"{values['A2B2A_cycle_loss']:.6f}")
     finally:
         record.close()
     out = {"state": state, "epochs": epochs, "preempted": stop,
            "cohort": (acqs, te)}
     if calib_data is not None and not stop:
         out["calibration"] = _calibrate(cfg, g_fm, g_r2, state, calib_data,
-                                        rng, dev)
-        record.ckpt.save(cfg["epochs"] + 1, state.state_dict())
+                                        rng, mesh, record.log)
+        record.save(cfg["epochs"] + 1, state)
     return out
 
 
-def _calibrate(cfg, g_fm, g_r2, state, calib_data, rng, dev) -> dict:
+def _calibrate(cfg, g_fm, g_r2, state, calib_data, rng, mesh,
+               log=print) -> dict:
     """The σ-calibration stage: the first quarter of the split (at least
-    one slice, leaving one) held out for the NLL report, `epochs` epochs of
-    calibration steps on the rest in batches of min(batch_size, its
-    length); prints and returns the held-out NLL before and after and the
-    scale."""
+    one slice, leaving one) held out for the NLL report (on every rank),
+    `epochs` epochs of calibration steps on the rest in batches of
+    min(batch_size, its length), rounded down to a multiple of the mesh
+    size and split over it, or where that is smaller than the mesh, whole
+    on every rank (the JAX CLI's rule); prints and returns the held-out NLL
+    before and after and the scale."""
     cal_acqs, cal_te = calib_data
     calib_step = unsup.make_calib_train_step(cfg, g_fm, g_r2)
     nll_fn = unsup.eval_calibrated_nll(cfg, g_fm, g_r2)
     n_hold = min(max(len(cal_acqs) // 4, 1), len(cal_acqs) - 1)
-    hold = (torch.from_numpy(cal_acqs[:n_hold]).to(dev),
-            torch.from_numpy(cal_te[:n_hold]).to(dev))
+    hold = replicate(mesh)((cal_acqs[:n_hold], cal_te[:n_hold]))
     fit = (cal_acqs[n_hold:], cal_te[n_hold:])
     cal_bs = min(cfg["batch_size"], len(fit[0]))
+    if cal_bs >= mesh.size:
+        cal_bs = (cal_bs // mesh.size) * mesh.size
+        place = lambda b: shard_batch(b, mesh)  # noqa: E731
+    else:
+        place = replicate(mesh)
     t0 = time.perf_counter()
     nll0 = float(nll_fn(state, *hold))
     steps = 0
     for _ in range(cfg["epochs"]):
         for A, te_b in batch_iterator(fit, cal_bs, rng):
-            state, _ = calib_step(state, (torch.from_numpy(A).to(dev),
-                                          torch.from_numpy(te_b).to(dev)))
+            state, _ = calib_step(state, place((A, te_b)))
             steps += 1
     nll1 = float(nll_fn(state, *hold))
     calib = state.calib.detach().cpu().numpy()
-    print(f"calibration: held-out NLL {nll0:.5f} → {nll1:.5f}, "
-          f"calib={calib}")
+    log(f"calibration: held-out NLL {nll0:.5f} → {nll1:.5f}, "
+        f"calib={calib}")
     return dict(nll_before=nll0, nll_after=nll1, calib=calib.tolist(),
                 steps=steps, seconds=time.perf_counter() - t0)
 

@@ -1,7 +1,7 @@
 """Data layer of the port: the HDF5 cohort loaders, the DICOM and NIfTI
 readers, writers and series loaders, the MEBCRN ↔ legacy layout
-converters, 2-D phase unwrapping, the training augmentations and the GAN
-replay pool.
+converters, 2-D phase unwrapping, the training augmentations, the GAN
+replay pool and the host-side `Dataset` pipeline.
 h5py is imported only when an HDF5 file is opened."""
 
 from .augment import (bipolar_phase_row, random_echo_count, random_fm_scale,
@@ -14,6 +14,7 @@ from .layouts import (acqs_from_mebcrn, acqs_to_mebcrn,
                       mag_phase_to_complex_mebcrn, maps_from_mebcrn,
                       maps_to_mebcrn)
 from .nifti import load_nifti_series, read_nifti, write_nifti
+from .pipeline import Dataset, minmax_norm
 from .pool import ItemPool
 from .unwrap import unwrap_phase_2d, unwrap_slices
 
@@ -26,4 +27,5 @@ __all__ = [
     "random_geometric", "random_phase_offset", "ItemPool",
     "DicomDataset", "gen_ds", "write_dicom", "read_dicom",
     "load_dicom_series", "read_nifti", "write_nifti", "load_nifti_series",
+    "Dataset", "minmax_norm",
 ]

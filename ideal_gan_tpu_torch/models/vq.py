@@ -3,7 +3,9 @@
 Nearest code by ‖x‖² − 2·x·W + ‖w‖² over the codebook W (D, K), the
 straight-through estimator, the loss q + β·e (codebook and commitment
 terms) and the codebook perplexity. The JAX module sows the loss and the
-perplexity into Flax collections; this one returns them.
+perplexity into Flax collections; this one returns them. On a data mesh
+(`mesh=`) the perplexity is the global batch's: the code frequencies are
+averaged over the ranks first.
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ class VectorQuantizer(nn.Module):
                  - 2.0 * flat @ cb + torch.sum(cb ** 2, dim=0, keepdim=True))
         return torch.argmin(dists, dim=1)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         """x (..., D) → (the straight-through quantized x, vq_loss,
         perplexity)."""
+        from ..parallel.mesh import mean_over_ranks
         flat = x.reshape(-1, self.embedding_dim)
         idx = self._indices(flat)
         onehot = nn.functional.one_hot(idx, self.num_embeddings).to(x.dtype)
@@ -38,7 +41,7 @@ class VectorQuantizer(nn.Module):
         e_latent = torch.mean(torch.square(quantized.detach() - x))
         q_latent = torch.mean(torch.square(quantized - x.detach()))
         loss = q_latent + self.commitment_cost * e_latent
-        avg_probs = torch.mean(onehot, dim=0)
+        avg_probs = mean_over_ranks(torch.mean(onehot, dim=0), mesh)
         perplexity = torch.exp(-torch.sum(avg_probs
                                           * torch.log(avg_probs + 1e-10)))
         return x + (quantized - x).detach(), loss, perplexity

@@ -7,18 +7,24 @@
   the clip divides by the norm itself (no ε, unlike
   `torch.nn.utils.clip_grad_norm_`), and the learning rate is the schedule
   at the count before the step, as optax's `scale_by_schedule` reads it.
+  On a data mesh (`parallel.mesh`) both optimizers average the gradients
+  over the ranks before anything else, the clip included: optax clips the
+  global gradient, and clipping each rank's share would differ.
 - `batch_iterator`: host-side shuffled batches over aligned numpy arrays.
 - `ModelState`: one net, its optimizer and the step count, as checkpointed.
 - `accumulate_microbatch_grads`: a step's gradients over equal chunks of
-  its batch, accumulated in float32 and averaged.
+  its batch, accumulated in float32 and averaged (on a mesh: chunks of the
+  rank's rows, the ranks averaged by the optimizer).
 - `compute_dtype`: a trainer config's CNN compute dtype (`bf16`).
 - `RunRecord`: a run's checkpoints, resume, summaries every 20 steps and
   preemption guard, the one owner of that policy for the trainer CLIs and
-  `TrainLoop`.
+  `TrainLoop`; on a mesh rank 0 writes, every rank resumes and a signal to
+  any rank stops them all.
 - `TrainLoop`: the epoch skeleton on a `RunRecord`: resume from the newest
   checkpoint, steps with a dict summary every 20 steps, checkpoints every
-  `epoch_ckpt` epochs and at the end. The batches go to its `device` (the
-  JAX loop shards them over its data mesh: ROADMAP Queue 1 item 8b).
+  `epoch_ckpt` epochs and at the end. The batches go to its `device`, or
+  with a `mesh` each rank's rows to its device, as the JAX loop shards
+  them over its data mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 import torch
 
+from ..parallel.mesh import (Mesh, all_reduce_grads, any_rank,
+                             reduce_metrics, shard_batch)
 from ..utils import Checkpoint, DictSummaryWriter
 from ..utils.preempt import PreemptionGuard
 
@@ -70,7 +78,9 @@ def accumulate_microbatch_grads(loss_fn, params, batch, micro: int):
     gradients add up in the float32 `.grad` of `params` and are scaled by
     1/n_chunks, as are the returned loss and metrics (detached). Batch-sum
     terms of the loss must carry the chunk count themselves (the trainers'
-    `tv_scale`). A batch that `micro` does not divide raises ValueError."""
+    `tv_scale`), times the data size on a mesh, where `batch` is the rank's
+    rows and the optimizer averages the ranks. A batch that `micro` does
+    not divide raises ValueError."""
     nb = next(t for t in batch if t is not None).shape[0]
     if micro <= 0 or nb % micro:
         raise ValueError(f"batch {nb} not divisible by microbatch {micro}")
@@ -96,13 +106,15 @@ class Adam:
     """Adam (ε = 1e-8) over a list of parameters, with optional clipping of
     the gradients' global norm to `clip_norm`, with optax's semantics. It
     reads each parameter's `.grad` (None counts as zero) and updates the
-    parameters in place."""
+    parameters in place. With a `mesh` the gradients are first averaged
+    over its ranks (`all_reduce_grads`, written back to `.grad`)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  schedule: Callable[[int], float], beta_1: float = 0.9,
                  beta_2: float = 0.9999, clip_norm: float | None = None,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, mesh: Mesh | None = None):
         self.params = list(params)
+        self.mesh = mesh
         self.schedule = schedule
         self.beta_1, self.beta_2 = beta_1, beta_2
         self.clip_norm = clip_norm
@@ -118,6 +130,7 @@ class Adam:
     @torch.no_grad()
     @torch.profiler.record_function(STEP_RANGE)
     def step(self) -> None:
+        all_reduce_grads(self.params, self.mesh)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
         if self.clip_norm:
@@ -149,10 +162,13 @@ class Adam:
 class SGD:
     """Plain SGD at a constant learning rate over a list of leaf tensors
     (optax.sgd without momentum, whose state is empty: the step count is
-    kept for checkpoints only)."""
+    kept for checkpoints only). With a `mesh` the gradients are first
+    averaged over its ranks."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr: float):
+    def __init__(self, params: Iterable[torch.Tensor], lr: float,
+                 mesh: Mesh | None = None):
         self.params = list(params)
+        self.mesh = mesh
         self.lr = float(np.float32(lr))
         self.count = 0
 
@@ -162,6 +178,7 @@ class SGD:
 
     @torch.no_grad()
     def step(self) -> None:
+        all_reduce_grads(self.params, self.mesh)
         for p in self.params:
             if p.grad is not None:
                 p.sub_(p.grad * self.lr)
@@ -175,10 +192,13 @@ class SGD:
 
 
 def make_adam(schedule, beta_1: float = 0.9, beta_2: float = 0.9999,
-              clip_norm: float | None = None) -> Callable[[Iterable], Adam]:
+              clip_norm: float | None = None,
+              mesh: Mesh | None = None) -> Callable[[Iterable], Adam]:
     """The optimizer recipe: params → `Adam` with these settings (the
-    counterpart of the optax transform the JAX package builds)."""
-    return lambda params: Adam(params, schedule, beta_1, beta_2, clip_norm)
+    counterpart of the optax transform the JAX package builds), averaging
+    the gradients over `mesh`'s ranks."""
+    return lambda params: Adam(params, schedule, beta_1, beta_2, clip_norm,
+                               mesh=mesh)
 
 
 def batch_iterator(arrays, batch_size: int, rng: np.random.Generator,
@@ -212,10 +232,13 @@ class ModelState:
         self.step = int(state["step"])
 
 
-def metrics_to_host(metrics: Mapping) -> dict:
+def metrics_to_host(metrics: Mapping, mesh: Mesh | None = None) -> dict:
     """A step's metrics as host numpy arrays (one synchronisation with the
     card), the counterpart of `jax.device_get`: called only where a summary
-    is written, so the steps between stay free of host syncs."""
+    is written, so the steps between stay free of host syncs. On a mesh
+    they are first averaged over its ranks (`reduce_metrics`: every rank
+    calls it), so that they equal the one-process run's."""
+    metrics = reduce_metrics(dict(metrics), mesh)
     return {k: v.detach().float().cpu().numpy()
             if isinstance(v, torch.Tensor) else np.asarray(v)
             for k, v in metrics.items()}
@@ -231,49 +254,72 @@ class RunRecord:
     `start · steps_per_epoch`. `ckpt_dir`, `summary_dir` and `summary_name`
     put the checkpoints and the train summaries elsewhere (the LDM CLI's
     layout). `close()` restores the signal handlers and closes the event
-    files."""
+    files.
+
+    On a `mesh` (`parallel.mesh`) every rank resumes from the same newest
+    checkpoint and averages the summary steps' metrics over the ranks, and
+    rank 0 alone writes summaries and checkpoints and prints (`log`); the
+    preemption decision is the or of every rank's signal, so that no rank
+    stops while another waits in a collective."""
 
     def __init__(self, cfg, state, steps_per_epoch: int,
                  summary_every: int = 20, val: bool = False,
                  ckpt_dir: str | None = None, summary_dir: str | None = None,
-                 summary_name: str = "G_losses"):
+                 summary_name: str = "G_losses", mesh: Mesh | None = None):
         out = cfg["output_dir"]
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.ckpt = Checkpoint(ckpt_dir or f"{out}/checkpoints")
-        self.writer = DictSummaryWriter(summary_dir
-                                        or f"{out}/summaries/train")
+        self.writer = self.val_writer = None
+        if self.is_main:
+            self.writer = DictSummaryWriter(summary_dir
+                                            or f"{out}/summaries/train")
+            if val:
+                self.val_writer = DictSummaryWriter(
+                    f"{out}/summaries/validation")
         self.summary_name = summary_name
-        self.val_writer = (DictSummaryWriter(f"{out}/summaries/validation")
-                           if val else None)
         self.start = self.ckpt.latest_step() or 0
         if self.start:
             state.load_state_dict(self.ckpt.restore(self.start))
-            print(f"resumed from epoch {self.start}")
+            self.log(f"resumed from epoch {self.start}")
         self.gstep = self.start * steps_per_epoch
         self.summary_every = summary_every
         self.epochs = cfg["epochs"]
         self.epoch_ckpt = cfg["epoch_ckpt"]
         self.guard = PreemptionGuard()
 
+    def log(self, msg: str) -> None:
+        """Print `msg` on rank 0."""
+        if self.is_main:
+            print(msg)
+
     def step(self, metrics) -> None:
         """Count one global step; write its metrics every `summary_every`."""
         self.gstep += 1
         if self.gstep % self.summary_every == 0:
-            self.writer.write(metrics_to_host(metrics), self.gstep,
-                              name=self.summary_name)
+            host = metrics_to_host(metrics, self.mesh)
+            if self.writer is not None:
+                self.writer.write(host, self.gstep, name=self.summary_name)
 
     def validation(self, metrics) -> None:
-        self.val_writer.write(metrics_to_host(metrics), self.gstep,
-                              name="G_losses")
+        host = metrics_to_host(metrics, self.mesh)
+        if self.val_writer is not None:
+            self.val_writer.write(host, self.gstep, name="G_losses")
+
+    def save(self, step: int, state) -> None:
+        """Checkpoint `state` at `step` (rank 0)."""
+        if self.is_main:
+            self.ckpt.save(step, state.state_dict())
 
     def end_epoch(self, ep: int, state) -> bool:
         """Checkpoint at `epoch_ckpt` epochs, at the last one and on a
-        preemption signal; True (after "preempted: checkpointed epoch N,
-        exiting") when the run must stop."""
-        stop = self.guard.should_stop
+        preemption signal to any rank; True (after "preempted: checkpointed
+        epoch N, exiting") when the run must stop."""
+        stop = any_rank(self.guard.should_stop, self.mesh)
         if (ep + 1) % self.epoch_ckpt == 0 or ep + 1 == self.epochs or stop:
-            self.ckpt.save(ep + 1, state.state_dict())
+            self.save(ep + 1, state)
         if stop:
-            print(f"preempted: checkpointed epoch {ep + 1}, exiting")
+            self.log(f"preempted: checkpointed epoch {ep + 1}, exiting")
         return stop
 
     def close(self) -> None:
@@ -293,14 +339,16 @@ class TrainLoop:
     `step_fn(state, batch) -> (state, metrics)`; `state` has
     `state_dict()` (CPU tensors, for `utils.Checkpoint`) and
     `load_state_dict()`. A step that needs noise closes over its own
-    generator (the JAX loop hands each step a split key). `record` is the
-    last run's.
+    generator (the JAX loop hands each step a split key). With a `mesh`
+    each batch is the global one and the step gets the rank's rows
+    (`shard_batch`), on the mesh's device. `record` is the last run's.
     """
 
     step_fn: Callable
     output_dir: str
     epoch_ckpt: int = 10
     device: str | torch.device = "cuda"
+    mesh: Mesh | None = None
 
     def run(self, state, epochs: int, batches_fn: Callable[[], Iterable],
             hooks: Mapping[str, Callable] | None = None):
@@ -311,12 +359,15 @@ class TrainLoop:
         hooks = hooks or {}
         self.record = RunRecord(
             dict(output_dir=self.output_dir, epochs=epochs,
-                 epoch_ckpt=self.epoch_ckpt), state, 0)
+                 epoch_ckpt=self.epoch_ckpt), state, 0, mesh=self.mesh)
         try:
             for ep in range(self.record.start, epochs):
                 for batch in batches_fn():
-                    batch = tuple(torch.as_tensor(x).to(self.device)
-                                  for x in batch)
+                    if self.mesh is not None:
+                        batch = shard_batch(tuple(batch), self.mesh)
+                    else:
+                        batch = tuple(torch.as_tensor(x).to(self.device)
+                                      for x in batch)
                     state, metrics = self.step_fn(state, batch)
                     self.record.step(metrics)
                 if "on_epoch_end" in hooks:

@@ -23,6 +23,13 @@ it takes none. With `bf16` the encoder and the decoders compute in
 bfloat16 (the ConvLSTM front in the kernels' bf16 storage mode) while
 their parameters stay float32; the posterior, the VQ, the discriminator,
 the VGG and the synthesis run in float32, as in the JAX package.
+
+On a data mesh (`mesh=`) each rank's steps take its rows of the global
+batch: ε is drawn for the global batch and the rank keeps its rows, the
+latent covariance is the global batch's (`parallel.mesh.all_gather_rows`,
+differentiable), the VQ perplexity averages the code frequencies over the
+ranks, and the optimizers average the gradients. The spectral-norm power
+iterations and R1 run per rank on identical weights.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..eval.metrics import (covariance_map, echoes_to_vgg_input, init_vgg19,
 from ..losses import adversarial_losses, r1_regularization
 from ..models import (Decoder, Encoder, PatchGAN, VectorQuantizer,
                       fourier_layer)
+from ..parallel.mesh import all_gather_rows, draw_rows
 from ..prob import Normal
 from .common import Adam, compute_dtype, linear_decay_schedule, make_adam
 
@@ -190,13 +198,14 @@ def decode_maps(models: GANModels, z: torch.Tensor) -> torch.Tensor:
 
 
 def make_g_loss_fn(cfg, models: GANModels, vgg=None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, mesh=None):
     """The G loss as `g_loss(A, B, te, eps=None) -> (loss, metrics,
     a2b2a)`: A the echoes (nb, ne, H, W, 2), B the mag/phase map rows (nb,
     3, H, W, 2), te (nb, ne, 1), eps the posterior's noise (nb, h, w, D),
     drawn from `generator` (on A's device; seeded 0 on first use where
     None) when not given. The discriminator is called without updating its
-    statistics; its parameters take part, so the caller freezes them."""
+    statistics; its parameters take part, so the caller freezes them. On a
+    `mesh` A is the rank's rows and eps its rows of the global draw."""
     cycle_loss = _point_loss(cfg["main_loss"])
     _, g_adv_fn = adversarial_losses("wgan")
 
@@ -206,14 +215,17 @@ def make_g_loss_fn(cfg, models: GANModels, vgg=None,
         out = models.enc(A)
         vq_loss = kl = perplexity = zero
         if cfg["VQ_encoder"]:
-            z, vq_loss, perplexity = models.vq(out.float())
+            z, vq_loss, perplexity = models.vq(out.float(), mesh)
         else:
             post = Normal(loc=out.loc.float(), scale=out.scale.float())
             if eps is None:
                 if generator is None:
                     generator = torch.Generator(device=A.device).manual_seed(0)
-                eps = torch.randn(post.loc.shape, generator=generator,
-                                  device=A.device)
+                eps = draw_rows(
+                    lambda k: torch.randn((k,) + post.loc.shape[1:],
+                                          generator=generator,
+                                          device=A.device),
+                    post.loc.shape[0], mesh)
             z = post.loc + post.scale * eps
             kl = torch.mean(post.kl_to_std_normal())
         a2b = decode_maps(models, z)
@@ -249,7 +261,7 @@ def make_g_loss_fn(cfg, models: GANModels, vgg=None,
         # the D×D covariance only where its weight asks for it (the
         # reference builds it always)
         if cfg["cov_reg_weight"] > 0.0:
-            z_cov = covariance_map(z)
+            z_cov = covariance_map(all_gather_rows(z, mesh))
             eye = torch.eye(z_cov.shape[-1], device=z.device)
             cov_loss = torch.mean(torch.square(z_cov - eye))
         else:
@@ -307,7 +319,7 @@ def make_d_loss_fn(cfg, disc: PatchGAN):
 
 
 def make_train_steps(cfg, models: GANModels, vgg=None,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None, mesh=None):
     """(g_step, d_step, (tx_g, tx_d)).
 
     `g_step(state, (A, B, te), eps=None) -> (state, metrics, a2b2a)` takes
@@ -317,21 +329,24 @@ def make_train_steps(cfg, models: GANModels, vgg=None,
     `epoch_decay`'s share of `total_steps` (default `epochs`) g-steps, and
     of that many times `critic_train_steps` d-steps. With A_loss "VGG" and
     no `vgg`, the VGG19 of `eval.metrics.init_vgg19`. The state is updated
-    in place and returned; the metrics are detached tensors."""
+    in place and returned; the metrics are detached tensors. On a `mesh`
+    the batches are the rank's rows and the optimizers average the
+    gradients over its ranks."""
     if cfg["A_loss"] == "VGG" and vgg is None:
         vgg = init_vgg19()
-    g_loss = make_g_loss_fn(cfg, models, vgg, generator)
+    g_loss = make_g_loss_fn(cfg, models, vgg, generator, mesh)
     d_loss = make_d_loss_fn(cfg, models.disc)
     total_steps = cfg.get("total_steps", cfg["epochs"])
     epochs = max(cfg["epochs"], 1)
     tx_g = make_adam(linear_decay_schedule(
         cfg["lr"], total_steps, int(cfg["epoch_decay"] * total_steps
-                                    / epochs)), cfg["beta_1"], cfg["beta_2"])
+                                    / epochs)), cfg["beta_1"], cfg["beta_2"],
+        mesh=mesh)
     d_total = total_steps * cfg["critic_train_steps"]
     tx_d = make_adam(linear_decay_schedule(
         cfg["lr"] * cfg["D_lr_factor"], d_total,
         int(cfg["epoch_decay"] * d_total / epochs)),
-        cfg["beta_1"], cfg["beta_2"])
+        cfg["beta_1"], cfg["beta_2"], mesh=mesh)
 
     def g_step(state: GANState, batch, eps=None):
         A, B, te = batch

@@ -30,6 +30,7 @@ from .. import diffusion as dm
 from .. import physics
 from ..cli.common import resolve_device
 from ..models import DenoiseUNet
+from ..parallel.mesh import draw_rows
 from ..utils import Checkpoint
 from . import gan
 from .common import ModelState, linear_decay_schedule, make_adam
@@ -102,15 +103,18 @@ def make_loss_fn(model, sched: dm.DiffusionSchedule):
 
 
 def make_train_step(cfg, model: DenoiseUNet, sched: dm.DiffusionSchedule,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None, mesh=None):
     """(train_step, tx). `train_step(state, (z, labels), t=None, noise=None)
     -> (state, metrics)`: z the normalized latents (nb, h, w, C), t (nb,)
     and noise the shape of z, drawn from `generator` (on z's device; seeded
     0 on first use where None) when not given, in that order. One Adam step
-    of the ε-MSE; the metrics ("loss", "G_loss") are detached."""
+    of the ε-MSE; the metrics ("loss", "G_loss") are detached. On a data
+    `mesh` z is the rank's rows, t and the noise are drawn for the global
+    batch and the rank keeps its rows (`parallel.mesh.draw_rows`), and the
+    optimizer averages the gradients over the ranks."""
     tx = make_adam(linear_decay_schedule(cfg["lr"], cfg["epochs"],
                                          cfg["epochs"]),
-                   cfg["beta_1"], cfg["beta_2"])
+                   cfg["beta_1"], cfg["beta_2"], mesh=mesh)
 
     loss_fn = make_loss_fn(model, sched)
 
@@ -120,10 +124,12 @@ def make_train_step(cfg, model: DenoiseUNet, sched: dm.DiffusionSchedule,
         if generator is None:
             generator = torch.Generator(device=z.device).manual_seed(0)
         if t is None:
-            t = dm.sample_timesteps(z.shape[0], sched.timesteps, generator,
-                                    z.device)
+            t = draw_rows(lambda k: dm.sample_timesteps(
+                k, sched.timesteps, generator, z.device), z.shape[0], mesh)
         if noise is None:
-            noise = torch.randn(z.shape, generator=generator, device=z.device)
+            noise = draw_rows(lambda k: torch.randn(
+                (k,) + z.shape[1:], generator=generator, device=z.device),
+                z.shape[0], mesh)
         state.opt.zero_grad()
         loss = loss_fn(z, labels, t, noise)
         loss.backward()

@@ -21,7 +21,9 @@ With `bf16` the UNet computes in bfloat16 (its ConvLSTM front in the
 kernels' bf16 storage mode) while its parameters stay float32; its point
 output and the Rician head's (ν, σ) are upcast to float32 before the
 magnitude fit, as in the JAX package. `remat` rematerializes its blocks in
-the backward.
+the backward. On a data mesh (`mesh=`) each rank takes its rows of the
+global batch, its batch-sum terms (the TV terms, the LS sums) carry the
+data size, and the optimizer averages the gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..cli.common import resolve_device
 from ..losses import total_variation_2d
 from ..models import UNet
 from ..ops import cse_mag_fused, synthesize_fused
+from ..parallel.mesh import data_size
 from ..prob import Rician
 from .common import (ModelState, compute_dtype, linear_decay_schedule,
                      make_adam)
@@ -72,10 +75,11 @@ def _point_loss(name):
     raise NameError(f"Unrecognized Main Loss Function {name!r}")
 
 
-def make_loss_fn(cfg, model):
+def make_loss_fn(cfg, model, tv_scale: float = 1.0):
     """The loss as `loss_fn(B, te) -> (loss, metrics)` over the model's
     current parameters. B (nb, ≥3, H, W, 2) ground-truth maps, te (nb, ne,
-    1)."""
+    1). `tv_scale` multiplies the batch-sum terms (R2_TV, Ad_TV, LS_NZ,
+    WF_NZ, LS_cond)."""
     rice = cfg["main_loss"] == "Rice"
     supervised = cfg["training_mode"] == "supervised"
     loss_alt = _point_loss(cfg["main_loss"])
@@ -109,7 +113,7 @@ def make_loss_fn(cfg, model):
         b_r2 = B[:, 2:3, ..., 1:]
         r2_loss = (-torch.mean(out.log_prob(b_r2)) if rice
                    else loss_alt(b_r2, r2_point))
-        r2_tv = torch.sum(total_variation_2d(r2_nu[:, 0]))
+        r2_tv = torch.sum(total_variation_2d(r2_nu[:, 0])) * tv_scale
 
         if not supervised:
             g_loss = cycle_loss
@@ -123,15 +127,18 @@ def make_loss_fn(cfg, model):
 
         # the reference's physics regularizers (train-IDEAL-mag.py:305-316)
         ad = res.demod.reshape((-1,) + res.demod.shape[2:])
-        ad_tv = torch.sum(total_variation_2d(ad))
+        ad_tv = torch.sum(total_variation_2d(ad)) * tv_scale
         ls = res.ls_coeffs  # (nb, 3, H, W, 1): (a, b, c)
         ac = ls[:, ::2]
-        ls_nz = torch.sum(torch.where(ac < 0.0, torch.square(ac), 0.0))
+        ls_nz = torch.sum(torch.where(ac < 0.0, torch.square(ac),
+                                      0.0)) * tv_scale
         wf_nz = torch.sum(torch.where(ls[:, :1] < ls[:, -1:],
-                                      ls[:, -1:] - ls[:, :1], 0.0))
+                                      ls[:, -1:] - ls[:, :1],
+                                      0.0)) * tv_scale
         cond = torch.square(ls[:, 1:2]) - 4.0 * torch.prod(ac, dim=1,
                                                            keepdim=True)
-        ls_cond = torch.sum(torch.where(cond > 0.0, torch.square(cond), 0.0))
+        ls_cond = torch.sum(torch.where(cond > 0.0, torch.square(cond),
+                                        0.0)) * tv_scale
         g_loss = (g_loss + ad_tv * cfg["A_demod_TV_weight"]
                   + ls_nz * cfg["LS_NZ_weight"]
                   + ls_cond * cfg["LS_cond_weight"])
@@ -143,16 +150,17 @@ def make_loss_fn(cfg, model):
     return loss_fn
 
 
-def make_train_step(cfg, model):
+def make_train_step(cfg, model, mesh=None):
     """(train_step, tx): `train_step(state, (B, te)) -> (state, metrics)`
     takes one Adam step on the loss (no gradient clipping; the learning
     rate decays over `epochs` optimizer steps after `epoch_decay`, as the
     JAX trainer's schedule counts them); tx is the optimizer recipe
-    `params -> Adam`. The state is updated in place and returned."""
-    loss_fn = make_loss_fn(cfg, model)
+    `params -> Adam`, averaging over `mesh`'s ranks. The state is updated
+    in place and returned."""
+    loss_fn = make_loss_fn(cfg, model, tv_scale=float(data_size(mesh)))
     schedule = linear_decay_schedule(cfg["lr"], cfg["epochs"],
                                      cfg["epoch_decay"])
-    tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"])
+    tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"], mesh=mesh)
 
     def train_step(state: MagState, batch):
         B, te = batch

@@ -13,7 +13,10 @@ Adam.
 With `bf16` both nets compute in bfloat16 (their ConvLSTM fronts in the
 kernels' bf16 storage mode) while their parameters stay float32, and their
 outputs are upcast to float32 before the physics, as in the JAX package;
-`remat` rematerializes their blocks in the backward.
+`remat` rematerializes their blocks in the backward. On a data mesh
+(`mesh=`) each rank takes its rows of the subject's slices, its batch-sum
+terms (the FM TV and L1, the bipolar regularizers) carry the data size,
+and the optimizer averages the gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .. import physics
 from ..cli.common import resolve_device
 from ..losses import l1_mean, total_variation_2d
 from ..models import UNet
+from ..parallel.mesh import data_size
 from .common import Adam, compute_dtype, linear_decay_schedule, make_adam
 
 DEFAULTS = dict(
@@ -103,11 +107,12 @@ def symmetry_halves(bp: torch.Tensor):
     return left, right
 
 
-def make_loss_fn(cfg, g_mag, g_pha):
+def make_loss_fn(cfg, g_mag, g_pha, tv_scale: float = 1.0):
     """The single-subject separate-phase cycle loss as `loss_fn(A, B, te)
     -> (loss, metrics)` over the nets' current parameters: A the echoes
     (nb, ne, H, W, 2), B the maps (nb, 3, H, W, 2) that give the masks and
-    the WF, R2 and FM metrics, te (nb, ne, 1)."""
+    the WF, R2 and FM metrics, te (nb, ne, 1). `tv_scale` multiplies the
+    batch-sum terms (TV_FM, L1_FM, BP_GR)."""
     bipolar = cfg["grad_mode"] == "bipolar"
     field = 3.0 if cfg["is_phantom"] else 1.5
     loss_fn_pt = _loss(cfg["main_loss"])
@@ -142,8 +147,9 @@ def make_loss_fn(cfg, g_mag, g_pha):
         r2_loss = loss_fn_pt(B[:, 2:, ..., 1:], a2b[:, :1, :, :, 2:3])
         fm_loss = loss_fn_pt(B[:, 2:, ..., :1], a2b[:, 1:, :, :, 2:3])
 
-        fm_tv = torch.sum(total_variation_2d(a2b[:, 1, :, :, 2:3]))
-        fm_l1 = l1_mean(a2b[:, 1:, :, :, 2:3])
+        fm_tv = torch.sum(total_variation_2d(a2b[:, 1, :, :, 2:3])) \
+            * tv_scale
+        fm_l1 = l1_mean(a2b[:, 1:, :, :, 2:3]) * tv_scale
         g_loss = (cycle_loss + fm_tv * cfg["FM_TV_weight"]
                   + fm_l1 * cfg["FM_L1_weight"])
 
@@ -154,8 +160,8 @@ def make_loss_fn(cfg, g_mag, g_pha):
             dx = bp[:, :, 1:, :] - bp[:, :, :-1, :]
             bp_gr = torch.sum(torch.abs(dy)) - torch.sum(torch.sign(dx))
             left, right = symmetry_halves(bp)
-            bp_gr = bp_gr + cfg["BP_GR_sym_weight"] * torch.sum(
-                torch.abs(left + right))
+            bp_gr = (bp_gr + cfg["BP_GR_sym_weight"] * torch.sum(
+                torch.abs(left + right))) * tv_scale
             g_loss = g_loss + bp_gr * cfg["BP_GR_weight"]
 
         return g_loss, {"A2B2A_cycle_loss": cycle_loss, "WF_loss": wf_loss,
@@ -166,16 +172,16 @@ def make_loss_fn(cfg, g_mag, g_pha):
     return loss_fn
 
 
-def make_train_step(cfg, g_mag, g_pha):
+def make_train_step(cfg, g_mag, g_pha, mesh=None):
     """(train_step, tx): `train_step(state, (A, B, te)) -> (state,
     metrics)` takes one Adam step on both nets together (no clipping; the
     rate decays over `epochs` steps after `epoch_decay`); tx is the
-    optimizer recipe `params -> Adam`. The state is updated in place and
-    returned."""
-    loss_fn = make_loss_fn(cfg, g_mag, g_pha)
+    optimizer recipe `params -> Adam`, averaging over `mesh`'s ranks. The
+    state is updated in place and returned."""
+    loss_fn = make_loss_fn(cfg, g_mag, g_pha, float(data_size(mesh)))
     schedule = linear_decay_schedule(cfg["lr"], cfg["epochs"],
                                      cfg["epoch_decay"])
-    tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"])
+    tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"], mesh=mesh)
 
     def train_step(state: SingleState, batch):
         A, B, te = batch

@@ -20,9 +20,11 @@ float32, and its output is upcast to float32 before the losses and the fit,
 as in the JAX package; `remat` rematerializes its blocks in the backward.
 With `microbatch` > 0 the step accumulates its gradients over chunks of that
 many slices (`common.accumulate_microbatch_grads`), each drawing its own
-input noise, the batch-sum terms (TV, L1) scaled by the chunk count. The JAX
-package's data-parallel mesh (`data_mesh_for_batch`, `shard_batch`) has no
-counterpart here: one card runs the step (ROADMAP Queue 1 item 8b).
+input noise, the batch-sum terms (TV, L1) scaled by the chunk count. On a
+data mesh (`mesh=`) each rank takes its rows of the global batch, draws
+the global batch's noise and keeps its rows (`parallel.mesh.draw_rows`),
+scales the batch-sum terms by the data size too, and the optimizer
+averages the gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..data import layouts
 from ..losses import l1_mean, total_variation_2d
 from ..models import MDWFNet, UNet, VETNet
 from ..ops import fit_rho_fused, synthesize_fused
+from ..parallel.mesh import data_size, draw_rows
 from .common import (ModelState, accumulate_microbatch_grads, compute_dtype,
                      linear_decay_schedule, make_adam)
 
@@ -192,29 +195,36 @@ def make_loss_fn(cfg, model, tv_scale: float = 1.0):
     return loss_fn
 
 
-def draw_noise(cfg, A, generator: torch.Generator):
+def draw_noise(cfg, A, generator: torch.Generator, mesh=None,
+               chunk: int = 0):
     """The legacy-layout input noise (nb, H, W, 2·ne) from `generator` on
-    A's device, or None without `sigma_noise`."""
+    A's device, drawn in chunks of `chunk` slices (at once where 0), or
+    None without `sigma_noise`; on a mesh, the global batch's noise drawn
+    so and this rank's rows of it."""
     if cfg["sigma_noise"] <= 0.0:
         return None
     nb, ne, hgt, wdt, two = A.shape
-    return torch.randn((nb, hgt, wdt, ne * two), generator=generator,
-                       device=A.device)
+    return draw_rows(lambda k: torch.randn((k, hgt, wdt, ne * two),
+                                           generator=generator,
+                                           device=A.device),
+                     nb, mesh, chunk)
 
 
-def make_grad_fn(cfg, model):
+def make_grad_fn(cfg, model, mesh=None):
     """The gradients as `grad_fn(A, B, te, noise) -> (loss, metrics)`: they
     are left in the parameters' `.grad` (which the caller zeroes). With
     `microbatch` > 0 over chunks of that many slices
     (`accumulate_microbatch_grads`, the batch-sum terms scaled by the chunk
     count), chunk i taking noise rows [i·micro, (i+1)·micro); else one
-    backward of the full batch."""
+    backward of the full batch. On a mesh the batch-sum terms also carry
+    the data size."""
     micro = int(cfg.get("microbatch") or 0)
     params = list(model.parameters())
 
     def grad_fn(A, B, te, noise=None):
         n_chunks = A.shape[0] // micro if micro else 1
-        loss_fn = make_loss_fn(cfg, model, tv_scale=float(n_chunks))
+        loss_fn = make_loss_fn(cfg, model,
+                               tv_scale=float(n_chunks * data_size(mesh)))
         if micro:
             return accumulate_microbatch_grads(loss_fn, params,
                                                (A, B, te, noise), micro)
@@ -225,29 +235,26 @@ def make_grad_fn(cfg, model):
     return grad_fn
 
 
-def make_train_step(cfg, model):
+def make_train_step(cfg, model, mesh=None):
     """(train_step, tx): `train_step(state, (A, B, te), generator) ->
     (state, metrics)` draws the input noise from `generator` (on A's
-    device; under `microbatch`, chunk by chunk, each its own) and takes one
-    Adam step on the loss (the linear-decay schedule); tx is the optimizer
-    recipe `params -> Adam`. The state is updated in place and returned;
-    metrics carry `G_loss`."""
-    grad_fn = make_grad_fn(cfg, model)
+    device; under `microbatch`, chunk by chunk, each its own; on a `mesh`,
+    the global batch's) and takes one Adam step on the loss (the
+    linear-decay schedule); tx is the optimizer recipe `params -> Adam`,
+    averaging over the mesh's ranks. The state is updated in place and
+    returned; metrics carry `G_loss`."""
+    grad_fn = make_grad_fn(cfg, model, mesh)
     micro = int(cfg.get("microbatch") or 0)
     total_steps = cfg.get("total_steps", cfg["epochs"])
     schedule = linear_decay_schedule(
         cfg["lr"], total_steps,
         int(cfg["epoch_decay"] * total_steps / max(cfg["epochs"], 1)))
-    tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"])
+    tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"], mesh=mesh)
 
     def train_step(state: SupState, batch, generator: torch.Generator):
         A, B, te = batch
         state.opt.zero_grad()
-        noise = None
-        if cfg["sigma_noise"] > 0.0:
-            step = micro or A.shape[0]
-            noise = torch.cat([draw_noise(cfg, A[i:i + step], generator)
-                               for i in range(0, A.shape[0], step)])
+        noise = draw_noise(cfg, A, generator, mesh, micro)
         loss, metrics = grad_fn(A, B, te, noise)
         state.opt.step()
         state.step += 1
@@ -257,15 +264,19 @@ def make_train_step(cfg, model):
     return train_step, tx
 
 
-def make_eval_step(cfg, model):
+def make_eval_step(cfg, model, mesh=None):
     """`eval_step(state, (A, B, te), generator) -> metrics`: the loss's
-    metrics and `G_loss` without a gradient or an update."""
-    loss_fn = make_loss_fn(cfg, model)
+    metrics and `G_loss` without a gradient or an update (on a `mesh`, the
+    rank's, on its rows and its share of the global noise, the batch-sum
+    terms scaled as the step's: `train.common.metrics_to_host` averages
+    them)."""
+    loss_fn = make_loss_fn(cfg, model, tv_scale=float(data_size(mesh)))
 
     @torch.no_grad()
     def eval_step(state: SupState, batch, generator: torch.Generator):
         A, B, te = batch
-        loss, metrics = loss_fn(A, B, te, draw_noise(cfg, A, generator))
+        loss, metrics = loss_fn(A, B, te,
+                                draw_noise(cfg, A, generator, mesh))
         metrics["G_loss"] = loss
         return metrics
 

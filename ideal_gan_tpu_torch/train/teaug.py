@@ -32,7 +32,10 @@ backward. With `microbatch` > 0 G_A2B's step accumulates its gradients over
 chunks of that many slices (`common.accumulate_microbatch_grads`), each
 chunk synthesizing its acquisitions with its own noise, the TV terms
 scaled by the chunk count (`tv_scale`) so that the average is the
-full-batch loss.
+full-batch loss. On a data mesh (`mesh=`) each rank takes its rows of the
+global batch, draws the noise of the global batch and keeps its rows
+(`parallel.mesh.draw_rows`), scales the TV terms by the data size too, and
+the optimizers average the gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..data.layouts import acqs_from_mebcrn
 from ..losses import total_variation_2d
 from ..models import MDWFNet, UNet, VETNet
 from ..ops import fit_rho_fused, synthesize_fused
+from ..parallel.mesh import data_size, draw_rows
 from .common import (Adam, ModelState, accumulate_microbatch_grads,
                      compute_dtype, linear_decay_schedule, make_adam)
 
@@ -214,11 +218,12 @@ def make_loss_fn(cfg, model, r2_model=None, tv_scale: float = 1.0):
     return loss_fn
 
 
-def make_r2_loss_fn(cfg, model, r2_model):
+def make_r2_loss_fn(cfg, model, r2_model, tv_scale: float = 1.0):
     """The 2U-Net's second loss as `loss_fn(B, te, noise) -> (loss,
     metrics)` over G_A2R2's current parameters: its R2* (masked to B's
-    support) against B's, plus its TV; G_A2B runs frozen, without a
-    gradient; `WF_loss_aux` fits ρ̂ as the first loss's diagnostic."""
+    support) against B's, plus its TV (times `tv_scale`); G_A2B runs
+    frozen, without a gradient; `WF_loss_aux` fits ρ̂ as the first loss's
+    diagnostic."""
 
     def loss_fn(B, te, noise):
         A = _synthesized(cfg, B, te, noise)
@@ -230,7 +235,7 @@ def make_r2_loss_fn(cfg, model, r2_model):
         pm = torch.where(B[:, 2:3] != 0.0, pm, torch.zeros_like(pm))
         r2_loss = torch.mean(torch.abs(B[:, 2:3, ..., 1:] - pm[..., 1:]))
         r2_tv = (torch.sum(total_variation_2d(pm[:, 0, ..., 1:]))
-                 * cfg["R2_TV_weight"])
+                 * cfg["R2_TV_weight"] * tv_scale)
         wf_mae = _wf_mae(cfg, A, pm, te, _magnitude(B[:, :2]))
         return r2_loss + r2_tv, {"R2_loss": r2_loss, "TV_R2_aux": r2_tv,
                                  "WF_loss_aux": wf_mae}
@@ -260,11 +265,15 @@ class TEAugState(ModelState):
             self.opt_r2.load_state_dict(state["opt_r2"])
 
 
-def draw_noise(B, te, generator: torch.Generator) -> torch.Tensor:
+def draw_noise(B, te, generator: torch.Generator, mesh=None,
+               chunk: int = 0) -> torch.Tensor:
     """Standard normal acquisition noise (nb, ne, H, W, 2) from `generator`
-    on B's device."""
-    return torch.randn((B.shape[0], te.shape[1], *B.shape[2:]),
-                       generator=generator, device=B.device)
+    on B's device, drawn in chunks of `chunk` slices (at once where 0); on a
+    mesh, the global batch's noise drawn so and this rank's rows of it."""
+    return draw_rows(lambda k: torch.randn((k, te.shape[1], *B.shape[2:]),
+                                           generator=generator,
+                                           device=B.device),
+                     B.shape[0], mesh, chunk)
 
 
 def _schedule(cfg):
@@ -274,20 +283,21 @@ def _schedule(cfg):
         int(cfg["epoch_decay"] * total_steps / max(cfg["epochs"], 1)))
 
 
-def make_grad_fn(cfg, model, r2_model=None):
+def make_grad_fn(cfg, model, r2_model=None, mesh=None):
     """G_A2B's gradients as `grad_fn(B, te, noise) -> (loss, metrics)`:
     they are left in the parameters' `.grad` (which the caller zeroes).
     With `microbatch` > 0 over chunks of that many slices
     (`accumulate_microbatch_grads`, the TV terms scaled by the chunk
     count), chunk i taking noise rows [i·micro, (i+1)·micro); else one
-    backward of the full batch."""
+    backward of the full batch. On a mesh the TV terms also carry the data
+    size."""
     micro = int(cfg.get("microbatch") or 0)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def grad_fn(B, te, noise):
         n_chunks = B.shape[0] // micro if micro else 1
         loss_fn = make_loss_fn(cfg, model, r2_model,
-                               tv_scale=float(n_chunks))
+                               tv_scale=float(n_chunks * data_size(mesh)))
         if micro:
             return accumulate_microbatch_grads(loss_fn, params,
                                                (B, te, noise), micro)
@@ -298,23 +308,22 @@ def make_grad_fn(cfg, model, r2_model=None):
     return grad_fn
 
 
-def make_train_step(cfg, model, r2_model=None):
+def make_train_step(cfg, model, r2_model=None, mesh=None):
     """(train_step, tx): `train_step(state, (B, te), generator) -> (state,
     metrics)` draws the noise from `generator` (`draw_noise`; under
-    `microbatch`, chunk by chunk, each its own) and takes one Adam step on
-    G_A2B's loss (no gradient clipping, as the JAX trainer); tx is the
-    optimizer recipe `params -> Adam`. The state is updated in place and
+    `microbatch`, chunk by chunk, each its own; on a `mesh`, the global
+    batch's) and takes one Adam step on G_A2B's loss (no gradient clipping,
+    as the JAX trainer); tx is the optimizer recipe `params -> Adam`,
+    averaging over the mesh's ranks. The state is updated in place and
     returned."""
-    grad_fn = make_grad_fn(cfg, model, r2_model)
+    grad_fn = make_grad_fn(cfg, model, r2_model, mesh)
     micro = int(cfg.get("microbatch") or 0)
-    tx = make_adam(_schedule(cfg), cfg["beta_1"], cfg["beta_2"])
+    tx = make_adam(_schedule(cfg), cfg["beta_1"], cfg["beta_2"], mesh=mesh)
 
     def train_step(state: TEAugState, batch, generator: torch.Generator):
         B, te = batch
         state.opt.zero_grad()
-        chunks = range(0, B.shape[0], micro) if micro else [0]
-        noise = torch.cat([draw_noise(B[i:i + (micro or B.shape[0])], te,
-                                      generator) for i in chunks])
+        noise = draw_noise(B, te, generator, mesh, micro)
         loss, metrics = grad_fn(B, te, noise)
         state.opt.step()
         state.step += 1
@@ -323,19 +332,19 @@ def make_train_step(cfg, model, r2_model=None):
     return train_step, tx
 
 
-def make_r2_train_step(cfg, model, r2_model, tx):
+def make_r2_train_step(cfg, model, r2_model, tx, mesh=None):
     """The 2U-Net's second step: `train_step(state, (B, te), generator) ->
     (state, metrics)` takes one step of G_A2R2's optimizer (the recipe
     `tx`, its own state) on `make_r2_loss_fn`, G_A2B frozen; the step
     count is G_A2B's and does not move. The JAX CLI hands both steps of a
     batch the same key: replay `generator`'s state to draw the same
-    noise."""
-    loss_fn = make_r2_loss_fn(cfg, model, r2_model)
+    noise (on a `mesh`, the global batch's, as the first step's)."""
+    loss_fn = make_r2_loss_fn(cfg, model, r2_model, data_size(mesh))
 
     def train_step(state: TEAugState, batch, generator: torch.Generator):
         B, te = batch
         state.opt_r2.zero_grad()
-        loss, metrics = loss_fn(B, te, draw_noise(B, te, generator))
+        loss, metrics = loss_fn(B, te, draw_noise(B, te, generator, mesh))
         loss.backward()
         state.opt_r2.step()
         return state, {k: v.detach() for k, v in metrics.items()}

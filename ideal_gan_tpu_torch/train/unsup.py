@@ -25,6 +25,12 @@ kernels' bf16 storage mode) while the parameters stay float32, and the
 heads' outputs are upcast to float32 before the cycle (`_as_mean_sigma`), as
 in the JAX package; `remat` rematerializes the nets' blocks in the
 backward.
+
+On a data mesh (`mesh=`, `parallel.mesh`) each rank's step takes its rows
+of the global batch, its batch-sum terms (the TV and L1 regularizers) carry
+the data size, and the optimizers average the gradients over the ranks
+before the clip, so that the step equals the one-process step on the whole
+batch.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..cli.common import resolve_device
 from ..losses import l1_mean, total_variation_2d, var_mse
 from ..models import UNet
 from ..ops import cycle_full_fused
+from ..parallel.mesh import all_reduce_grads, data_size
 from ..prob import Normal, Rician
 from .common import (SGD, Adam, compute_dtype, linear_decay_schedule,
                      make_adam)
@@ -182,11 +189,12 @@ def _nll(A, a_hat, a_var) -> torch.Tensor:
     return var_mse(A, torch.cat([a_hat, a_var], dim=-1))
 
 
-def make_loss_fn(cfg, g_fm, g_r2):
+def make_loss_fn(cfg, g_fm, g_r2, tv_scale: float = 1.0):
     """The cycle loss of the FM step as `loss_fn(fm_offset, A, te,
     calib=None) -> (loss, metrics)` over the nets' current parameters (g_r2
     frozen): ‖A − Â‖², or with UQ `var_mse` on the variance propagated
-    from the cycle's detached ρ and scaled by `calib` (ones where None)."""
+    from the cycle's detached ρ and scaled by `calib` (ones where None).
+    `tv_scale` multiplies the batch-sum terms (TV, L1)."""
     uq = cfg["UQ"]
 
     def loss_fn(fm_offset, A, te, calib=None):
@@ -198,8 +206,8 @@ def make_loss_fn(cfg, g_fm, g_r2):
         cycle_loss = (_nll(A, a_hat, a_var) if uq
                       else torch.mean(torch.square(A - a_hat)))
         fm_tv = torch.sum(total_variation_2d(fm_mean[:, 0])) \
-            * cfg["FM_TV_weight"]
-        fm_l1 = l1_mean(fm_mean) * cfg["FM_L1_weight"]
+            * cfg["FM_TV_weight"] * tv_scale
+        fm_l1 = l1_mean(fm_mean) * cfg["FM_L1_weight"] * tv_scale
         loss = cycle_loss + fm_tv + fm_l1
         return loss, {"A2B2A_cycle_loss": cycle_loss, "TV_FM": fm_tv,
                       "L1_FM": fm_l1, "G_loss": loss}
@@ -207,9 +215,10 @@ def make_loss_fn(cfg, g_fm, g_r2):
     return loss_fn
 
 
-def make_r2_loss_fn(cfg, g_fm, g_r2):
+def make_r2_loss_fn(cfg, g_fm, g_r2, tv_scale: float = 1.0):
     """The R2 step's loss: the PM-mode cycle with g_fm frozen, as
-    `loss_fn(fm_offset, A, te) -> (loss, metrics)`."""
+    `loss_fn(fm_offset, A, te) -> (loss, metrics)`; `tv_scale` multiplies
+    the batch-sum terms."""
     r2_cfg = cfg if cfg["out_vars"] == "PM" else dict(cfg, out_vars="PM")
 
     def loss_fn(fm_offset, A, te):
@@ -217,26 +226,28 @@ def make_r2_loss_fn(cfg, g_fm, g_r2):
                                             A, te, stop_grad_fm=True)
         loss = torch.mean(torch.square(A - a_hat))
         r2_tv = torch.sum(total_variation_2d(r2_mean[:, 0])) \
-            * cfg["R2_TV_weight"]
-        r2_l1 = l1_mean(r2_mean) * cfg["R2_L1_weight"]
+            * cfg["R2_TV_weight"] * tv_scale
+        r2_l1 = l1_mean(r2_mean) * cfg["R2_L1_weight"] * tv_scale
         return loss + r2_tv + r2_l1, {"R2_cycle_loss": loss, "TV_R2": r2_tv,
                                       "L1_R2": r2_l1}
 
     return loss_fn
 
 
-def make_train_step(cfg, g_fm, g_r2):
+def make_train_step(cfg, g_fm, g_r2, mesh=None):
     """(train_step, tx): `train_step(state, (A, te)) -> (state, metrics)`
     trains g_fm with Adam and takes a plain SGD step on fm_offset (a zero
     gradient unless learn_fm_offset); tx is the optimizer recipe
-    `params -> Adam`. The state is updated in place and returned."""
-    loss_fn = make_loss_fn(cfg, g_fm, g_r2)
+    `params -> Adam`, averaging over `mesh`'s ranks. The state is updated
+    in place and returned; on a mesh the batch and the metrics are the
+    rank's."""
+    loss_fn = make_loss_fn(cfg, g_fm, g_r2, tv_scale=data_size(mesh))
     total_steps = cfg.get("total_steps", cfg["epochs"])
     schedule = linear_decay_schedule(
         cfg["lr"], total_steps,
         int(cfg["epoch_decay"] * total_steps / max(cfg["epochs"], 1)))
     tx = make_adam(schedule, cfg["beta_1"], cfg["beta_2"],
-                   clip_norm=cfg["grad_clip"])
+                   clip_norm=cfg["grad_clip"], mesh=mesh)
 
     def train_step(state: UnsupState, batch):
         A, te = batch
@@ -246,6 +257,7 @@ def make_train_step(cfg, g_fm, g_r2):
         loss.backward()
         state.opt_fm.step()
         if fm_offset.grad is not None:
+            all_reduce_grads([fm_offset], mesh)
             state.fm_offset = (state.fm_offset
                                - cfg["fm_offset_lr"] * fm_offset.grad)
         state.step += 1
@@ -254,9 +266,10 @@ def make_train_step(cfg, g_fm, g_r2):
     return train_step, tx
 
 
-def make_r2_train_step(cfg, g_fm, g_r2, tx):
-    """Second phase: train the R2* net with the FM net frozen."""
-    loss_fn = make_r2_loss_fn(cfg, g_fm, g_r2)
+def make_r2_train_step(cfg, g_fm, g_r2, tx, mesh=None):
+    """Second phase: train the R2* net with the FM net frozen (the
+    optimizer from `tx`, the batch-sum terms scaled for `mesh`)."""
+    loss_fn = make_r2_loss_fn(cfg, g_fm, g_r2, tv_scale=data_size(mesh))
 
     def train_step(state: UnsupState, batch):
         A, te = batch
@@ -322,10 +335,11 @@ def eval_calibrated_nll(cfg, g_fm, g_r2):
 
 
 def init_state(cfg, g_fm, g_r2, tx, generator: torch.Generator,
-               device="cuda") -> UnsupState:
+               device="cuda", mesh=None) -> UnsupState:
     """Seeded random weights for both nets (`models.init_params`), moved to
     `device` (default the card; raises without one), with fresh optimizers
-    from the recipe `tx`, `calib` ones and its SGD at `lr`."""
+    from the recipe `tx`, `calib` ones and its SGD at `lr` (averaging over
+    `mesh`'s ranks)."""
     dev = resolve_device(device)
     for net in (g_fm, g_r2):
         net.init_params(generator)
@@ -333,5 +347,6 @@ def init_state(cfg, g_fm, g_r2, tx, generator: torch.Generator,
     calib = torch.ones(cfg["n_echoes"], dtype=torch.float32, device=dev,
                        requires_grad=True)
     return UnsupState(g_fm, tx(g_fm.parameters()), g_r2,
-                      tx(g_r2.parameters()), calib, SGD([calib], cfg["lr"]),
+                      tx(g_r2.parameters()), calib,
+                      SGD([calib], cfg["lr"], mesh=mesh),
                       torch.zeros((), dtype=torch.float32, device=dev))
