@@ -10,8 +10,11 @@ trainer, the latent-diffusion family (training, dataset generation, the
 generative metrics), scanner files in and out (DICOM and NIfTI series
 folders, DICOM export) and the multi-device paths (the sharded serving fit,
 data-parallel training over `torch.distributed`, the launcher, the serving
-split) on an NVIDIA card (every card of the host for the multi-device
-paths; with one card, the same card twice).
+split) and the rest of the package (the Bayesian decoders, the
+discriminators, the gradient penalty, the complex U-Net, the InceptionV3
+features, the gradient-flow check, the NaN sanitizer) on an NVIDIA card
+(every card of the host for the multi-device paths; with one card, the
+same card twice).
 
     python3 chip_smoke.py
 
@@ -323,6 +326,35 @@ error or mismatch ends the run with a non-zero exit and no `ok` line):
             the cards (one net replica each), TF32 off: maps within 5e-3 of
             the unsplit chunk, and the fit on identical net outputs split
             and whole bit for bit.
+21. rest     the last modules, TF32 off, card vs CPU on the same weights,
+            inputs and replayed noise (`prob.Replay`), each within
+            REST_TOL (1e-4) of its CPU scale or inside the float64
+            envelope (a float64 run on the CPU; InceptionV3 held to
+            REST_TOL alone; `rest_modules`; the large modules' CPU runs
+            overlap their card work; times by CUDA events after a
+            warm-up, TF32 off and on):
+            BayesDecoder and Decoder(bayes_layer) at the GAN's DEFAULTS
+            (latent (1, 12, 12, 258), F=36, 4 levels), train and eval,
+            with their KL sums; CriticZ (64, 3 levels) on that latent;
+            SGAN (32, 5 layers) in train mode on 8 × 6 folded 384² echoes
+            with its running statistics; PMComplex (F=72, 4 levels, 384²,
+            batch 2) train then eval with its statistics, its CPU and
+            float64 runs taking the card's complex max-pool routes, the
+            windows whose route the CPU would flip counted
+            (`_PoolRoutes`); the InceptionV3
+            features of 8 × 6 echoes through `echoes_to_inception_input`
+            at 139². `losses.gradient_penalty` wgan-gp and dragan through
+            the GAN's PatchGAN (72, 192², one slice's 6 echoes): the
+            penalty and the critic's double-backward gradient card vs CPU
+            (`_parity`, its witness lazy: loss 2e-5, gradients 2e-2 of
+            scale, or the CPU float64 envelope). `cli.test_gradients.main` at its DEFAULTS
+            (F=8, 2 synthetic 384² slices every 8th pixel) and at F=36,
+            384², counted: exactly `TEST_GRADIENTS_LAUNCHES` a run,
+            gradients finite and non-zero, each configuration's loss and
+            R2* gradient card vs CPU (`_parity`). `--debug_nans 1`:
+            the same loss as without it; a NaN in the R2* head's weight
+            raises `FloatingPointError` naming the convolution, and one in
+            the ConvLSTM forward's and backward's inputs names the kernel.
 
 The kernels phase holds the ConvLSTM kernels at the GAN encoder's shape
 too ((Cin=2, F=36, nb=1, 192²), f32 and bf16), the forward also at the
@@ -352,8 +384,9 @@ ConvLSTM kernels; vetnet_serve prints its own; `launches_on_new_paths` the
 counts of the sup, teaug_gens, uq, single and options runs, and of
 roi_aideal, phantom_1p5T, phantom_3T, record (TrainLoop's first run),
 record_cli, gan, gan_vq, gan_cgan, gan_bf16, ldm, ldm_gen,
-ldm_metrics, ldm_bf16, io_train_dicom, io_train_nifti, io_infer, and
-the parallel phase's per-rank and per-split launches) and
+ldm_metrics, ldm_bf16, io_train_dicom, io_train_nifti, io_infer, the
+parallel phase's per-rank and per-split launches, and the rest phase's
+two cli.test_gradients runs) and
 `{"ok": true,
 "device": {...}}`.
 """
@@ -366,7 +399,9 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -690,6 +725,36 @@ LSTM_FWD_SHAPES = LSTM_SHAPES + ((2, F_MAIN, 6), (1, F_MAIN, 6),
 LSTM_FWD = "convlstm_echo"
 
 
+# the ConvLSTM checks' numpy draws by (Cin, F, nb, size, seed): `_lstm_inputs`
+_LSTM_INPUTS: dict = {}
+
+
+def _lstm_inputs(dev, cin, f, nb, size, seed, with_g=True):
+    """The ConvLSTM kernel checks' inputs on `dev` (float32 copies): x
+    (nb, ne, H, W, Cin)·0.5, k (3, 3, Cin+F, 4F) He-scaled, b (4F,)·0.1
+    and, `with_g`, g (nb, H, W, F), drawn in that order from
+    `default_rng(seed)`. The numpy draws are kept in `_LSTM_INPUTS`
+    (cleared after the kernels phase), so that the checks sharing a seed
+    and shape draw them once (g the first time one asks for it)."""
+    import numpy as np
+    import torch
+    key = (cin, f, nb, size, seed)
+    drawn = _LSTM_INPUTS.get(key)
+    if drawn is None:
+        rng = np.random.default_rng(seed)
+        drawn = _LSTM_INPUTS[key] = [
+            (rng.normal(size=(nb, NE, size, size, cin)) * 0.5
+             ).astype(np.float32),
+            (rng.normal(size=(3, 3, cin + f, 4 * f))
+             * (2.0 / (9 * (cin + f))) ** 0.5).astype(np.float32),
+            (rng.normal(size=(4 * f,)) * 0.1).astype(np.float32), rng, None]
+    if with_g and drawn[4] is None:
+        drawn[4] = drawn[3].normal(size=(nb, size, size, f)).astype(
+            np.float32)
+    arrays = drawn[:3] + ([drawn[4]] if with_g else [])
+    return tuple(torch.from_numpy(a).to(dev, copy=True) for a in arrays)
+
+
 def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_FWD_SHAPES) -> dict:
     """The ConvLSTM forward kernel against `convlstm_reference` at each
     (Cin, F, nb) of `shapes`: held to the plain version in float32 (TF32
@@ -699,21 +764,13 @@ def convlstm_entry(dev, size: int = SIZE, shapes=LSTM_FWD_SHAPES) -> dict:
     one (`bound_fp32_ms`); one echo's gate convolution in cuDNN with TF32
     off and on as a partial yardstick; and the HMMA instructions `cuobjdump
     -sass` finds in the kernel (the run fails if there are none)."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
     from ideal_gan_tpu_torch import ops
     cases, default_size = [], size
     for cin, f, nb, *sz in shapes:
         size = sz[0] if sz else default_size
-        rng = np.random.default_rng(cin)
-        x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
-                              * 0.5).astype(np.float32)).to(dev)
-        k = torch.from_numpy((rng.normal(size=(3, 3, cin + f, 4 * f))
-                              * (2.0 / (9 * (cin + f))) ** 0.5
-                              ).astype(np.float32)).to(dev)
-        b = torch.from_numpy((rng.normal(size=(4 * f,)) * 0.1)
-                             .astype(np.float32)).to(dev)
+        x, k, b = _lstm_inputs(dev, cin, f, nb, size, cin, with_g=False)
         call = lambda: ops.convlstm_forward(x, k, b)  # noqa: E731
         out = call()
         deterministic = torch.equal(out, call())
@@ -907,7 +964,6 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
     forward kernel) and the echo sweep's stages (a) gates, (b) dinp, (c) dk
     and the slot reduction, each beside its bound. The entry reports the
     HMMA instructions `cuobjdump -sass` finds in each stage's kernel."""
-    import numpy as np
     import torch
     from ideal_gan_tpu_torch import ops
 
@@ -930,19 +986,10 @@ def convlstm_bwd_entry(dev, size: int = SIZE, shapes=LSTM_SHAPES) -> dict:
     for cin, f, nb, *sz in shapes:
         size = sz[0] if sz else default_size
         for kind in ("smooth", "negative", "random"):
-            rng = np.random.default_rng(10 + cin)
-            x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin))
-                                  * 0.5).astype(np.float32)).to(dev)
-            k = torch.from_numpy((rng.normal(size=(3, 3, cin + f, 4 * f))
-                                  * (2.0 / (9 * (cin + f))) ** 0.5
-                                  ).astype(np.float32)).to(dev)
-            b = torch.from_numpy((rng.normal(size=(4 * f,)) * 0.1)
-                                 .astype(np.float32)).to(dev)
+            x, k, b, g = _lstm_inputs(dev, cin, f, nb, size, 10 + cin)
             if kind in KINK_FREE:
                 k *= 0.1
                 b[2 * f:3 * f] = KINK_FREE[kind]
-            g = torch.from_numpy(rng.normal(size=(nb, size, size, f))
-                                 .astype(np.float32)).to(dev)
             got = ops.convlstm_backward(x, k, b, g)
             case = dict(cin=cin, F=f, ne=NE, nb=nb, size=size, inputs=kind,
                         **vs_plain(got, x, k, b, g))
@@ -1137,24 +1184,14 @@ def _bf16_gap(got, ref) -> dict:
 
 
 def _bf16_inputs(dev, cin, f, nb, size, seed, kink=None):
-    """convlstm_entry's (kink None) or convlstm_bwd_entry's kink-free
-    inputs in float32, and their bf16 roundings."""
-    import numpy as np
+    """convlstm_entry's (kink None: x, k, b) or convlstm_bwd_entry's
+    kink-free inputs (x, k, b, g) in float32 (`_lstm_inputs`), and their
+    bf16 roundings."""
     import torch
-    rng = np.random.default_rng(seed)
-    x = torch.from_numpy((rng.normal(size=(nb, NE, size, size, cin)) * 0.5)
-                         .astype(np.float32)).to(dev)
-    k = torch.from_numpy((rng.normal(size=(3, 3, cin + f, 4 * f))
-                          * (2.0 / (9 * (cin + f))) ** 0.5
-                          ).astype(np.float32)).to(dev)
-    b = torch.from_numpy((rng.normal(size=(4 * f,)) * 0.1)
-                         .astype(np.float32)).to(dev)
+    f32 = _lstm_inputs(dev, cin, f, nb, size, seed, with_g=kink is not None)
     if kink is not None:
-        k *= 0.1
-        b[2 * f:3 * f] = kink
-    g = torch.from_numpy(rng.normal(size=(nb, size, size, f))
-                         .astype(np.float32)).to(dev)
-    f32 = (x, k, b, g)
+        f32[1].mul_(0.1)
+        f32[2][2 * f:3 * f] = kink
     return f32, tuple(t.to(torch.bfloat16) for t in f32)
 
 
@@ -1189,8 +1226,7 @@ def convlstm_bf16_entries(dev, size: int = SIZE,
     fwd_cases, bwd_cases, default_size = [], [], size
     for cin, f, nb, *sz in shapes:
         size = sz[0] if sz else default_size
-        (x, k, b, _), (xb, kb, bb, _) = _bf16_inputs(dev, cin, f, nb, size,
-                                                     cin)
+        (x, k, b), (xb, kb, bb) = _bf16_inputs(dev, cin, f, nb, size, cin)
         call = lambda: ops.convlstm_forward(xb, kb, bb)  # noqa: E731
         out = call()
         deterministic = torch.equal(out, call())
@@ -2202,11 +2238,7 @@ def check_mag(mag: dict) -> None:
     served, chunks = mag["serve"]["launches"], mag["serve"]["chunks"]
     if served["ideal_mag_fit"] < chunks or served["convlstm_fwd"] < chunks:
         raise AssertionError(f"Mag serving skipped kernels: {served}")
-    bad = {name: (v["loss_rel_diff"], v["grad_max_rel"],
-                  max(v["metrics_rel_diff"].values()))
-           for name, v in mag["parity"].items()
-           if v["loss_rel_diff"] > 2e-5 or v["grad_max_rel"] > 2e-2
-           or max(v["metrics_rel_diff"].values()) > 2e-5}
+    bad = _parity_failures(mag["parity"])
     if bad:
         raise AssertionError(f"card and CPU mag steps disagree (loss, "
                              f"gradients, metrics): {bad}")
@@ -2469,24 +2501,54 @@ def _step_run(make_loss, nets, args, where, dtype=None):
                 metrics={k: float(v.detach()) for k, v in metrics.items()})
 
 
-def _parity(make_loss, nets, args, dev) -> dict:
-    """`_step_run` on `dev` and on the CPU compared (loss, metrics, every
-    gradient leaf), with both against the CPU's float64 witness."""
+# the step gates' plain tolerances (MODEL_PARITY.json's): the loss and
+# each metric relative to the CPU's, every gradient leaf of the global
+# scale (`_parity_failures`; `_gan_parity_failures` takes the loss and
+# metrics relative to max(|CPU|, 1), `_loss_gap`)
+STEP_LOSS_TOL = 2e-5
+STEP_GRAD_TOL = 2e-2
+
+
+def _loss_gap(x: float, ref: float) -> float:
+    return abs(x - ref) / max(abs(ref), 1.0)
+
+
+def _parity(make_loss, nets, args, dev, lazy_witness: bool = False) -> dict:
+    """`_step_run` on `dev` and on the CPU compared (`_parity_of`: loss,
+    metrics, every gradient leaf), with both against the CPU's float64
+    witness. With `lazy_witness` the witness runs only where the card is
+    past the plain tolerances (STEP_LOSS_TOL of the loss and of each
+    metric, STEP_GRAD_TOL of the gradients' scale), its fields None
+    otherwise, where no gate reads them (`_parity_failures` never does,
+    `_gan_parity_failures` only past the same tolerances)."""
     import torch
     cpu = torch.device("cpu")
-    return _parity_of(_step_run(make_loss, nets, args, dev),
-                      _step_run(make_loss, nets, args, cpu),
+    card = _step_run(make_loss, nets, args, dev)
+    ref = _step_run(make_loss, nets, args, cpu)
+    if lazy_witness:
+        plain = _parity_of(card, ref, None)
+        if plain["loss_rel_diff"] <= STEP_LOSS_TOL \
+                and plain["grad_max_rel"] <= STEP_GRAD_TOL \
+                and all(d <= STEP_LOSS_TOL
+                        for d in plain["metrics_rel_diff"].values()):
+            return plain
+    return _parity_of(card, ref,
                       _step_run(make_loss, nets, args, cpu, torch.float64))
 
 
-def _parity_of(card: dict, ref: dict, ref64: dict) -> dict:
+def _parity_of(card: dict, ref: dict, ref64: dict | None) -> dict:
     """`_parity`'s comparison of three `_step_run`s: the card's, the CPU's
-    and the CPU's float64 witness; the loss's and the metrics' relative
-    distances from the witness too (`loss_vs_f64`, `metrics_vs_f64`)."""
+    and the CPU's float64 witness (None: no witness, its fields None); the
+    loss's and the metrics' relative distances from the witness too
+    (`loss_vs_f64`, `metrics_vs_f64`)."""
     res = _compare(card, ref)
     res["metrics"], res["metrics_ref"] = card["metrics"], ref["metrics"]
     res["metrics_rel_diff"] = {k: _rel_diff(v, ref["metrics"][k])
                                for k, v in card["metrics"].items()}
+    if ref64 is None:
+        res.update(vs_cpu_float64=None, loss_f64=None, metrics_f64=None,
+                   loss_vs_f64=None, metrics_vs_f64=None)
+        return res
     res["vs_cpu_float64"] = {"card": _compare(card, ref64)["grad_max_rel"],
                              "cpu": _compare(ref, ref64)["grad_max_rel"]}
     res["loss_f64"], res["metrics_f64"] = ref64["loss"], ref64["metrics"]
@@ -2506,8 +2568,9 @@ def _parity_failures(parity: dict) -> dict:
     return {name: (v["loss_rel_diff"], v["grad_max_rel"],
                    max(v["metrics_rel_diff"].values()))
             for name, v in parity.items()
-            if v["loss_rel_diff"] > 2e-5 or v["grad_max_rel"] > 2e-2
-            or max(v["metrics_rel_diff"].values()) > 2e-5}
+            if v["loss_rel_diff"] > STEP_LOSS_TOL
+            or v["grad_max_rel"] > STEP_GRAD_TOL
+            or max(v["metrics_rel_diff"].values()) > STEP_LOSS_TOL}
 
 
 # the sup phase's card-vs-CPU steps: the JAX DEFAULTS (multi-decod, out_vars
@@ -4204,25 +4267,25 @@ def _gan_parity_failures(parity: dict) -> dict:
     of its error; gradients 2e-2 of scale) whose card value is also
     outside the float64 envelope: farther from the float64 witness than
     the tolerance and than `GAN_ENVELOPE` times the CPU."""
-    def gap(x, ref):
-        return abs(x - ref) / max(abs(ref), 1.0)
-
     out = {}
     for name, v in parity.items():
         def outside(card, cpu, f64, tol):
-            return gap(card, cpu) > tol and gap(card, f64) > max(
-                tol, GAN_ENVELOPE * gap(cpu, f64))
+            # no witness (f64 None) only where the plain tolerance held
+            return _loss_gap(card, cpu) > tol and (
+                f64 is None or _loss_gap(card, f64) > max(
+                    tol, GAN_ENVELOPE * _loss_gap(cpu, f64)))
         bad = []
-        if outside(v["loss"], v["loss_ref"], v["loss_f64"], 2e-5):
+        if outside(v["loss"], v["loss_ref"], v["loss_f64"], STEP_LOSS_TOL):
             bad.append("loss")
         vs64 = v["vs_cpu_float64"]
-        if v["grad_max_rel"] > 2e-2 and vs64["card"] > max(
-                2e-2, GAN_ENVELOPE * vs64["cpu"]):
+        if v["grad_max_rel"] > STEP_GRAD_TOL and (vs64 is None or vs64[
+                "card"] > max(STEP_GRAD_TOL, GAN_ENVELOPE * vs64["cpu"])):
             bad.append("gradients")
         bad += [k for k, x in v["metrics"].items()
-                if outside(x, v["metrics_ref"][k], v["metrics_f64"][k],
+                if outside(x, v["metrics_ref"][k],
+                           (v["metrics_f64"] or {}).get(k),
                            GAN_PERCEPTUAL_TOL if k == "A2B2A_cycle_loss"
-                           and "perceptual" in v else 2e-5)]
+                           and "perceptual" in v else STEP_LOSS_TOL)]
         if bad:
             out[name] = bad
     return out
@@ -5541,6 +5604,588 @@ def parallel_phase(dev, out_dir: Path, size: int = SIZE,
     return out
 
 
+# ---------------------------------------------------------------------------
+# rest: the last modules of the port (Flipout decoders, CriticZ, SGAN, the
+# gradient penalty, the complex U-Net, InceptionV3, cli.test_gradients and
+# --debug_nans)
+# ---------------------------------------------------------------------------
+
+# card vs CPU on the same weights, inputs and noise (TF32 off): an output
+# passes within this share of its CPU scale, or else where the card is no
+# farther from a float64 witness than this share and GAN_ENVELOPE times the
+# CPU's own distance from it (the witness runs only then)
+REST_TOL = 1e-4
+# cli.test_gradients' one loss and gradient: the field-map net's forward
+# (6 echo launches, no gradient), the R2* net's forward (6) and its backward
+# (the state recompute's 5 forward launches and 7 backward launches, as in
+# DP_PAIR_LAUNCHES' half), one cycle
+TEST_GRADIENTS_LAUNCHES = {"ideal_cycle": 1, "convlstm_fwd": 17,
+                           "convlstm_bwd": 7}
+
+
+class _Recorder:
+    """A noise source (`prob.noise`) drawing float32 values from a seeded CPU
+    generator and keeping them, so that `prob.Replay(self.draws)` hands the
+    same draws to another run (on the card, or in float64)."""
+
+    def __init__(self, seed: int):
+        import torch
+        from ideal_gan_tpu_torch.prob import GeneratorNoise
+        self._src = GeneratorNoise(torch.Generator().manual_seed(seed))
+        self._like = torch.zeros(())
+        self.draws = []
+
+    def _draw(self, kind, shape, like):
+        v = getattr(self._src, kind)(shape, self._like)
+        self.draws.append((kind, v.numpy()))
+        return v.to(dtype=like.dtype, device=like.device)
+
+    def normal(self, shape, like):
+        return self._draw("normal", shape, like)
+
+    def rademacher(self, shape, like):
+        return self._draw("rademacher", shape, like)
+
+    def uniform(self, shape, like):
+        return self._draw("uniform", shape, like)
+
+
+def _f64(x):
+    import torch
+    return x.to(torch.complex128 if x.is_complex() else torch.float64)
+
+
+def _max_gap(got, ref) -> float:
+    """max over the outputs of max |got − ref| / max |ref|, on `got`'s
+    device (the CPU's outputs copied to the card: the card reduces the
+    large ones in a fraction of the CPU's time)."""
+    return max(_rel(g.detach().to(r.dtype), r.detach().to(g.device))
+               for g, r in zip(got, ref))
+
+
+def _cpu_run(module, call, inputs, noise):
+    """`call` on the CPU on a copy of `module`, without gradients: (its
+    outputs, its seconds)."""
+    import copy
+
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = call(copy.deepcopy(module), *inputs, noise)
+    return out, time.perf_counter() - t0
+
+
+def _card_run(dev, module, call, inputs, draws):
+    """`call` on `dev` on a copy of `module` and `inputs` with `draws`
+    replayed (TF32 off): the checked outputs (some are the copy's running
+    statistics, so no other call may run on that copy)."""
+    import copy
+
+    from ideal_gan_tpu_torch.prob import Replay
+    return call(copy.deepcopy(module).to(dev), *[x.to(dev) for x in inputs],
+                Replay(draws))
+
+
+def _card_times(dev, module, call, inputs, draws) -> dict:
+    """On the card, the ms of one `call` with TF32 off (`ms`) and with TF32
+    on (`ms_tf32`, PyTorch's default): CUDA events around one call on a
+    fresh copy of `module`, after a warm-up call on that copy (cuDNN's
+    algorithm choice and FFT plans are made there); None on the CPU."""
+    import copy
+
+    from ideal_gan_tpu_torch.prob import Replay
+    if dev.type != "cuda":
+        return dict(ms=None, ms_tf32=None)
+    args = [x.to(dev) for x in inputs]
+    times = {}
+    for key, tf32 in (("ms", False), ("ms_tf32", True)):
+        timed = copy.deepcopy(module).to(dev)
+        set_tf32(tf32)
+        try:
+            times[key] = time_ms(lambda: call(timed, *args, Replay(draws)),
+                                 dev, iters=1, warmup=1)
+        finally:
+            set_tf32(False)
+    return times
+
+
+def _witness(module, call, inputs, draws):
+    """`call` in float64 on the CPU with `draws` replayed, as `_parity`'s
+    witness: a reference that shares nothing with the card's run."""
+    import copy
+
+    from ideal_gan_tpu_torch.prob import Replay
+    return call(copy.deepcopy(module).double(), *[_f64(x) for x in inputs],
+                Replay(draws))
+
+
+def _gap_record(card, times: dict, cpu, cpu_s: float, n_draws: int,
+                witness) -> dict:
+    """The card's gap to the CPU (`_max_gap`), its times (`_card_times`),
+    the CPU's seconds, and where the gap is past REST_TOL and `witness` is
+    given, both runs' gaps to the float64 outputs `witness()`."""
+    out = dict(gap=_max_gap(card, cpu), **times, cpu_seconds=cpu_s,
+               n_draws=n_draws, shape=list(cpu[0].shape), vs_float64=None)
+    if out["gap"] > REST_TOL and witness is not None:
+        t0 = time.perf_counter()
+        wit = witness()
+        out["vs_float64"] = {"card": _max_gap(card, wit),
+                             "cpu": _max_gap(cpu, wit),
+                             "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _module_fails(r: dict) -> bool:
+    """Past REST_TOL of the CPU and outside the float64 envelope: farther
+    from the CPU's float64 witness than REST_TOL and than GAN_ENVELOPE
+    times the CPU (failing where no witness was run)."""
+    if r["gap"] <= REST_TOL:
+        return False
+    vs = r["vs_float64"]
+    return vs is None or vs["card"] > max(REST_TOL, GAN_ENVELOPE * vs["cpu"])
+
+
+# the rest modules held to REST_TOL of the CPU with no float64 envelope
+REST_PLAIN = ("inception_v3",)
+# PMComplex's complex max-pools in the rest phase's check: 4 levels, in
+# its train call and in its eval call
+PM_POOLS = 8
+
+_POOL_ROUTER = threading.local()
+
+
+class _PoolRoutes:
+    """Stands in for `complexnn.complex_max_pool_2x2` on the thread that
+    sets it (`_routed`). With no `record` it routes each window as the
+    port's function does (checked equal to it) and keeps, call by call,
+    the windows' |z| and the chosen element on the CPU. Given a `record`
+    (the card's), each call takes the recorded routes instead and notes the
+    windows whose own argmax would route elsewhere (`flipped`; of them,
+    where its own maximum is an exact tie, `flipped_at_ties`), by how much
+    its own maximum beats the recorded choice (`max_deficit`), and how far
+    its |z| lies from the recorded |z| (`delta`), both over the largest
+    |z| of the call. A flip with a deficit within 2·delta is a near-tie
+    that the two runs' rounding decides."""
+
+    def __init__(self, record=None):
+        self.record = record
+        self.calls = []
+
+    def __call__(self, z, port):
+        import torch
+        b, c, h, w = z.shape
+        # the port's window order: (dx, dy), down each column in turn
+        win = z.reshape(b, c, h // 2, 2, w // 2, 2).permute(
+            0, 1, 2, 4, 5, 3).reshape(b, c, h // 2, w // 2, 4)
+        mag = win.abs()
+        own = mag.argmax(-1, keepdim=True)
+        if self.record is None:
+            out = win.gather(-1, own)[..., 0]
+            if not torch.equal(out, port(z)):
+                raise AssertionError("the recorded max-pool routes are not "
+                                     "the port's")
+            self.calls.append((mag.cpu(), own.cpu()))
+            return out
+        rec_mag, rec_idx = self.record[len(self.calls)]
+        rec_idx = rec_idx.to(z.device)
+        scale = float(mag.max())
+        top = mag.gather(-1, own)
+        flip = own != rec_idx
+        tied = (mag == top).sum(-1, keepdim=True) > 1
+        self.calls.append(dict(
+            windows=own.numel(), flipped=int(flip.sum()),
+            flipped_at_ties=int((flip & tied).sum()),
+            max_deficit=float((top - mag.gather(-1, rec_idx)).max()) / scale,
+            delta=float((mag - rec_mag.to(mag)).abs().max()) / scale))
+        return win.gather(-1, rec_idx)[..., 0]
+
+    def summary(self) -> dict | None:
+        """The flips of a run that took a record's routes (None where the
+        run pooled nothing)."""
+        if not self.calls:
+            return None
+        return dict(pools=len(self.calls),
+                    windows=sum(c["windows"] for c in self.calls),
+                    flipped=[c["flipped"] for c in self.calls],
+                    flipped_at_ties=[c["flipped_at_ties"]
+                                     for c in self.calls],
+                    max_deficit=max(c["max_deficit"] for c in self.calls),
+                    max_delta=max(c["delta"] for c in self.calls))
+
+
+@contextlib.contextmanager
+def _pool_dispatch():
+    """`complexnn.complex_max_pool_2x2` replaced, while the block runs, by
+    one that hands each call to the calling thread's `_PoolRoutes`
+    (`_routed`) where it has one, else to the port's function."""
+    from ideal_gan_tpu_torch.models import complexnn
+    port = complexnn.complex_max_pool_2x2
+
+    def dispatch(z):
+        routes = getattr(_POOL_ROUTER, "routes", None)
+        return port(z) if routes is None else routes(z, port)
+
+    complexnn.complex_max_pool_2x2 = dispatch
+    try:
+        yield
+    finally:
+        complexnn.complex_max_pool_2x2 = port
+
+
+@contextlib.contextmanager
+def _routed(routes: _PoolRoutes):
+    _POOL_ROUTER.routes = routes
+    try:
+        yield routes
+    finally:
+        _POOL_ROUTER.routes = None
+
+
+def _with_kl(out, module):
+    from ideal_gan_tpu_torch import models
+    return [out, models.kl_sum(module).reshape(1)]
+
+
+def rest_modules(dev, size: int = SIZE, gan_size: int = GAN_SIZE,
+                 f: int = F_MAIN, num_layers: int = 4, latent: int = 258,
+                 sgan_filters: int = 32, sgan_batch: int = NB_SERVE,
+                 pm_filters: int = 72, inception_size: int = 139) -> dict:
+    """The rest phase's modules on `dev` against the CPU (`_gap_record`), at
+    the widths their callers use: BayesDecoder and Decoder(bayes_layer) at
+    the GAN's DEFAULTS (latent (1, gan_size/2^L, ., latent), F, L levels),
+    train (stochastic) and eval, with their KL sums; CriticZ (64, 3
+    levels) on that latent; SGAN (sgan_filters, 5 layers) in train mode on
+    `sgan_batch` × 6 folded echoes at size² with its running statistics;
+    PMComplex (pm_filters, 4 levels) at size², batch 2, train (with its
+    running statistics) then eval, its CPU and float64 runs taking the
+    card's max-pool routes (`_PoolRoutes`: the flips counted);
+    InceptionV3 features of `sgan_batch` × 6 echoes through
+    `echoes_to_inception_input` at inception_size²."""
+    import torch
+    from ideal_gan_tpu_torch import models
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.eval import inception
+
+    gen = torch.Generator().manual_seed(11)
+    lat = gan_size // 2 ** num_layers
+    z = torch.randn(1, lat, lat, latent, generator=gen)
+    bayes = models.BayesDecoder(latent, filters=f, num_layers=num_layers)
+    head = models.Decoder(latent, 2, filters=f, num_layers=num_layers,
+                          bayes_layer=True)
+    critic = models.CriticZ(latent, dim=64, n_downsamplings=3)
+    for m in (bayes, head, critic):
+        m.init_params(gen)
+    acqs, _, _ = synthetic_dataset(sgan_batch, h=size, w=size, ne=NE, seed=4)
+    echoes = torch.from_numpy(acqs)
+    sgan = models.SGAN(2, num_filters=sgan_filters, num_layers=5)
+    sgan.init_params(gen)
+    cx = torch.complex(echoes[:2, ..., 0], echoes[:2, ..., 1]).permute(
+        0, 2, 3, 1).contiguous()  # (2, H, W, ne) complex64
+    pm = models.PMComplex(NE, filters=pm_filters, num_layers=4)
+    pm.init_params(gen)
+    inc = inception.init_inception_v3()
+
+    def dec(train):
+        return lambda m, x, noise: _with_kl(m(x, train=train, noise=noise), m)
+
+    def sgan_call(m, x, noise):
+        feats = m(x.reshape((-1,) + tuple(x.shape[2:])), train=True)
+        return feats + [m.norms[i].running_mean for i in range(5)] \
+            + [m.norms[i].running_var for i in range(5)]
+
+    def pm_call(m, x, noise):
+        out = m(x, train=True)
+        return [out, *m.buffers(), m(x, train=False)]
+
+    def inc_call(m, x, noise):
+        return [m(inception.echoes_to_inception_input(x, inception_size))]
+
+    out = {}
+    # the stochastic modules: the CPU first, its draws replayed on the card
+    drawn = {"bayes_decoder_train": (bayes, dec(True), 21),
+             "bayes_decoder_eval": (bayes, dec(False), 22),
+             "decoder_bayes_head_train": (head, dec(True), 23),
+             "decoder_bayes_head_eval": (head, dec(False), 24),
+             "critic_z": (critic, lambda m, x, noise: [m(x)], 25)}
+    with torch.no_grad():
+        for name, (m, call, seed) in drawn.items():
+            rec = _Recorder(seed)
+            cpu, cpu_s = _cpu_run(m, call, [z], rec)
+            out[name] = _gap_record(
+                _card_run(dev, m, call, [z], rec.draws),
+                _card_times(dev, m, call, [z], rec.draws), cpu, cpu_s,
+                len(rec.draws),
+                lambda m=m, call=call, rec=rec: _witness(m, call, [z],
+                                                         rec.draws))
+    # the large ones draw nothing. PMComplex runs on the card first, its
+    # max-pool routes recorded; then the CPU runs (most of the phase) go to
+    # a worker thread, PMComplex's on the card's routes, while the card
+    # runs the others and times all three
+    big = {"sgan_train": (sgan, sgan_call, [echoes]),
+           "pm_complex": (pm, pm_call, [cx]),
+           "inception_v3": (inc, inc_call, [echoes])}
+    with torch.no_grad(), _pool_dispatch(), ThreadPoolExecutor(1) as pool:
+        with _routed(_PoolRoutes()) as card_routes:
+            cards = {"pm_complex": _card_run(dev, pm, pm_call, [cx], [])}
+
+        def pinned(run, *args):
+            with _routed(_PoolRoutes(card_routes.calls)) as routes:
+                return run(*args), routes.summary()
+
+        cpus = {n: pool.submit(pinned, _cpu_run, m, c, x, None)
+                for n, (m, c, x) in big.items()}
+        for n, (m, c, x) in big.items():
+            if n not in cards:
+                cards[n] = _card_run(dev, m, c, x, [])
+        times = {n: _card_times(dev, m, c, x, [])
+                 for n, (m, c, x) in big.items()}
+        for n, (m, c, x) in big.items():
+            (cpu, cpu_s), routes = cpus[n].result()
+            wit = None if n in REST_PLAIN else (
+                lambda m=m, c=c, x=x: pinned(_witness, m, c, x, [])[0])
+            out[n] = _gap_record(cards[n], times[n], cpu, cpu_s, 0, wit)
+            if routes is not None:
+                out[n]["pool_routes"] = routes
+    return out
+
+
+def rest_gradient_penalty(dev, size: int = GAN_SIZE, f: int = F_MAIN,
+                          d: int = D_GAN) -> dict:
+    """`losses.gradient_penalty` in wgan-gp and dragan modes through the
+    GAN's PatchGAN (its DEFAULTS, `d` wide) on a batch of one slice's 6
+    echoes at size², on `dev` and on the CPU with the same α (and β) drawn
+    once (`_parity`, its witness lazy): the penalty and the gradient of the
+    critic's double backward."""
+    import numpy as np
+    import torch
+    from ideal_gan_tpu_torch import losses
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.prob import Replay
+    from ideal_gan_tpu_torch.train import gan
+
+    cfg = _gan_cfg(size, f, 1, 1, d=d)
+    acqs, _, _ = synthetic_dataset(1, h=size, w=size, ne=NE, seed=5)
+    rng = np.random.default_rng(6)
+    real = torch.from_numpy(acqs)
+    fake = torch.from_numpy((0.9 * acqs + 0.02 * rng.normal(
+        size=acqs.shape)).astype(np.float32))
+    disc = gan.build_models(cfg).disc
+    disc.init_params(torch.Generator().manual_seed(7))
+    alpha = rng.uniform(size=(1, 1, 1, 1, 1)).astype(np.float32)
+    beta = rng.uniform(size=acqs.shape).astype(np.float32)
+    out = {}
+    for mode, draws in (("wgan-gp", [("uniform", alpha)]),
+                        ("dragan", [("uniform", beta), ("uniform", alpha)])):
+        def make(critic, mode=mode, draws=draws):
+            def loss(r, fk):
+                gp = losses.gradient_penalty(
+                    lambda x: critic(x, update_stats=False), r, fk, mode,
+                    Replay(draws))
+                return gp, {}
+            return loss
+        out[mode] = _parity(make, (disc,), (real, fake), dev,
+                            lazy_witness=True)
+        tdisc = disc.to(dev)
+        args = (real.to(dev), fake.to(dev))
+
+        def step(mode=mode, draws=draws):
+            tdisc.zero_grad()
+            make(tdisc, mode, draws)(*args)[0].backward()
+
+        out[mode]["ms"] = time_ms(step, dev, iters=3, warmup=1)
+        disc.cpu()
+    return out
+
+
+def _tg_flags(dev, out_dir: Path, size: int, over=()) -> list:
+    flags = dict(synthetic=2, data_size=size, device=str(dev),
+                 output_base=str(out_dir), **dict(over))
+    return [x for k, v in flags.items() for x in (f"--{k}", str(v))]
+
+
+def rest_test_gradients(dev, out_dir: Path, size: int = SIZE,
+                        f: int = F_MAIN, downsample: int = 8) -> dict:
+    """`cli.test_gradients.main` on `dev` at its DEFAULTS (F=8, every
+    `downsample`-th pixel of 2 synthetic size² slices) and at F=`f` with
+    `--downsample 1`, each counted; then each configuration's loss and R2*
+    gradient on `dev` and on the CPU from the same weights and batch
+    (`_parity`)."""
+    import torch
+    from ideal_gan_tpu_torch.cli import test_gradients as tg
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import unsup
+
+    out = {}
+    for name, over in (("defaults", {"downsample": downsample}),
+                       (f"f{f}_full", {"n_G_filters": f, "downsample": 1})):
+        argv = _tg_flags(dev, out_dir, size, over)
+        res, wall, launches = counted(dev, lambda: tg.main(argv))
+        cfg = dict(tg.DEFAULTS, **over)
+        g_fm, g_r2 = unsup.build_models(tg.unsup_config(cfg))
+        gen = torch.Generator().manual_seed(0)
+        g_fm.init_params(gen)
+        g_r2.init_params(gen)
+        acqs, _, te = synthetic_dataset(2, h=size, w=size, ne=NE)
+        ds = cfg["downsample"]
+        A = torch.from_numpy(acqs[:, :, ::ds, ::ds].copy())
+
+        def make(r2, fm, cfg=cfg):
+            fn = tg.make_loss_fn(cfg, fm, r2)
+            return lambda a, t: (fn(a, t), {})
+
+        parity = _parity(make, (g_r2, g_fm), (A, torch.from_numpy(te)),
+                         dev, lazy_witness=True)
+        out[name] = dict(loss=res["loss"], max_grad=res["max_grad"],
+                         finite=all(bool(torch.isfinite(g).all())
+                                    for g in res["grads"].values()),
+                         seconds=wall, launches=launches, parity=parity,
+                         size=A.shape[-2])
+    return out
+
+
+def rest_debug_nans(dev, out_dir: Path, size: int = SIZE,
+                    downsample: int = 8) -> dict:
+    """`--debug_nans 1`: cli.test_gradients at its DEFAULTS (every
+    `downsample`-th pixel) with and without the flag (the same loss), then
+    the harness's loss and gradient on `dev` under the sanitizer with a NaN
+    in the R2* head's weight, which must raise at the head's convolution,
+    forward; then the ConvLSTM forward and backward wrappers at the
+    harness's shapes under the sanitizer with a NaN in an input, which
+    must raise naming the kernel (on the CPU, the plain version's op)."""
+    import torch
+    from ideal_gan_tpu_torch import ops
+    from ideal_gan_tpu_torch.cli import test_gradients as tg
+    from ideal_gan_tpu_torch.cli.common import synthetic_dataset
+    from ideal_gan_tpu_torch.train import unsup
+    from ideal_gan_tpu_torch.utils import nans
+
+    ds = {"downsample": downsample}
+    plain = tg.main(_tg_flags(dev, out_dir, size, ds))
+    t0 = time.perf_counter()
+    try:
+        checked = tg.main(_tg_flags(dev, out_dir, size,
+                                    {**ds, "debug_nans": 1}))
+        on = nans.debug_nans_enabled()
+    finally:
+        nans.set_debug_nans(False)
+    checked_s = time.perf_counter() - t0
+    cfg = dict(tg.DEFAULTS, **ds)
+    g_fm, g_r2 = unsup.build_models(tg.unsup_config(cfg))
+    gen = torch.Generator().manual_seed(0)
+    for net in (g_fm, g_r2):
+        net.init_params(gen)
+        net.to(dev)
+    with torch.no_grad():
+        g_r2.head.weight[0, 0, 0, 0] = float("nan")
+    acqs, _, te = synthetic_dataset(2, h=size, w=size, ne=NE)
+    ds = cfg["downsample"]
+    A = torch.from_numpy(acqs[:, :, ::ds, ::ds].copy()).to(dev)
+
+    def raised(fn):
+        try:
+            with nans.DebugNaNs():
+                fn()
+        except FloatingPointError as e:
+            return str(e)
+        return None
+
+    error = raised(lambda: tg.grad_check(cfg, g_fm, g_r2, A,
+                                         torch.from_numpy(te).to(dev)))
+    # a NaN in the ConvLSTM kernels' inputs at the harness's shapes (x, and
+    # the backward's dL/dh), made before the sanitizer is on: no ATen op
+    # computes a NaN before the kernel does
+    f = cfg["n_G_filters"]
+    gen = torch.Generator().manual_seed(3)
+    x, k, b, g = (torch.randn(*s, generator=gen).to(dev) for s in (
+        (A.shape[0], NE, A.shape[2], A.shape[3], 2), (3, 3, 2 + f, 4 * f),
+        (4 * f,), (A.shape[0], A.shape[2], A.shape[3], f)))
+    x_nan, g_nan = x.clone(), g.clone()
+    x_nan[0, 1, 2, 3, 0] = float("nan")
+    g_nan[0, 2, 3, 0] = float("nan")
+    return dict(loss=plain["loss"], loss_checked=checked["loss"],
+                same_loss=plain["loss"] == checked["loss"],
+                flag_was_on=on, seconds_checked=checked_s, nan_error=error,
+                kernel_nan_errors={
+                    "convlstm_fwd": raised(lambda: ops.convlstm_forward(
+                        x_nan, k, b)),
+                    "convlstm_bwd": raised(lambda: ops.convlstm_backward(
+                        x, k, b, g_nan))})
+
+
+def rest_phase(dev, out_dir: Path, size: int = SIZE,
+               gan_size: int = GAN_SIZE, f: int = F_MAIN, d: int = D_GAN,
+               num_layers: int = 4, latent: int = 258,
+               sgan_filters: int = 32, sgan_batch: int = NB_SERVE,
+               pm_filters: int = 72, inception_size: int = 139,
+               downsample: int = 8) -> dict:
+    """The rest phase (module docstring), TF32 off: `rest_modules`,
+    `rest_gradient_penalty`, `rest_test_gradients`, `rest_debug_nans`, with
+    the seconds of each."""
+    set_tf32(False)
+    parts = {
+        "modules": lambda: rest_modules(
+            dev, size, gan_size, f, num_layers, latent, sgan_filters,
+            sgan_batch, pm_filters, inception_size),
+        "gradient_penalty": lambda: rest_gradient_penalty(dev, gan_size, f,
+                                                          d),
+        "test_gradients": lambda: rest_test_gradients(dev, out_dir, size, f,
+                                                      downsample),
+        "debug_nans": lambda: rest_debug_nans(dev, out_dir, size,
+                                              downsample)}
+    out, secs = {}, {}
+    for name, run in parts.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        secs[name] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    return out
+
+
+def check_rest(r: dict, on_card: bool = True) -> None:
+    """The rest phase's gates: every module within REST_TOL of the CPU or
+    inside the envelope of the CPU's float64 witness (`_module_fails`;
+    REST_PLAIN within REST_TOL alone), PMComplex's CPU run on the card's
+    routes in all PM_POOLS max-pools; the penalties and cli.test_gradients'
+    steps within `_gan_parity_failures`' rule (loss 2e-5, gradients 2e-2
+    of scale, or the float64 envelope); the harness's gradients finite and
+    non-zero and its launches exactly TEST_GRADIENTS_LAUNCHES (on the
+    card); --debug_nans: the same loss, a NaN named at the convolution,
+    the NaNs in the ConvLSTM kernels' inputs caught (on the card, named at
+    the kernel)."""
+    bad = {k: v for k, v in r["modules"].items()
+           if (v["gap"] > REST_TOL if k in REST_PLAIN else _module_fails(v))}
+    if bad:
+        raise AssertionError(f"card and CPU modules disagree: {bad}")
+    routes = r["modules"]["pm_complex"].get("pool_routes")
+    if routes is None or routes["pools"] != PM_POOLS:
+        raise AssertionError(f"PMComplex's CPU run took the card's routes "
+                             f"in {routes} of its {PM_POOLS} max-pools")
+    fails = _gan_parity_failures(dict(r["gradient_penalty"]))
+    fails.update(_gan_parity_failures(
+        {k: v["parity"] for k, v in r["test_gradients"].items()}))
+    if fails:
+        raise AssertionError(f"card and CPU steps disagree: {fails}")
+    for name, run in r["test_gradients"].items():
+        if not run["finite"] or not run["max_grad"] > 0:
+            raise AssertionError(f"test_gradients {name}: gradients not "
+                                 f"finite or all zero: {run['max_grad']}")
+        want = dict.fromkeys(run["launches"], 0)
+        if on_card:
+            want.update(TEST_GRADIENTS_LAUNCHES)
+        if run["launches"] != want:
+            raise AssertionError(f"test_gradients {name} launched "
+                                 f"{run['launches']}, not {want}")
+    dn = r["debug_nans"]
+    if not dn["flag_was_on"] or abs(dn["loss"] - dn["loss_checked"]) > \
+            1e-6 * abs(dn["loss"]) or not dn["nan_error"] \
+            or "convolution" not in dn["nan_error"]:
+        raise AssertionError(f"--debug_nans: {dn}")
+    for name, error in dn["kernel_nan_errors"].items():
+        if not error or on_card and f"the {name} kernel" not in error:
+            raise AssertionError(f"--debug_nans missed the NaN in {name}'s "
+                                 f"input: {error}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5568,6 +6213,7 @@ def main() -> int:
     kernels = [fit_entry(dev), convlstm_entry(dev), cycle_entry(dev),
                convlstm_bwd_entry(dev), forward_entry(dev), mag_fit_entry(dev),
                *convlstm_bf16_entries(dev)]
+    _LSTM_INPUTS.clear()
     batch_elementwise = convlstm_batch_elementwise(dev)
     per_voxel = per_voxel_batch_elementwise(dev)
     emit("kernels", card=smi, seconds=time.perf_counter() - t0,
@@ -5740,6 +6386,17 @@ def main() -> int:
     print(f"parallel ({smi}): {par['device_count']} card(s); data-parallel "
           f"backend {dp['backend']} on {dp['devices']}; serving split maps "
           f"max |diff| {par['serving_split']['maps_max_abs_diff']:.3e}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        rest = rest_phase(dev, Path(tmp))
+    emit("rest", card=smi, seconds=time.perf_counter() - t0, **rest)
+    check_rest(rest)
+    print(f"rest ({smi}): card vs CPU, share of scale: " + ", ".join(
+        f"{k} {v['gap']:.2e}" for k, v in rest["modules"].items())
+        + "; PMComplex's max-pool flips on the card's routes "
+        + str(rest["modules"]["pm_complex"]["pool_routes"]["flipped"])
+        + "; test_gradients losses " + ", ".join(
+        f"{k} {v['loss']:.6f}" for k, v in rest["test_gradients"].items()))
     path_of = {"ideal_fit": e2e, "convlstm_fwd": e2e, "ideal_cycle": train,
                "convlstm_bwd": train, "ideal_forward": teaug,
                "ideal_mag_fit": mag,
@@ -5771,7 +6428,9 @@ def main() -> int:
                  **{f"parallel_dp_rank{r}_pair{i + 1}": {"launches": ln}
                     for r, rank in enumerate(dp["launches"])
                     for i, ln in enumerate(rank)},
-                 "parallel_serving_split": par["serving_split"]}
+                 "parallel_serving_split": par["serving_split"],
+                 **{f"rest_test_gradients_{k}": v
+                    for k, v in rest["test_gradients"].items()}}
     for k in kernels:
         k["launches"] = path_of[k["name"]]["launches"][k["name"]]
         k["launches_on_new_paths"] = {p: run["launches"][k["name"]]

@@ -4,8 +4,8 @@ trip (`utils.config`), device resolution, and the cohorts: the HDF5 files of
 DICOM and NIfTI folders).
 
 Counterpart of `ideal_gan_tpu/cli/common.py`. Its `compile_cache` flag is
-XLA's and has no counterpart; `debug_nans` is not ported yet (ROADMAP
-Queue 1 item 7b). Under the `torch.distributed.run` launcher
+XLA's and has no counterpart; `--debug_nans 1` turns on the NaN sanitizer
+(`utils.nans`). Under the `torch.distributed.run` launcher
 `setup_experiment` joins the process group first and `resolve_device`
 gives each rank its own card.
 """
@@ -20,6 +20,7 @@ import torch
 
 from .. import physics
 from ..utils import Config, parse_flags
+from ..utils.nans import set_debug_nans
 
 
 def setup_experiment(defaults: dict, argv=None,
@@ -29,14 +30,17 @@ def setup_experiment(defaults: dict, argv=None,
     without a launcher; the backend follows `--device`) before any device
     is used, create <output_base>/<dataset>/ and write the settings there as
     YAML, on rank 0 only (downstream tools name their own file so they
-    never clobber the training run's `settings.yml`)."""
+    never clobber the training run's `settings.yml`). `--debug_nans` sets
+    the NaN sanitizer (`utils.nans.set_debug_nans`) on or off for the
+    run."""
     from ..parallel import initialize_distributed
     from ..parallel.mesh import world
 
     base = {"data_size": 192, "synthetic": 0, "dataset_dir": "../datasets/",
-            "output_base": "output", "profile_dir": "", "device": "cuda",
-            "seed": 0}
+            "output_base": "output", "debug_nans": False, "profile_dir": "",
+            "device": "cuda", "seed": 0}
     cfg = parse_flags({**base, **defaults}, argv)
+    set_debug_nans(bool(cfg["debug_nans"]))
     initialize_distributed(device=torch.device(cfg["device"]).type)
     out_dir = Path(cfg["output_base"]) / cfg["dataset"]
     out_dir.mkdir(parents=True, exist_ok=True)

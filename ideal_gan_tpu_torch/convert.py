@@ -25,6 +25,15 @@ converters (`unet`, `vetnet`, `mdwfnet`, `single`, the GAN trainer's
 
 - The LDM's channel LayerNorm parameters (1, 1, 1, C) → (1, C, 1, 1); Flax
   `Embed` tables keep their (num_classes, dim) layout.
+- Flipout kernels (μ and log σ, HWIO) → the convolution layout; Flax
+  `BatchNorm` batch_stats (mean, var) → `running_mean`, `running_var`;
+  the complex batch norm's batch_stats keep their names; a complex
+  convolution's `w_real` / `w_imag` planes are convolution kernels, its
+  transpose one's flipped transpose kernels.
+
+The Bayesian decoders (`flipout`, `decoder` with `bayes_layer`,
+`bayes_decoder`), `critic_z`, `sgan`, `pm_complex` and `inception_v3`
+check every leaf too.
 """
 
 from __future__ import annotations
@@ -255,11 +264,32 @@ def encoder(p: dict, num_layers: int, num_res_blocks: int) -> dict:
     return _checked(p, sd)
 
 
+def flipout(p: dict, prefix: str = "") -> dict:
+    """State dict of `models.FlipoutConv` from the Flax `FlipoutConv`
+    params (kernel_mean, kernel_log_sigma HWIO; bias)."""
+    return {f"{prefix}kernel_mean": conv_kernel(p["kernel_mean"]),
+            f"{prefix}kernel_log_sigma": conv_kernel(p["kernel_log_sigma"]),
+            f"{prefix}bias": _t(p["bias"])}
+
+
+def bayes_residual_block(p: dict, prefix: str) -> dict:
+    """`models.ResidualBlock(bayes=True)` from the Flax block (FlipoutConv_0,
+    FlipoutConv_1, Norm_0, Norm_1)."""
+    sd = {}
+    for i in (0, 1):
+        sd.update(flipout(p[f"FlipoutConv_{i}"], f"{prefix}conv{i + 1}."))
+        gn = p[f"Norm_{i}"]["GroupNorm_0"]
+        sd[f"{prefix}norm{i + 1}.weight"] = _t(gn["scale"])
+        sd[f"{prefix}norm{i + 1}.bias"] = _t(gn["bias"])
+    return sd
+
+
 def decoder(p: dict, num_layers: int, num_res_blocks: int) -> dict:
     """State dict of `models.Decoder` from the Flax `Decoder` params
     (Conv_0, Conv_1 the input convolutions, Conv_2 the head, Norm_0;
     ResidualBlock_i in call order, the two around SelfAttention_0 first;
-    Upsample_l's Conv_0)."""
+    Upsample_l's Conv_0; with `bayes_layer` FlipoutConv_0 and _1 the real
+    and imaginary heads). Grouped kernels keep Flax's group order."""
     L, R = num_layers, num_res_blocks
     sd = {**_conv(p["Conv_0"], "conv_in."), **_conv(p["Conv_1"], "conv_wide."),
           **_conv(p["Conv_2"], "head.")}
@@ -276,12 +306,159 @@ def decoder(p: dict, num_layers: int, num_res_blocks: int) -> dict:
         for r in range(R):
             sd.update(conv_block(p[f"ResidualBlock_{first + level * R + r}"],
                                  f"res.{level}.{r}."))
+    if "FlipoutConv_0" in p:
+        sd.update(flipout(p["FlipoutConv_0"], "flip_r."))
+        sd.update(flipout(p["FlipoutConv_1"], "flip_i."))
+    return _checked(p, sd)
+
+
+def bayes_decoder(p: dict, num_layers: int, num_res_blocks: int) -> dict:
+    """State dict of `models.BayesDecoder` from the Flax `BayesDecoder`
+    params: FlipoutConv_0 the stem; per tower t (real, then imaginary)
+    FlipoutConv_{1+2t} its stem and FlipoutConv_{2+2t} its head,
+    ResidualBlock_i in call order (the two around SelfAttention_t first),
+    Upsample_{t·L+l}'s Conv_0 and Norm_t."""
+    L, R = num_layers, num_res_blocks
+    sd = flipout(p["FlipoutConv_0"], "stem.")
+    sa = "SelfAttention_0" in p
+    per_tower = L * R + (2 if sa else 0)
+    for t in range(2):
+        pre = f"towers.{t}."
+        sd.update(flipout(p[f"FlipoutConv_{1 + 2 * t}"], pre + "stem."))
+        sd.update(flipout(p[f"FlipoutConv_{2 + 2 * t}"], pre + "head."))
+        rb = t * per_tower
+        if sa:
+            sd.update(bayes_residual_block(p[f"ResidualBlock_{rb}"],
+                                           pre + "sa.0."))
+            sd.update(self_attention(p[f"SelfAttention_{t}"], pre + "sa.1."))
+            sd.update(bayes_residual_block(p[f"ResidualBlock_{rb + 1}"],
+                                           pre + "sa.2."))
+            rb += 2
+        for level in range(L):
+            sd.update(_conv(p[f"Upsample_{t * L + level}"]["Conv_0"],
+                            f"{pre}up.{level}.conv."))
+            for r in range(R):
+                sd.update(bayes_residual_block(
+                    p[f"ResidualBlock_{rb + level * R + r}"],
+                    f"{pre}res.{level}.{r}."))
+        gn = p[f"Norm_{t}"]["GroupNorm_0"]
+        sd[pre + "norm.weight"], sd[pre + "norm.bias"] = \
+            _t(gn["scale"]), _t(gn["bias"])
+    return _checked(p, sd)
+
+
+def critic_z(p: dict) -> dict:
+    """State dict of `models.CriticZ` (Conv_i → convs.i, SelfAttention_i →
+    attn.i)."""
+    sd = {}
+    for i in range(sum(1 for k in p if k.startswith("Conv_"))):
+        sd.update(_conv(p[f"Conv_{i}"], f"convs.{i}."))
+        if f"SelfAttention_{i}" in p:
+            sd.update(self_attention(p[f"SelfAttention_{i}"], f"attn.{i}."))
+    return _checked(p, sd)
+
+
+def sgan(p: dict, stats: dict | None = None) -> dict:
+    """State dict of `models.SGAN` from the Flax `SGAN` params (Conv_i →
+    convs.i, with gen_mode the last Conv → out; BatchNorm_i scale/bias →
+    norms.i.weight/bias) and, with `stats`, its batch_stats (BatchNorm_i
+    mean/var → norms.i.running_mean/running_var)."""
+    n = sum(1 for k in p if k.startswith("BatchNorm_"))
+    sd = {}
+    for i in range(n):
+        sd.update(_conv(p[f"Conv_{i}"], f"convs.{i}."))
+        bn = p[f"BatchNorm_{i}"]
+        sd[f"norms.{i}.weight"], sd[f"norms.{i}.bias"] = \
+            _t(bn["scale"]), _t(bn["bias"])
+    if f"Conv_{n}" in p:
+        sd.update(_conv(p[f"Conv_{n}"], "out."))
+    _checked(p, sd)
+    if stats is not None:
+        for i in range(n):
+            node = stats[f"BatchNorm_{i}"]
+            sd[f"norms.{i}.running_mean"] = _t(node["mean"])
+            sd[f"norms.{i}.running_var"] = _t(node["var"])
+    return sd
+
+
+_COMPLEX_BN_PARAMS = ("gamma_rr", "gamma_ii", "gamma_ri", "beta_r", "beta_i")
+_COMPLEX_BN_STATS = ("mean_r", "mean_i", "vrr", "vii", "vri")
+
+
+def _complex_conv(p: dict, prefix: str) -> dict:
+    sd = {f"{prefix}{w}": conv_kernel(p[w]["kernel"])
+          for w in ("w_real", "w_imag")}
+    sd.update({f"{prefix}{k}": _t(p[k]) for k in
+               ("bias_real", "bias_imag", "modrelu_bias") if k in p})
+    return sd
+
+
+def pm_complex(p: dict, stats: dict | None = None,
+               num_layers: int = 4) -> dict:
+    """State dict of `models.PMComplex` from the Flax `PMComplex` params,
+    whose ComplexConv_j / ComplexBatchNorm_j are numbered in call order
+    (two of each a block: the `num_layers` down blocks, the bottom, then
+    per level up ComplexConvTranspose_l and its block; the head the last
+    ComplexConv), and, with `stats`, its batch_stats (each
+    ComplexBatchNorm_j's running statistics)."""
+    L = num_layers
+    blocks = ([f"down.{l}." for l in range(L)] + ["bottom."]
+              + [f"dec.{l}." for l in range(L)])
+    sd, bn_names = {}, []
+    for b, pre in enumerate(blocks):
+        for i in (0, 1):
+            sd.update(_complex_conv(p[f"ComplexConv_{2 * b + i}"],
+                                    f"{pre}conv{i + 1}."))
+            bn = p[f"ComplexBatchNorm_{2 * b + i}"]
+            sd.update({f"{pre}norm{i + 1}.{k}": _t(bn[k])
+                       for k in _COMPLEX_BN_PARAMS})
+            bn_names.append((f"ComplexBatchNorm_{2 * b + i}",
+                             f"{pre}norm{i + 1}."))
+    for l in range(L):
+        ct = p[f"ComplexConvTranspose_{l}"]
+        for w in ("w_real", "w_imag"):
+            sd[f"up.{l}.{w}.weight"] = conv_transpose_kernel(ct[w]["kernel"])
+            sd[f"up.{l}.{w}.bias"] = _t(ct[w]["bias"])
+    sd.update(_complex_conv(p[f"ComplexConv_{2 * len(blocks)}"], "head."))
+    _checked(p, sd)
+    if stats is not None:
+        for name, pre in bn_names:
+            sd.update({f"{pre}{k}": _t(stats[name][k])
+                       for k in _COMPLEX_BN_STATS})
+    return sd
+
+
+_INCEPTION_BLOCKS = (["_InceptionA_0", "_InceptionA_1", "_InceptionA_2",
+                      "_InceptionB_0"]
+                     + [f"_InceptionC_{i}" for i in range(4)]
+                     + ["_InceptionD_0", "_InceptionE_0", "_InceptionE_1"])
+
+
+def inception_v3(variables: dict) -> dict:
+    """State dict of `eval.inception.InceptionV3Features` from the Flax
+    variables ({"params": ...}) or params: the stem's _ConvBN_i → stem.i,
+    each block's _ConvBN_i → mixed.k.convs.i (blocks in call order)."""
+    p = variables.get("params", variables)
+
+    def conv_bn(q, prefix):
+        return {f"{prefix}weight": conv_kernel(q["Conv_0"]["kernel"]),
+                f"{prefix}scale": _t(q["scale"]),
+                f"{prefix}bias": _t(q["bias"])}
+
+    sd = {}
+    for i in range(5):
+        sd.update(conv_bn(p[f"_ConvBN_{i}"], f"stem.{i}."))
+    for k, name in enumerate(_INCEPTION_BLOCKS):
+        blk = p[name]
+        for i in range(len(blk)):
+            sd.update(conv_bn(blk[f"_ConvBN_{i}"], f"mixed.{k}.convs.{i}."))
     return _checked(p, sd)
 
 
 def patchgan(p: dict, stats: dict | None = None) -> dict:
     """State dict of `models.PatchGAN` from the Flax `PatchGAN` params
-    (Conv_i → convs.i.conv, Norm_j → norms.j, SelfAttention_0 → attn) and,
+    (Conv_i → convs.i.conv, whatever its kernel size; Norm_j → norms.j,
+    SelfAttention_0 → attn) and,
     with `stats`, its batch_stats (each SpectralNorm_i's u and σ →
     convs.i.u, convs.i.sigma). Without `stats` the map also converts a
     gradient tree."""

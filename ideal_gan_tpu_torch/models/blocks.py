@@ -84,22 +84,29 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def same_conv2d(x, weight, bias=None, stride=1, groups: int = 1):
+    """`F.conv2d` with Flax's "SAME" padding (module docstring): a symmetric
+    padding is passed to the convolution, an asymmetric one is applied with
+    `F.pad` first."""
+    stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    (t, b), (l, r) = (same_padding(n, k, s) for n, k, s in zip(
+        x.shape[-2:], weight.shape[-2:], stride))
+    if t == b and l == r:
+        return F.conv2d(x, weight, bias, stride, (t, l), groups=groups)
+    return F.conv2d(F.pad(x, (l, r, t, b)), weight, bias, stride,
+                    groups=groups)
+
+
 class SameConv2d(nn.Conv2d):
-    """`nn.Conv2d` with Flax's "SAME" padding (module docstring): a
-    symmetric padding is passed to the convolution, an asymmetric one is
-    applied with `F.pad` first."""
+    """`nn.Conv2d` with Flax's "SAME" padding (`same_conv2d`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride=1, bias: bool = True):
+                 stride=1, bias: bool = True, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, bias=bias)
+                         stride=stride, bias=bias, groups=groups)
 
     def _conv_forward(self, x, weight, bias):
-        (t, b), (l, r) = (same_padding(n, k, s) for n, k, s in zip(
-            x.shape[-2:], self.kernel_size, self.stride))
-        if t == b and l == r:
-            return F.conv2d(x, weight, bias, self.stride, (t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), weight, bias, self.stride)
+        return same_conv2d(x, weight, bias, self.stride, self.groups)
 
 
 class ConvBlock(nn.Module):
@@ -123,22 +130,40 @@ class ConvBlock(nn.Module):
 
 class ResidualBlock(nn.Module):
     """conv → norm → leaky_relu → conv → norm, plus the input (3×3
-    convolutions without bias; the JAX block's `groups` and `bayes` have no
-    caller on a ported path)."""
+    convolutions without bias, in `groups` groups). With `bayes` the
+    convolutions are Flipout convolutions (`models.bayes.FlipoutConv`, with
+    a bias) that always sample, as the JAX block calls them without
+    `deterministic`: its forward then needs a noise source, in train mode
+    and out of it."""
 
     def __init__(self, channels: int, norm: str = "instance_norm",
-                 dtype=None):
+                 groups: int = 1, bayes: bool = False, dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
+        self.bayes = bayes
+        if bayes:
+            from .bayes import FlipoutConv
+            self.conv1 = FlipoutConv(channels, channels)
+            self.conv2 = FlipoutConv(channels, channels)
+        else:
+            self.conv1 = nn.Conv2d(channels, channels, 3, padding=1,
+                                   groups=groups, bias=False)
+            self.conv2 = nn.Conv2d(channels, channels, 3, padding=1,
+                                   groups=groups, bias=False)
         self.norm1 = Norm(channels, norm, dtype=dtype)
-        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
         self.norm2 = Norm(channels, norm, dtype=dtype)
 
-    def forward(self, x):
-        h = self.norm1(dtype_conv(self.conv1, x, self.dtype))
+    def _conv(self, conv, x, noise):
+        if self.bayes:
+            return conv(x, deterministic=False, noise=noise)
+        return dtype_conv(conv, x, self.dtype)
+
+    def forward(self, x, noise=None):
+        """`noise`: the Flipout convolutions' source (`prob.noise`), with
+        `bayes` only."""
+        h = self.norm1(self._conv(self.conv1, x, noise))
         h = get_activation("leaky_relu")(h)
-        h = self.norm2(dtype_conv(self.conv2, h, self.dtype))
+        h = self.norm2(self._conv(self.conv2, h, noise))
         return x.to(h.dtype) + h
 
 

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.nans import check_kernel_outputs
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -134,7 +136,11 @@ class Kernel:
         return getattr(self._lib, symbol)
 
 
-def check_launch(kernel: Kernel, rc: int) -> None:
+def check_launch(kernel: Kernel, rc: int, *outputs) -> None:
+    """Raise where the launch failed; under `--debug_nans`
+    (`utils.nans`), also where one of the `outputs` the kernel wrote
+    holds a NaN."""
     if rc != 0:
         raise RuntimeError(f"{kernel.name}: CUDA kernel launch failed with "
                            f"error code {rc}")
+    check_kernel_outputs(kernel.name, *outputs)

@@ -402,7 +402,7 @@ def convlstm_forward(x, k_merged, bias, activation="leaky_relu",
             h_buf[dst].data_ptr(), None if last else c_buf[dst].data_ptr(),
             nb, cin, f, h, w, int(e > 0), x.device.index, stream)
         kern.launches += 1
-        check_launch(kern, rc)
+        check_launch(kern, rc, h_buf[dst], None if last else c_buf[dst])
     return h_buf[ne % 2].permute(0, 2, 3, 1)
 
 
@@ -507,7 +507,8 @@ def _forward_bf16(x, k_merged, bias):
             f if last else cp, None if last else cs[e % 2].data_ptr(), None,
             nb, cin, f, h, w, cp, gpb, int(e > 0), dev.index, stream)
         kern.launches += 1
-        check_launch(kern, rc)
+        check_launch(kern, rc, out if last else bufs[(e + 1) % 2],
+                     None if last else cs[e % 2])
     return out
 
 
@@ -577,7 +578,7 @@ def _kernel_states(x, k_merged, bias, n_echoes):
                  hs[e].data_ptr(), cs[e].data_ptr(),
                  nb, cin, f, h, w, int(e > 0), dev.index, stream)
         kern.launches += 1
-        check_launch(kern, rc)
+        check_launch(kern, rc, hs[e], cs[e])
     return hs, cs
 
 
@@ -605,7 +606,8 @@ def _kernel_states_bf16(x, wpack, bias, cp, gpb):
                  c32[e % 2].data_ptr() if e + 2 < ne else None,
                  nb, cin, f, h, w, cp, gpb, int(e > 0), dev.index, stream)
         kern.launches += 1
-        check_launch(kern, rc)
+        check_launch(kern, rc, stack[e + 1], cs[e],
+                     c32[e % 2] if e + 2 < ne else None)
     return stack, cs
 
 
@@ -653,7 +655,9 @@ def _reverse_sweep_bf16(x, k_merged, bias, g, stack, cs, wpack, need_dx):
             nb, cin, f, h, w, cp, gpb, cpb, int(has_state), dev.index,
             stream)
         kern.launches += 1
-        check_launch(kern, rc)
+        check_launch(kern, rc, dz, dc_out if has_state else None,
+                     dh_out if has_state else None,
+                     dx[:, e] if need_dx else None)
         dh_in, dc_in = dh_out, dc_out
     dk = torch.empty_like(k_merged)
     db = torch.empty_like(bias)
@@ -662,7 +666,7 @@ def _reverse_sweep_bf16(x, k_merged, bias, g, stack, cs, wpack, need_dx):
         part_db.shape[0], 4 * f, dk.data_ptr(), db.data_ptr(), dev.index,
         stream)
     kern.launches += 1
-    check_launch(kern, rc)
+    check_launch(kern, rc, dk, db)
     return dx, dk, db
 
 
@@ -705,7 +709,9 @@ def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
             x_b, part.data_ptr(), part_b.data_ptr(), n_slots, nb, cin, f, h,
             w, int(has_state), dev.index, stream)
         kern.launches += 1
-        check_launch(kern, rc)
+        check_launch(kern, rc, dgates, dc_out if has_state else None,
+                     dh_out if has_state else None,
+                     dx[:, e] if need_dx else None)
         dh_in, dc_in = dh_out, dc_out
     dk = torch.empty_like(k_merged)
     db = torch.empty_like(bias)
@@ -713,7 +719,7 @@ def _reverse_sweep(x, k_merged, bias, g, hs, cs, need_dx):
         part.data_ptr(), part_b.data_ptr(), dk.data_ptr(), db.data_ptr(),
         n_slots, part.shape[1], 4 * f, dev.index, stream)
     kern.launches += 1
-    check_launch(kern, rc)
+    check_launch(kern, rc, dk, db)
     return dx, dk, db
 
 

@@ -189,7 +189,7 @@ def _launch_fit(s_re, s_im, phi, r2s, mp, te_flat, r_re, r_im, uniform_te,
         _phasor_mode(uniform_te), fm_sc, r2_sc, rho_sc, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     FIT_KERNEL.launches += 1
-    check_launch(FIT_KERNEL, rc)
+    check_launch(FIT_KERNEL, rc, r_re, r_im)
 
 
 def fit_rho_planar(s_re, s_im, phi, r2s, te, field=1.5, r2_sc=R2_SC,
@@ -308,7 +308,7 @@ def _cycle_kernel(acqs, param_maps, te, field, r2_sc, fm_sc, rho_sc,
         _phasor_mode(uniform_te), fm_sc, r2_sc, rho_sc, acqs.device.index,
         torch.cuda.current_stream(acqs.device).cuda_stream)
     CYCLE_KERNEL.launches += 1
-    check_launch(CYCLE_KERNEL, rc)
+    check_launch(CYCLE_KERNEL, rc, rho, recon)
     return rho, recon
 
 
@@ -443,7 +443,7 @@ def _synth_kernel(out_maps, te, field, r2_sc, fm_sc, rho_sc, species,
         out_maps.device.index,
         torch.cuda.current_stream(out_maps.device).cuda_stream)
     FORWARD_KERNEL.launches += 1
-    check_launch(FORWARD_KERNEL, rc)
+    check_launch(FORWARD_KERNEL, rc, out)
     return out
 
 
@@ -549,7 +549,7 @@ def _mag_fit_kernel(acqs, out_maps, te, field, r2_sc, rho_sc, species,
         _phasor_mode(uniform_te), r2_sc, rho_sc, rho_sc ** 2, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     MAG_FIT_KERNEL.launches += 1
-    check_launch(MAG_FIT_KERNEL, rc)
+    check_launch(MAG_FIT_KERNEL, rc, rho, recon, ls, unc)
     return rho, recon, ls, unc
 
 

@@ -6,8 +6,7 @@ Numerics follow the JAX package: the Bessel functions through the
 exponentially scaled `torch.special.i0e` / `i1e` (differentiable), σ
 floored at 1e-10, the Rician's log_prob zeroed for x ≤ 0, its mean and
 variance through the Laguerre-½ polynomial. Samplers take an explicit
-`torch.Generator`. Not ported yet: `Rician.sample`, which no ported path
-draws.
+`torch.Generator` (`Rician.sample` also a `prob.noise` source).
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ import math
 import torch
 from torch.nn import functional as F
 from torch.special import i0e, i1e
+
+from .noise import as_noise
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -107,3 +108,14 @@ class Rician:
     def mode_param(self) -> torch.Tensor:
         """ν, the trainers' 'clean signal' point estimate."""
         return self.nu
+
+    def sample(self, generator, sample_shape=()) -> torch.Tensor:
+        """√((ν + σX)² + (σY)²) with X, Y ~ N(0, 1) of shape sample_shape +
+        ν's, X drawn before Y from `generator` (a `torch.Generator` on ν's
+        device, or a `prob.noise` source)."""
+        shape = tuple(sample_shape) + tuple(self.nu.shape)
+        noise = as_noise(generator)
+        x, y = (noise.normal(shape, self.nu) for _ in range(2))
+        sig = self._sig()
+        return torch.sqrt(torch.square(self.nu + sig * x)
+                          + torch.square(sig * y))

@@ -55,18 +55,11 @@ from ideal_gan_tpu_torch.train import teaug as tteaug  # noqa: E402
 from ideal_gan_tpu_torch.train import unsup as tunsup  # noqa: E402
 
 from test_torch_teaug import _random_params, _te  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 U = 2.0 ** -8  # bf16's unit roundoff
 F_SMALL, LAYERS, SIZE, NE = 4, 3, 64, 6  # the steps' nets and batch
 LOSS_FACTOR, LEAF_SEL, LEAF_TOL, APPLIED, MIN_RESOLVED = 3.0, 0.1, 0.25, 0.1, 3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -68,18 +68,11 @@ from ideal_gan_tpu_torch.train import gan as tgan  # noqa: E402
 from test_torch_bf16 import LEAF_TOL, MIN_RESOLVED, _resolved  # noqa: E402
 from test_torch_models import flax_params, nchw, nhwc  # noqa: E402
 from test_train_gan_ldm import mag_phase_batch, tiny_cfg  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 FWD, LOSS, GRAD, STATS = 1e-4, 2e-5, 2e-2, 1e-5
 VGG_SIZE = 48
 BF16_LOSS_ULPS, BF16_APPLIED = 1.0, 100.0
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

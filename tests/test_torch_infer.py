@@ -29,6 +29,7 @@ from ideal_gan_tpu.train import unsup as junsup  # noqa: E402
 from ideal_gan_tpu_torch.cli import common, infer, roi_analysis  # noqa: E402
 
 from test_torch_models import flax_params  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 NPZ_KEYS = {"maps", "pdff", "r2s_hz", "field_hz", "slices_per_s"}
@@ -160,7 +161,16 @@ for n in ("ideal_gan_tpu_torch.cli.train_unsup",
           "ideal_gan_tpu_torch.eval.stats",
           "ideal_gan_tpu_torch.cli.roi_realphantom",
           "ideal_gan_tpu_torch.cli.phantom_parity",
-          "ideal_gan_tpu_torch.cli.stats_analysis"):
+          "ideal_gan_tpu_torch.cli.stats_analysis",
+          "ideal_gan_tpu_torch.models.bayes",
+          "ideal_gan_tpu_torch.models.complexnn",
+          "ideal_gan_tpu_torch.models.discriminator",
+          "ideal_gan_tpu_torch.models.vae",
+          "ideal_gan_tpu_torch.losses.gan",
+          "ideal_gan_tpu_torch.prob.noise",
+          "ideal_gan_tpu_torch.eval.inception",
+          "ideal_gan_tpu_torch.cli.test_gradients",
+          "ideal_gan_tpu_torch.utils.nans"):
     assert n in names, n
 print(len(names))
 """

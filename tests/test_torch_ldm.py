@@ -63,19 +63,12 @@ from ideal_gan_tpu_torch.train import ldm as tl  # noqa: E402
 from test_torch_gan import _fill as _fill_gan  # noqa: E402
 from test_torch_models import nchw, nhwc  # noqa: E402
 from test_train_gan_ldm import mag_phase_batch, tiny_cfg  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 FWD, LOSS, GRAD, STEP, ADAM = 1e-4, 2e-5, 2e-2, 1e-5, 1e-6
 TINY = dict(n_timesteps=8, n_ldm_filters=8, dim_mults=(1, 2), in_res=8,
             epochs=2, infer_steps=4)
 CH, NB = 6, 2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -50,6 +50,7 @@ from ideal_gan_tpu_torch.utils import Checkpoint  # noqa: E402
 
 from test_torch_infer import _flat  # noqa: E402
 from test_torch_teaug import _random_params, _te, _worst_grad  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 F_SMALL, LAYERS, SIZE, NE = 4, 2, 32, 6
 FIELDS = ("rho", "recon", "demod", "ls_coeffs", "uncertainty")

@@ -20,6 +20,7 @@ from ideal_gan_tpu.ops import pallas_ideal as jpi  # noqa: E402
 from ideal_gan_tpu_torch import ops  # noqa: E402
 
 from test_torch_physics import make_maps, nonuniform_te, uniform_te  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 
 def _fit_inputs(te, h=16, w=128, seed=7):

@@ -51,16 +51,9 @@ from ideal_gan_tpu_torch.train import teaug as tteaug  # noqa: E402
 from ideal_gan_tpu_torch.train import unsup as tunsup  # noqa: E402
 
 from test_torch_teaug import _random_params, _te  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 F_SMALL, LAYERS, SIZE, NE = 4, 2, 32, 6
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

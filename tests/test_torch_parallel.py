@@ -287,6 +287,7 @@ if __name__ == "__main__":
 
 # ---------------------------------------------------------------- tests
 import pytest  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 
 def run_ranks(argv_of, out_dir: Path, n: int = 2,
@@ -354,14 +355,6 @@ def ranks(tmp_path_factory, jax_weights):
     run_ranks(lambda i: [sys.executable, __file__, str(i), init, str(out),
                          str(out / "weights.pt")], out)
     return [dict(np.load(out / f"rank{i}.npz")) for i in range(2)]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("family", FAMILIES)

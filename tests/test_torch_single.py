@@ -35,18 +35,9 @@ from ideal_gan_tpu_torch.train import single as tsingle  # noqa: E402
 from ideal_gan_tpu_torch.utils import Checkpoint  # noqa: E402
 
 from test_torch_models import flax_params  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 F_SMALL = 4
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The nets here are tiny: under the Tier-1 command's parallel workers
-    torch's thread pool costs more time than it saves."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from ideal_gan_tpu_torch import ops
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -26,16 +27,6 @@ def chip_smoke(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
     return chip_smoke
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The rehearsals' tensors are tiny: under the Tier-1 command's parallel
-    workers torch's thread pool costs more time than it saves."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _check_entries(entries):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from ideal_gan_tpu_torch import ops
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -42,6 +42,7 @@ from ideal_gan_tpu_torch.train import teaug as tteaug  # noqa: E402
 from ideal_gan_tpu_torch.utils import Checkpoint  # noqa: E402
 
 from test_torch_models import flax_params, nchw, nhwc  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 F_SMALL, LAYERS, SIZE, NE = 4, 2, 32, 6
 

@@ -43,6 +43,7 @@ from ideal_gan_tpu_torch.train import unsup as tunsup  # noqa: E402
 from ideal_gan_tpu_torch.utils import Checkpoint  # noqa: E402
 
 from test_torch_models import flax_params  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 
 def _t(a):
