@@ -1,0 +1,9 @@
+"""The card's idle share over the traced sub-window of whole steps:
+1 - (the union of the device's kernel, copy and memset intervals) / (the
+window), in %."""
+
+
+def read(ctx):
+    if ctx.kind != "train_steps" or ctx.trace is None:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
