@@ -34,13 +34,16 @@ R2* clipped to [0, 1], ×255 as uint16, PatientName
 Volunteer^NNN^-`--method_prefix`), `png` panels.png (PDFF | R2* | field
 rows for `--n_plot` slices; matplotlib, which the port does not depend
 on). Prints the
-steady-state throughput measured after a warm-up chunk. `--map` PDFF, R2s
+steady-state throughput measured after a warm-up chunk, and the padding's
+share of the slices it computed (the last chunk's repeated slices: choose
+`--infer_batch` by both). `--map` PDFF, R2s
 and Water serve the same maps; with PDFF-var the maps' ρ is the GLS estimate, and the
 covariance `rho_var` is computed and discarded, as the JAX CLI discards it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
 
@@ -51,7 +54,7 @@ from ..data.dicom import write_map_series
 from ..eval.roi import maps_to_display
 from ..physics.constants import FM_SC, R2_SC
 from .common import load_cohorts, resolve_device, setup_experiment
-from .roi_analysis import _per_slice, make_infer_run
+from .roi_analysis import SERVED, _per_slice, make_infer_run
 
 EXPORT_FORMATS = ("npz", "dicom", "png")
 
@@ -131,9 +134,11 @@ def main(argv=None):
     bs = max(int(cfg["infer_batch"]), 1)
     nw = min(bs, len(acqs))
     _per_slice(run, acqs[:nw], te[:nw], bs, dev)
+    before = dataclasses.replace(SERVED)
     t0 = time.perf_counter()
     maps, _ = _per_slice(run, acqs, te, bs, dev)
     dt = time.perf_counter() - t0
+    padded = (SERVED - before).padded_share
     slices_per_s = len(acqs) / max(dt, 1e-9)
 
     written = []
@@ -145,7 +150,8 @@ def main(argv=None):
         written.append(export_png(out_dir, cfg, maps))
     pdff, r2s, _ = maps_to_display(maps)
     print(f"throughput: {slices_per_s:.1f} slices/s steady-state "
-          f"({dt * 1e3 / len(acqs):.1f} ms/slice)")
+          f"({dt * 1e3 / len(acqs):.1f} ms/slice; padding "
+          f"{100 * padded:.1f} % of the computed slices)")
     print(f"PDFF mean {float(pdff.mean()):.4f}  "
           f"R2* mean {float(r2s.mean() * R2_SC):.2f} Hz")
     for p in written:

@@ -45,6 +45,7 @@ package (`cli.roi_realphantom` fits them).
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -94,6 +95,41 @@ def serving_devices(device, devices=None) -> list:
                     if i != dev.index]
 
 
+# the profiler ranges of the serving loop: one `VOLUME_RANGE` a call of
+# `_per_slice`, holding the others
+VOLUME_RANGE = "serve volume"
+PAD_RANGE = "serve pad"
+TO_CARD_RANGE = "serve to card"
+RUN_RANGE = "serve run"
+TO_HOST_RANGE = "serve to host"
+ASSEMBLE_RANGE = "serve assemble"
+
+
+@dataclasses.dataclass
+class ServeCount:
+    """What `_per_slice` has served: chunks run, slices served and slices
+    computed as padding of a last chunk. The difference of two readings
+    counts what was served between them."""
+    chunks: int = 0
+    slices: int = 0
+    padded: int = 0
+
+    def __sub__(self, other: ServeCount) -> ServeCount:
+        return ServeCount(self.chunks - other.chunks,
+                          self.slices - other.slices,
+                          self.padded - other.padded)
+
+    @property
+    def padded_share(self) -> float:
+        """The padding's share of the computed slices."""
+        computed = self.slices + self.padded
+        return self.padded / computed if computed else 0.0
+
+
+# every call of `_per_slice` in the process
+SERVED = ServeCount()
+
+
 def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
     """Chunked inference over the cohort: chunks of `batch_size` slices (the
     last padded by repeating its final slice, then trimmed) go to `device`,
@@ -102,9 +138,18 @@ def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
     devices (the most that divide the chunk), every part
     launched before any comes back (the cards run at once), and the rows
     returned in order. Returns the tuple of `run`'s outputs concatenated
-    over the cohort, as numpy arrays."""
+    over the cohort, as numpy arrays.
+
+    Each step is a profiler range inside `VOLUME_RANGE`: `PAD_RANGE` the
+    padding, per part `TO_CARD_RANGE` the copies to its device and
+    `RUN_RANGE` the call of `run`, per chunk `TO_HOST_RANGE` every output's
+    copy back (the wait for the card included) and `ASSEMBLE_RANGE` the
+    concatenation over parts and the trim; the last chunk's
+    `ASSEMBLE_RANGE` also holds the concatenation over chunks. `SERVED`
+    counts the chunks and slices."""
     from ..parallel.mesh import split_count
     from ..parallel.serving import device_context
+    rf = torch.profiler.record_function
     bs = max(int(batch_size), 1)
     if isinstance(run, Replicas):
         n = split_count(bs, len(run))
@@ -112,24 +157,40 @@ def _per_slice(run, acqs, te, batch_size: int = 1, device="cuda"):
     else:
         n, parts = 1, [(run, resolve_device(device))]
     per = bs // n
-    outs = []
-    for i in range(0, len(acqs), bs):
-        a = np.asarray(acqs[i:i + bs])
-        t = np.asarray(te[i:i + bs])
-        k = len(a)
-        if k < bs:
-            a = np.concatenate([a, np.repeat(a[-1:], bs - k, axis=0)])
-            t = np.concatenate([t, np.repeat(t[-1:], bs - k, axis=0)])
-        pending = []
-        for j, (fn, dev) in enumerate(parts):
-            rows = slice(j * per, (j + 1) * per)
-            with device_context(dev):
-                pending.append(fn(torch.from_numpy(a[rows]).to(dev),
-                                  torch.from_numpy(t[rows]).to(dev)))
-        o = tuple(np.concatenate([p[m].cpu().numpy() for p in pending])
-                  for m in range(len(pending[0])))
-        outs.append(tuple(x[:k] for x in o))
-    return tuple(np.concatenate(xs) for xs in zip(*outs))
+    outs, volume = [], ()
+    with rf(VOLUME_RANGE):
+        for i in range(0, len(acqs), bs):
+            a = np.asarray(acqs[i:i + bs])
+            t = np.asarray(te[i:i + bs])
+            k = len(a)
+            if k < bs:
+                with rf(PAD_RANGE):
+                    a = np.concatenate([a, np.repeat(a[-1:], bs - k, axis=0)])
+                    t = np.concatenate([t, np.repeat(t[-1:], bs - k, axis=0)])
+            pending = []
+            for j, (fn, dev) in enumerate(parts):
+                rows = slice(j * per, (j + 1) * per)
+                with device_context(dev):
+                    with rf(TO_CARD_RANGE):
+                        a_dev = torch.from_numpy(a[rows]).to(dev)
+                        t_dev = torch.from_numpy(t[rows]).to(dev)
+                    with rf(RUN_RANGE):
+                        pending.append(fn(a_dev, t_dev))
+                    del a_dev, t_dev  # freed as the call returns
+            with rf(TO_HOST_RANGE):
+                host = [[p[m].cpu() for p in pending]
+                        for m in range(len(pending[0]))]
+            with rf(ASSEMBLE_RANGE):
+                o = tuple(np.concatenate([h.numpy() for h in hs])
+                          for hs in host)
+                del host  # freed before the next chunk's copies
+                outs.append(tuple(x[:k] for x in o))
+                if i + bs >= len(acqs):
+                    volume = tuple(np.concatenate(xs) for xs in zip(*outs))
+            SERVED.chunks += 1
+            SERVED.slices += k
+            SERVED.padded += bs - k
+    return volume
 
 
 def experiment_settings(cfg, defaults: dict) -> dict:

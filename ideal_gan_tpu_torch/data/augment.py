@@ -1,14 +1,21 @@
 """Training-time augmentation (port of `ideal_gan_tpu/data/augment.py`'s
 `random_geometric`, `random_fm_scale`, `bipolar_phase_row`,
 `random_echo_count` and `random_phase_offset`). A `torch.Generator` takes the place of a JAX key: the
-draws differ from the JAX package's, the distribution is the same."""
+draws differ from the JAX package's, the distribution is the same.
+
+The tensor augmentations a trainer's loop body applies to its host batch
+each run inside the profiler range `AUGMENT_RANGE`."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+# the profiler range around each tensor augmentation of a batch
+AUGMENT_RANGE = "batch augment"
 
+
+@torch.profiler.record_function(AUGMENT_RANGE)
 def random_geometric(generator: torch.Generator,
                      x: torch.Tensor) -> torch.Tensor:
     """Random 90° rotation (k ∈ {0, 1, 2}), then horizontal and vertical
@@ -25,6 +32,7 @@ def random_geometric(generator: torch.Generator,
     return x.contiguous()
 
 
+@torch.profiler.record_function(AUGMENT_RANGE)
 def random_fm_scale(generator: torch.Generator, maps: torch.Tensor,
                     mean: float) -> torch.Tensor:
     """Scale the field-map channel (row 2, channel 0 of MEBCRN maps (nb, k,
@@ -35,6 +43,7 @@ def random_fm_scale(generator: torch.Generator, maps: torch.Tensor,
     return out
 
 
+@torch.profiler.record_function(AUGMENT_RANGE)
 def bipolar_phase_row(generator: torch.Generator,
                       maps: torch.Tensor) -> torch.Tensor:
     """Append a synthetic bipolar-gradient phase row to MEBCRN maps (nb, k,
@@ -58,6 +67,7 @@ def random_echo_count(rng: np.random.Generator, lo: int = 3,
     return int(rng.integers(lo, hi))
 
 
+@torch.profiler.record_function(AUGMENT_RANGE)
 def random_phase_offset(generator: torch.Generator | None, acqs: torch.Tensor,
                         maps: torch.Tensor, unwrapped: bool = False,
                         offset: float | None = None):

@@ -43,6 +43,8 @@ import torch.distributed as dist
 
 _log = logging.getLogger(__name__)
 _GROUPS: dict = {}
+# the profiler range around a batch's placement on the card (`shard_batch`)
+TO_CARD_RANGE = "batch to card"
 
 
 def world() -> tuple[int, int]:
@@ -219,9 +221,10 @@ def replicate(mesh: Mesh) -> Placement:
     return Placement(mesh, False)
 
 
+@torch.profiler.record_function(TO_CARD_RANGE)
 def shard_batch(batch, mesh: Mesh):
     """Every tensor of `batch` with its leading axis split over 'data': this
-    rank's rows, on its device."""
+    rank's rows, on its device; the profiler range `TO_CARD_RANGE`."""
     return batch_sharding(mesh)(batch)
 
 

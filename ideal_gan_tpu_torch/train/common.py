@@ -57,6 +57,8 @@ def linear_decay_schedule(lr: float, total_steps: int,
 
 # the profiler range around an optimizer step
 STEP_RANGE = "adam step"
+# the profiler range around `batch_iterator`'s gather of one batch
+GATHER_RANGE = "batch gather"
 
 
 def compute_dtype(cfg):
@@ -203,13 +205,17 @@ def make_adam(schedule, beta_1: float = 0.9, beta_2: float = 0.9999,
 
 def batch_iterator(arrays, batch_size: int, rng: np.random.Generator,
                    shuffle: bool = True, drop_remainder: bool = True):
-    """Host-side shuffled batch iterator over aligned numpy arrays."""
+    """Host-side shuffled batch iterator over aligned numpy arrays. Each
+    batch's gather is the profiler range `GATHER_RANGE`, closed before the
+    batch is yielded."""
     n = len(arrays[0])
     idx = rng.permutation(n) if shuffle else np.arange(n)
     stop = n - (n % batch_size) if drop_remainder else n
     for i in range(0, stop, batch_size):
         sel = idx[i:i + batch_size]
-        yield tuple(a[sel] for a in arrays)
+        with torch.profiler.record_function(GATHER_RANGE):
+            batch = tuple(a[sel] for a in arrays)
+        yield batch
 
 
 @dataclasses.dataclass

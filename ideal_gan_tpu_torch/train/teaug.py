@@ -66,6 +66,8 @@ DEFAULTS = dict(
     R2_SelfAttention=False, FM_SelfAttention=True,
 )
 _VETNET = ("PM-Gen", "VET-Net", "multi-decod")
+# the profiler range around a batch's TE draw (`sample_te`)
+TE_DRAW_RANGE = "batch te draw"
 
 
 def build_model(cfg):
@@ -100,10 +102,11 @@ def build_r2_model(cfg) -> UNet:
                 dtype=compute_dtype(cfg), remat=bool(cfg.get("remat")))
 
 
+@torch.profiler.record_function(TE_DRAW_RANGE)
 def sample_te(generator: torch.Generator, cfg, bs: int) -> torch.Tensor:
     """One TE train for a batch, with the trainer's per-field presets
     (3 T; the bipolar-gradient spacing), as (bs, ne, 1) float32 on the
-    CPU."""
+    CPU; the profiler range `TE_DRAW_RANGE`."""
     ne = cfg["n_echoes"]
     if cfg["field"] == 3.0:
         return physics.sample_te_train(generator, ne, bs, te1_d=0.4e-3,

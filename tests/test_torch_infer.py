@@ -137,7 +137,6 @@ for n in ("ideal_gan_tpu_torch.cli.train_unsup",
           "ideal_gan_tpu_torch.prob",
           "ideal_gan_tpu_torch.prob.distributions",
           "ideal_gan_tpu_torch.ops.ideal",
-          "ideal_gan_tpu_torch.cli.profile_train",
           "ideal_gan_tpu_torch.train.common",
           "ideal_gan_tpu_torch.losses.regs",
           "ideal_gan_tpu_torch.data.augment",
